@@ -1,0 +1,252 @@
+"""The codec's public API in PyTorch: ``BVRNNCodecModel``.
+
+Port of ``bvsc_tpu/codec.py`` in reference-parity mode (float32, TF32 off):
+mel frontend -> BVRNN encode scan -> BVRNN decode -> causal vocoder.  The
+vocoder's residual stacks always go through ``ops.amp_resblock``: on a CUDA
+device that is the hand-written kernel, and no option sends CUDA tensors to
+the plain path.
+
+Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
+package, so both packages see the same padded input; the padded frames
+carry 0.5 codes.  PLC, streaming, the serving engines and the fast-serving
+knobs are later slices (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from bvsc_tpu_torch.config import CodecConfig, load_config
+from bvsc_tpu_torch.convert import load_bvrnn_npz, to_torch
+from bvsc_tpu_torch.device import resolve_device, set_parity_mode
+from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
+from bvsc_tpu_torch.models import vocoder as voc_mod
+from bvsc_tpu_torch.ops.mel import MelFrontend
+
+# -10 dB input scaling, undone after the vocoder
+SCALING = 10 ** (-10 / 20)
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
+
+_FAST_SERVING = "fast-serving mode (ROADMAP.md, 'Modules still to port')"
+
+
+def _not_ported(what: str, item: str = _FAST_SERVING) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with {item}")
+
+
+class BVRNNCodecModel:
+    """Bitrate-scalable neural speech codec (API of ``bvsc_tpu``'s model)."""
+
+    def __init__(
+        self,
+        config_path: str = DEFAULT_CONFIG,
+        bvrnn_chkpt_path: str | None = None,
+        vocoder_chkpt_path: str | None = None,
+        *,
+        config: CodecConfig | None = None,
+        bvrnn_params: dict | None = None,
+        vocoder_params: dict | None = None,
+        seed: int = 0,
+        length_bucket: int = 64,
+        precision: str = "highest",
+        device: str | torch.device | None = None,
+        quantize: str | None = None,
+        fused_cell: bool | str | None = None,
+        approx_snake: bool | None = None,
+        voc_dtype: str | None = None,
+    ):
+        """``bvrnn_params`` / ``vocoder_params`` are port trees (see
+        ``convert``); ``bvrnn_chkpt_path`` is a flat ``.npz``.  With neither
+        the weights are random, from ``seed``.  ``device`` defaults to CUDA
+        and raises without a card; pass ``device='cpu'`` for the CPU."""
+        if precision != "highest":
+            raise _not_ported(f"precision={precision!r}")
+        if quantize is not None:
+            raise _not_ported(f"quantize={quantize!r}")
+        if fused_cell:
+            raise _not_ported(f"fused_cell={fused_cell!r}")
+        if approx_snake:
+            raise _not_ported("approx_snake=True")
+        if voc_dtype not in (None, "f32"):
+            raise _not_ported(f"voc_dtype={voc_dtype!r}")
+        if vocoder_chkpt_path is not None:
+            raise _not_ported(
+                "loading a vocoder checkpoint",
+                "the trained vocoder as a JAX-free artifact (ROADMAP.md)",
+            )
+        self.device = resolve_device(device)
+        set_parity_mode()
+        self.conf = config if config is not None else load_config(config_path)
+        conf = self.conf
+        self.length_bucket = length_bucket
+        self.bvrnn_cfg = bvrnn_mod.BVRNNConfig(
+            x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim, var_bit=conf.var_bit
+        )
+        self.frontend = MelFrontend(
+            sampling_rate=conf.fs,
+            n_fft=conf.winsize,
+            num_mels=conf.num_mels,
+            hop_size=conf.hopsize,
+            fmin=conf.fmin,
+            fmax=conf.fmax,
+            padding_left=conf.mel_pad_left,
+            device=self.device,
+        )
+        seed_bvrnn, seed_voc = np.random.SeedSequence(seed).generate_state(2)
+        if bvrnn_params is None:
+            if bvrnn_chkpt_path is None:
+                bvrnn_params = bvrnn_mod.init_bvrnn_params(
+                    seed_bvrnn, self.bvrnn_cfg, log_sigma_init=conf.log_sigma_init
+                )
+            elif bvrnn_chkpt_path.endswith(".npz"):
+                bvrnn_params = load_bvrnn_npz(bvrnn_chkpt_path)
+            else:
+                raise _not_ported(
+                    "loading a non-npz BVRNN checkpoint",
+                    "the trained vocoder as a JAX-free artifact (ROADMAP.md)",
+                )
+        if vocoder_params is None:
+            vocoder_params = voc_mod.init_generator_params(seed_voc, conf.vocoder_config)
+        self.bvrnn_params = to_torch(bvrnn_params, self.device)
+        self.vocoder_params = to_torch(vocoder_params, self.device)
+        self.kernel_blocks = voc_mod.prepare_kernel_params(
+            self.vocoder_params, conf.vocoder_config
+        )
+
+    # -- helpers ------------------------------------------------------------
+
+    def _pad_length(self, length: int) -> int:
+        """Round up to the length bucket (a multiple of hop)."""
+        bucket = self.conf.hopsize * self.length_bucket
+        return int(np.ceil(max(length, 1) / bucket) * bucket)
+
+    def bits_per_frame(self, bitrate) -> float | np.ndarray:
+        """bps -> bits/frame, half-to-even rounding; a scalar or a per-frame
+        array (VBR schedules)."""
+        bits = np.round(np.asarray(bitrate, np.float64) * self.conf.hopsize / self.conf.fs)
+        return float(bits) if bits.ndim == 0 else bits.astype(np.float32)
+
+    def _frame_bits(self, bitrate, batch: int, L: int, Lp: int, n_frames: int) -> torch.Tensor:
+        """bps (scalar or per-frame) -> (batch, frames of Lp) bits/frame;
+        padded frames get 0 bits."""
+        bits = self.bits_per_frame(bitrate)
+        Tp = self.frontend.num_frames(Lp)
+        if np.ndim(bits):
+            expected = (n_frames,) if np.ndim(bits) == 1 else (batch, n_frames)
+            if np.shape(bits) != expected:
+                raise ValueError(
+                    f"per-frame bitrate shape {np.shape(bits)} != {expected} "
+                    f"({n_frames} frames for {L} samples)"
+                )
+            pad = [(0, 0)] * (np.ndim(bits) - 1) + [(0, Tp - n_frames)]
+            bits = np.pad(bits, pad)
+        bits = torch.as_tensor(bits, dtype=torch.float32, device=self.device)
+        return torch.broadcast_to(bits, (batch, Tp))
+
+    def _as_input(self, x, ndim: int, what: str) -> tuple[torch.Tensor, bool]:
+        """To a float32 tensor on the device, promoting a missing batch axis."""
+        if not isinstance(x, torch.Tensor):
+            x = np.array(x, np.float32)  # a copy: the caller's array may be read-only
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        squeeze = x.dim() == ndim - 1
+        if squeeze:
+            x = x[None]
+        if x.dim() != ndim:
+            raise ValueError(f"{what} has shape {tuple(x.shape)}")
+        return x, squeeze
+
+    def _mel(self, x: torch.Tensor) -> torch.Tensor:
+        """Padded waveform (B, Lp) -> log-mel frames (B, T, M)."""
+        return self.frontend(x * SCALING).transpose(1, 2)
+
+    def _vocode(self, mel: torch.Tensor, length: int) -> torch.Tensor:
+        """Mel (B, M, T) -> waveform (B, length), residual stacks through the
+        kernel."""
+        wav = voc_mod.generator_apply_kernel(
+            self.vocoder_params, self.kernel_blocks, self.conf.vocoder_config, mel, length
+        )
+        return wav[:, 0, :] / SCALING
+
+    def _h0(self, batch: int) -> torch.Tensor:
+        return torch.zeros(batch, self.bvrnn_cfg.h_dim, device=self.device)
+
+    def _pad_codes(self, codes: torch.Tensor, frames: int) -> torch.Tensor:
+        return torch.nn.functional.pad(codes, (0, 0, 0, frames - codes.shape[1]), value=0.5)
+
+    # -- public API ----------------------------------------------------------
+
+    @torch.no_grad()
+    def encode(self, x, bitrate) -> torch.Tensor:
+        """(batch, length) or (length,) waveform -> codes (batch, frames,
+        z_dim) in {0, 0.5, 1}.  ``bitrate`` in bits/s, a scalar or a
+        per-frame schedule of shape (frames,) or (batch, frames)."""
+        x, squeeze = self._as_input(x, 2, "waveform")
+        L = x.shape[1]
+        Lp = self._pad_length(L)
+        x = torch.nn.functional.pad(x, (0, Lp - L))
+        n_frames = self.frontend.num_frames(L)
+        bits = self._frame_bits(bitrate, x.shape[0], L, Lp, n_frames)
+        codes, _ = bvrnn_mod.encode_with_state(
+            self.bvrnn_params, self.bvrnn_cfg, self._mel(x), bits, self._h0(x.shape[0])
+        )
+        codes = codes[:, :n_frames]
+        return codes[0] if squeeze else codes
+
+    @torch.no_grad()
+    def decode(self, codes, length: int) -> torch.Tensor:
+        """(batch, frames, z_dim) or (frames, z_dim) codes -> waveform
+        (batch, length)."""
+        codes, squeeze = self._as_input(codes, 3, "codes")
+        hop = self.conf.hopsize
+        padded_len = self._pad_length(max(codes.shape[1] * hop, length))
+        codes = self._pad_codes(codes, padded_len // hop)
+        mel, _ = bvrnn_mod.decode(
+            self.bvrnn_params, self.bvrnn_cfg, codes, self._h0(codes.shape[0])
+        )
+        y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
+        return y[0] if squeeze else y
+
+    @torch.no_grad()
+    def decode_to_mel(self, codes) -> torch.Tensor:
+        """Codes -> decoded log-mel (batch, num_mels, frames), the mel the
+        vocoder consumes."""
+        codes, squeeze = self._as_input(codes, 3, "codes")
+        T = codes.shape[1]
+        Tp = self._pad_length(T * self.conf.hopsize) // self.conf.hopsize
+        mel, _ = bvrnn_mod.decode(
+            self.bvrnn_params, self.bvrnn_cfg, self._pad_codes(codes, Tp),
+            self._h0(codes.shape[0]),
+        )
+        mel = mel.transpose(1, 2)[..., :T]
+        return mel[0] if squeeze else mel
+
+    @torch.no_grad()
+    def __call__(self, x, bitrate, *, fused: bool = True) -> torch.Tensor:
+        """Resynthesis: encode and decode.  ``fused`` runs the one-scan path
+        (the encoder's closed loop already yields the decoded mel); with
+        ``fused=False`` it is ``decode(encode(x))``."""
+        x, squeeze = self._as_input(x, 2, "waveform")
+        length = x.shape[1]
+        if fused:
+            Lp = self._pad_length(length)
+            x = torch.nn.functional.pad(x, (0, Lp - length))
+            n_frames = self.frontend.num_frames(length)
+            mel = self._mel(x)
+            B, T, _ = mel.shape
+            bits = self._frame_bits(bitrate, B, length, Lp, n_frames)
+            valid = (torch.arange(T, device=self.device) < n_frames).to(torch.float32)
+            _, dec_mel, _ = bvrnn_mod.encode_decode(
+                self.bvrnn_params, self.bvrnn_cfg, mel, bits, self._h0(B),
+                frame_valid=valid.expand(B, T),
+            )
+            y = self._vocode(dec_mel.transpose(1, 2), Lp)[:, :length]
+        else:
+            y = self.decode(self.encode(x, bitrate), length)
+        return y[0] if squeeze else y
+
+    forward = __call__

@@ -1,0 +1,73 @@
+"""Carry weights into the port.
+
+* :func:`bvrnn_params_from_jax` and :func:`vocoder_params_from_jax` take the
+  JAX package's parameter trees (nested dicts and lists of arrays, already
+  converted to numpy by the caller) and return the port's trees of float32
+  tensors.  The layouts are the same on both sides, so this is a walk over
+  the tree; weight-normed vocoder convs (``g``, ``v``) are folded to ``w``.
+* :func:`load_bvrnn_npz` reads the flat ``a/0/b``-keyed ``.npz`` BVRNN
+  checkpoints of ``chkpts/`` with numpy alone (the counterpart of
+  ``bvsc_tpu/codec.py:_unflatten_npz``); float16 values widen to float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bvsc_tpu_torch.ops.conv import fold_weight_norm
+
+
+def to_torch(tree, device: str | torch.device = "cpu"):
+    """Map every leaf (array or tensor) of a nested dict/list tree to a
+    float32 tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+def _fold_weight_norm(tree):
+    if isinstance(tree, dict):
+        if "g" in tree and "v" in tree:
+            rest = {k: v for k, v in tree.items() if k not in ("g", "v")}
+            return {"w": fold_weight_norm(tree["g"], tree["v"]), **rest}
+        return {k: _fold_weight_norm(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fold_weight_norm(v) for v in tree]
+    return tree
+
+
+def bvrnn_params_from_jax(tree) -> dict:
+    """JAX BVRNN params -> port params (same keys, (in, out) linear weights)."""
+    return to_torch(tree)
+
+
+def vocoder_params_from_jax(tree) -> dict:
+    """JAX generator params -> port inference params (weight norm folded)."""
+    return _fold_weight_norm(to_torch(tree))
+
+
+def load_bvrnn_npz(path: str) -> dict:
+    """Flat ``a/0/b``-keyed npz -> nested tree of float32 tensors; key levels
+    that are all integers become lists."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(z[key], np.float32)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[k]) for k in sorted(node, key=int)]
+        return {k: listify(v) for k, v in node.items()}
+
+    return to_torch(listify(tree))

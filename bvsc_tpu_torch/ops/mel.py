@@ -1,0 +1,122 @@
+"""Log-mel spectrogram frontend in PyTorch.
+
+Port of ``bvsc_tpu/ops/mel.py``: asymmetric reflect pad (left
+``padding_left``, right ``win - left - hop``) -> framed DFT (periodic Hann
+window, center=False, onesided) as two float32 matmuls against cos/sin bases
+-> magnitude ``sqrt(re^2 + im^2 + 1e-9)`` -> Slaney mel filterbank matmul ->
+``log(clamp(x, 1e-5))``.  The filterbank and the window are built in numpy
+with the same formulae as the JAX package, so the constants are identical.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
+    """Slaney (Auditory Toolbox) Hz->mel: linear below 1 kHz, log above."""
+    freq = np.asarray(freq, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = freq / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(
+        freq >= min_log_hz,
+        min_log_mel + np.log(np.maximum(freq, min_log_hz) / min_log_hz) / logstep,
+        mels,
+    )
+
+
+def _mel_to_hz_slaney(mels: np.ndarray) -> np.ndarray:
+    mels = np.asarray(mels, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(
+        mels >= min_log_mel,
+        min_log_hz * np.exp(logstep * (np.maximum(mels, min_log_mel) - min_log_mel)),
+        freqs,
+    )
+
+
+def slaney_mel_filterbank(
+    sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float
+) -> np.ndarray:
+    """Triangular mel filterbank (n_mels, 1 + n_fft//2), float32, equal to
+    ``librosa.filters.mel`` defaults (Slaney scale and area norm)."""
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2, dtype=np.float64)
+    mel_min, mel_max = _hz_to_mel_slaney(np.array([fmin, fmax]))
+    hz_pts = _mel_to_hz_slaney(np.linspace(mel_min, mel_max, n_mels + 2))
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def hann_window_periodic(win_size: int) -> np.ndarray:
+    """Periodic Hann window; ``torch.hann_window(win_size)`` to float32 rounding."""
+    n = np.arange(win_size, dtype=np.float64)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(np.float32)
+
+
+def dft_real_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real and imaginary DFT bases (n_fft, 1 + n_fft//2), float32."""
+    k = np.arange(1 + n_fft // 2)[None, :]
+    n = np.arange(n_fft)[:, None]
+    ang = 2.0 * np.pi * k * n / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+class MelFrontend:
+    """(B, L) waveform -> (B, num_mels, F) log-mel, with the constants on
+    ``device``."""
+
+    def __init__(
+        self,
+        sampling_rate: int = 22050,
+        n_fft: int = 1024,
+        num_mels: int = 80,
+        hop_size: int = 256,
+        fmin: float = 0.0,
+        fmax: float | None = 8000.0,
+        padding_left: int = 256,
+        *,
+        device: str | torch.device = "cpu",
+    ):
+        self.pad_left = padding_left
+        self.pad_right = n_fft - padding_left - hop_size
+        self.n_fft = n_fft
+        self.hop_size = hop_size
+        self.num_mels = num_mels
+        fmax = sampling_rate / 2 if fmax is None else fmax
+        cos_b, sin_b = dft_real_bases(n_fft)
+        self.window = torch.from_numpy(hann_window_periodic(n_fft)).to(device)
+        self.mel_basis = torch.from_numpy(
+            slaney_mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)
+        ).to(device)
+        self.cos_basis = torch.from_numpy(cos_b).to(device)
+        self.sin_basis = torch.from_numpy(sin_b).to(device)
+
+    def num_frames(self, length: int) -> int:
+        return 1 + (length + self.pad_left + self.pad_right - self.n_fft) // self.hop_size
+
+    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+        y = F.pad(y[:, None, :], (self.pad_left, self.pad_right), mode="reflect")[:, 0]
+        frames = y.unfold(-1, self.n_fft, self.hop_size) * self.window  # (B, F, n_fft)
+        re = torch.matmul(frames, self.cos_basis)
+        im = torch.matmul(frames, self.sin_basis)
+        mag = torch.sqrt(re * re + im * im + 1e-9).transpose(-1, -2)  # (B, bins, F)
+        return dynamic_range_compression(torch.matmul(self.mel_basis, mag))

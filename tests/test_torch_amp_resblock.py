@@ -1,0 +1,155 @@
+"""The AMP-resblock kernel's plain and tiled versions
+(bvsc_tpu_torch.ops.amp_resblock) against the JAX package: the Pallas
+kernel ``resblock_stack_folded`` in interpret mode (float32) and the direct
+``_amp_block`` stack, at stages 0 and 3 at full channel width with T over
+several tiles.  The CUDA kernel itself is compared with the plain version
+on the card (``gpu`` marker; skipped without one)."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bvsc_tpu.config import CodecConfig as JCodecConfig
+from bvsc_tpu.models import vocoder as JV
+from bvsc_tpu.ops import pallas_voc as PV
+from bvsc_tpu_torch.config import CodecConfig
+from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
+from bvsc_tpu_torch.device import set_parity_mode
+from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
+from bvsc_tpu_torch.ops import amp_resblock as AR
+
+torch.set_num_threads(1)
+
+HIGH = jax.lax.Precision.HIGHEST
+TOL = 2e-5
+STAGE_T = {0: 700, 3: 3000}  # several tiles (and JAX grid blocks) per stage
+
+
+def perturbed_generator_params(vcfg, seed=1):
+    """JAX generator init with per-channel snake parameters drawn from a
+    numpy seed, so every channel's alpha and beta differ."""
+    tree = jax.tree.map(np.asarray, JV.init_generator_params(
+        jax.random.key(seed), vcfg, weight_norm=False))
+    rng = np.random.default_rng(seed)
+    for block in tree["resblocks"] + [{"acts": [tree["act_post"]]}]:
+        for act in block["acts"]:
+            act["alpha"] = (rng.standard_normal(act["alpha"].shape) * 0.3).astype(np.float32)
+            act["beta"] = (rng.standard_normal(act["beta"].shape) * 0.3).astype(np.float32)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def vcfg():
+    return JCodecConfig().vocoder_config
+
+
+@pytest.fixture(scope="module")
+def params(vcfg):
+    tree = perturbed_generator_params(vcfg)
+    port = vocoder_params_from_jax(tree)
+    return tree, prepare_kernel_params(port, CodecConfig().vocoder_config)
+
+
+def _jax_direct(tree, vcfg, stage, x):
+    num_k = len(vcfg.resblock_kernel_sizes)
+    xs = None
+    for j, (ksz, dils) in enumerate(zip(vcfg.resblock_kernel_sizes, vcfg.resblock_dilation_sizes)):
+        out = JV._amp_block(jnp.asarray(x), tree["resblocks"][stage * num_k + j], vcfg,
+                            ksz, dils, False, False, precision=HIGH)
+        xs = out if xs is None else xs + out
+    return np.asarray(xs / num_k)
+
+
+@pytest.fixture(scope="module")
+def refs(vcfg, params):
+    """Per stage: input, JAX Pallas (interpret, f32) and JAX direct outputs."""
+    tree = params[0]
+    kb = PV.prepare_resblock_kernel_params(tree, vcfg)
+    out = {}
+    for stage, T in STAGE_T.items():
+        C = vcfg.upsample_initial_channel // (2 ** (stage + 1))
+        x = (np.random.default_rng(stage).standard_normal((2, C, T)) * 0.3).astype(np.float32)
+        pallas = np.asarray(PV.resblock_stack_folded(
+            jnp.asarray(x), kb, vcfg, stage, block_len=128,
+            compute_dtype=jnp.float32, interpret=True))
+        out[stage] = (x, pallas, _jax_direct(tree, vcfg, stage, x))
+    return out
+
+
+@pytest.mark.parametrize("ref", ["pallas", "direct"])
+@pytest.mark.parametrize("impl", ["plain", "tiled"])
+@pytest.mark.parametrize("stage", sorted(STAGE_T))
+def test_stack_matches_jax(params, refs, stage, impl, ref):
+    x, pallas, direct = refs[stage]
+    stage_blocks = params[1][stage]
+    assert x.shape[-1] > 2 * AR.tile_for(x.shape[1])  # spans several tiles
+    fn = AR.amp_stack_plain if impl == "plain" else AR.amp_stack_tiled
+    got = fn(torch.from_numpy(x), stage_blocks).numpy()
+    np.testing.assert_allclose(got, pallas if ref == "pallas" else direct, atol=TOL)
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+def test_start_mask_bias_only(vcfg, params, stage):
+    """Zero input, large biases: everything the block outputs is bias-driven.
+    A bias that leaked into the pre-history (t < 0) would change the first
+    halo's worth of samples."""
+    tree = jax.tree.map(np.copy, params[0])
+    rng = np.random.default_rng(10 + stage)
+    num_k = len(vcfg.resblock_kernel_sizes)
+    for block in tree["resblocks"][stage * num_k : (stage + 1) * num_k]:
+        for conv in block["convs1"] + block["convs2"]:
+            conv["b"] = rng.uniform(-1, 1, conv["b"].shape).astype(np.float32)
+    stage_blocks = prepare_kernel_params(vocoder_params_from_jax(tree),
+                                         CodecConfig().vocoder_config)[stage]
+    C = vcfg.upsample_initial_channel // (2 ** (stage + 1))
+    H = max(AR.halo(rb.kernel_size, rb.dilations) for rb in stage_blocks)
+    x = np.zeros((1, C, 3 * H + AR.tile_for(C)), np.float32)
+    ref = _jax_direct(tree, vcfg, stage, x)
+    assert np.abs(ref[..., :H]).max() > 0.1
+    xt = torch.from_numpy(x)
+    np.testing.assert_allclose(AR.amp_stack_plain(xt, stage_blocks).numpy(), ref, atol=TOL)
+    np.testing.assert_allclose(AR.amp_stack_tiled(xt, stage_blocks).numpy(), ref, atol=TOL)
+
+
+def test_wrapper_on_cpu_takes_plain_and_counts_nothing(params, refs):
+    x, _, direct = refs[3]
+    before = AR.amp_resblock.launches
+    got = AR.amp_stack(torch.from_numpy(x), params[1][3]).numpy()
+    assert AR.amp_resblock.launches == before
+    np.testing.assert_allclose(got, direct, atol=TOL)
+
+
+def test_wrapper_has_no_fallback_for_other_devices(params):
+    x = torch.empty(1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        AR.amp_resblock(x, params[1][3][0])
+
+
+def test_halo_tile_and_shared_memory(params):
+    """H = (k - 1) * (sum(d) + 3): 24, 72, 120 for k = 3, 7, 11; every stage
+    of the full config fits one thread block's shared memory."""
+    assert [AR.halo(k, (1, 3, 5)) for k in (3, 7, 11)] == [24, 72, 120]
+    for stage_blocks in params[1]:
+        for rb in stage_blocks:
+            assert AR.smem_bytes(rb) <= AR.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_kernel_matches_plain_on_card(params, stage):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    set_parity_mode()
+    stage_blocks = prepare_kernel_params(to_torch(params[0], "cuda"),
+                                         CodecConfig().vocoder_config)[stage]
+    C = stage_blocks[0].channels
+    x = torch.randn(2, C, 3 * AR.tile_for(C) + 17, generator=torch.Generator().manual_seed(0))
+    x = (0.3 * x).cuda()
+    before = AR.amp_resblock.launches
+    got = AR.amp_stack(x, stage_blocks)
+    torch.cuda.synchronize()
+    assert AR.amp_resblock.launches == before + len(stage_blocks)
+    ref = AR.amp_stack_plain(x, stage_blocks)
+    assert (got - ref).abs().max().item() <= 1e-4

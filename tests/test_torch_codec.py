@@ -1,0 +1,133 @@
+"""Port codec (bvsc_tpu_torch.BVRNNCodecModel, device='cpu') against
+bvsc_tpu.BVRNNCodecModel on the same weights (moved across with
+bvsc_tpu_torch.convert): a small BVRNN (h 48, z 12, 80 mels) and the
+full-width vocoder, on a seeded ~0.3 s input.  Codes must agree bit for bit;
+waveforms to SNR > 40 dB and 1e-4 abs."""
+
+import os
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from bvsc_tpu.codec import BVRNNCodecModel as JCodec
+from bvsc_tpu.codec import _unflatten_npz
+from bvsc_tpu.config import CodecConfig as JCodecConfig
+from bvsc_tpu.eval.metrics import snr_db
+from bvsc_tpu.models import bvrnn as jb
+from bvsc_tpu_torch import BVRNNCodecModel, CodecConfig
+from bvsc_tpu_torch.convert import bvrnn_params_from_jax, load_bvrnn_npz, vocoder_params_from_jax
+from test_torch_amp_resblock import perturbed_generator_params
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
+SMALL = dict(h_dim=48, z_dim=12)
+L, B = 6615, 2  # 0.3 s at 22.05 kHz
+BUCKET = 16
+
+
+@pytest.fixture(scope="module")
+def codecs():
+    jconf = JCodecConfig(**SMALL)
+    bcfg = jb.BVRNNConfig(x_dim=80, h_dim=SMALL["h_dim"], z_dim=SMALL["z_dim"])
+    mean_std = (np.random.default_rng(1).standard_normal(80) * 0.5 - 4.0,
+                np.abs(np.random.default_rng(2).standard_normal(80)) + 1.0)
+    btree = jax.tree.map(np.asarray, jb.init_bvrnn_params(jax.random.key(0), bcfg, mean_std))
+    vtree = perturbed_generator_params(jconf.vocoder_config, seed=3)
+    jc = JCodec(config=jconf, bvrnn_params=jax.tree.map(jax.numpy.asarray, btree),
+                vocoder_params=jax.tree.map(jax.numpy.asarray, vtree), length_bucket=BUCKET)
+    tc = BVRNNCodecModel(config=CodecConfig(**SMALL), bvrnn_params=bvrnn_params_from_jax(btree),
+                         vocoder_params=vocoder_params_from_jax(vtree), length_bucket=BUCKET,
+                         device="cpu")
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def x():
+    return (np.random.default_rng(11).standard_normal((B, L)) * 0.3).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def vbr(codecs):
+    """A per-frame schedule of bps over the input's frames."""
+    n = codecs[1].frontend.num_frames(L)
+    return np.random.default_rng(12).choice([1000.0, 2000.0, 3000.0, 5512.5], size=n)
+
+
+def _close(got, ref):
+    got = got.numpy()
+    assert got.shape == ref.shape
+    assert np.isfinite(got).all()
+    assert snr_db(ref, got) > 40.0
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_call_matches_jax(codecs, x, fused):
+    jc, tc = codecs
+    ref = np.asarray(jc(x, 3000, fused=fused))
+    _close(tc(x, 3000, fused=fused), ref)
+
+
+def test_encode_codes_bitexact(codecs, x, vbr):
+    jc, tc = codecs
+    for bitrate in (3000, vbr):
+        ref = np.asarray(jc.encode(x, bitrate))
+        got = tc.encode(x, bitrate).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert set(np.unique(got)) <= {0.0, 0.5, 1.0}
+
+
+def test_decode_matches_jax(codecs, x):
+    jc, tc = codecs
+    codes = np.asarray(jc.encode(x, 3000))
+    _close(tc.decode(codes, L), np.asarray(jc.decode(codes, L)))
+    np.testing.assert_allclose(tc.decode_to_mel(codes).numpy(),
+                               np.asarray(jc.decode_to_mel(codes)), atol=2e-5)
+
+
+@pytest.mark.parametrize("bps", [0, 43.06640625, 129.19921875, 1000, 3000, 5512.5, 6000])
+def test_bitrate_rounding_matches_jax(codecs, bps):
+    jc, tc = codecs
+    assert tc.bits_per_frame(bps) == jc.bits_per_frame(bps)
+
+
+def test_1d_input_promotion(codecs, x, vbr):
+    jc, tc = codecs
+    codes = tc.encode(x[0], vbr)
+    assert codes.shape == (tc.frontend.num_frames(L), SMALL["z_dim"])
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jc.encode(x[0], vbr)))
+    y1 = tc(x[0], 3000)
+    assert y1.shape == (L,)
+    np.testing.assert_array_equal(y1.numpy(), tc(x[:1], 3000)[0].numpy())
+    np.testing.assert_array_equal(tc.decode(codes, L).numpy(), tc.decode(codes[None], L)[0].numpy())
+
+
+def test_load_bvrnn_npz_matches_jax_loader():
+    with np.load(NPZ) as z:
+        ref = jax.tree.map(np.asarray, _unflatten_npz(z, jax.numpy.float32))
+    got = jax.tree.map(lambda t: t.numpy(), load_bvrnn_npz(NPZ))
+    assert jax.tree.structure(got) == jax.tree.structure(ref)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"precision": "default"}, {"quantize": "int8"}, {"fused_cell": True},
+    {"approx_snake": True}, {"voc_dtype": "bf16"}, {"vocoder_chkpt_path": "voc/"},
+])
+def test_unported_knobs_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", **kwargs)
+
+
+def test_default_device_is_cuda():
+    """No silent CPU fallback: without a card the default device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BVRNNCodecModel(config=CodecConfig(**SMALL))
