@@ -1,0 +1,108 @@
+"""The matrix-unit probes: CUDA kernels on the tensor cores and their plain
+versions.
+
+Replace the Pallas TPU kernels of ``benchmarks/probe_roofline.py``:
+
+* :func:`dot_chain` (``mk_kernel(M)``'s kernel ``k``): ``reps`` products
+  ``w @ x`` summed into one float32 accumulator as a serial chain,
+  w (M, 128) and x (128, N) bf16.
+* :func:`gridded_dot` (``k2``): ``w @ x`` in float32, cut into output tiles
+  over a grid.
+
+For CUDA tensors each wrapper launches ``csrc/dot_probe.cu`` (``mma.sync``,
+no library GEMM) or raises; only CPU tensors take the plain version.  Each
+wrapper's ``launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from bvsc_tpu_torch.ops import _build
+
+K = 128  # contraction depth of both probes
+REPS = 64  # products in the probe's chain
+
+
+def dot_chain_plain(w: torch.Tensor, x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """``reps`` times ``acc = acc + w @ x`` in float32 (TF32 off on CUDA)."""
+    wf, xf = w.float(), x.float()
+    acc = torch.zeros(w.shape[0], x.shape[1], device=w.device)
+    for _ in range(reps):
+        acc = acc + wf @ xf
+    return acc
+
+
+def gridded_dot_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w @ x`` in float32 (TF32 off on CUDA)."""
+    return w.float() @ x.float()
+
+
+def _check(w: torch.Tensor, x: torch.Tensor) -> None:
+    if w.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or w.dim() != 2 or x.dim() != 2:
+        raise ValueError(f"expected 2-D bf16 w and x, got {w.dtype} {tuple(w.shape)} "
+                         f"and {x.dtype} {tuple(x.shape)}")
+    if w.shape[1] != K or x.shape[0] != K:
+        raise ValueError(f"the kernels contract over {K}: got w {tuple(w.shape)}, x {tuple(x.shape)}")
+    if w.shape[0] == 0 or x.shape[1] == 0 or x.shape[1] % 8:
+        raise ValueError(f"need M > 0 and N > 0 with N % 8 == 0, got {w.shape[0]}, {x.shape[1]}")
+    if x.device != w.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    for t in (w, x):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the kernels need contiguous, 16-byte aligned tensors")
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("dot_probe")
+    lib.dot_chain_bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.gridded_dot_bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.dot_chain_bf16.restype = lib.gridded_dot_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _device(w: torch.Tensor, name: str) -> bool:
+    """True for CUDA, False for the CPU; raises for anything else."""
+    if w.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {w.device}")
+    return w.device.type == "cuda"
+
+
+def _launch(fn, w: torch.Tensor, x: torch.Tensor, *ints) -> torch.Tensor:
+    out = torch.empty(w.shape[0], x.shape[1], device=w.device)
+    with torch.cuda.device(w.device):
+        err = fn(w.data_ptr(), x.data_ptr(), out.data_ptr(), w.shape[0], x.shape[1], *ints,
+                 torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    return out
+
+
+def dot_chain(w: torch.Tensor, x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """``reps * (w @ x)`` summed as one chain into a float32 accumulator."""
+    if not _device(w, "dot_chain"):
+        return dot_chain_plain(w, x, reps)
+    _check(w, x)
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    out = _launch(_lib().dot_chain_bf16, w, x, reps)
+    dot_chain.launches += 1
+    return out
+
+
+def gridded_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w @ x`` in float32 over a grid of output tiles."""
+    if not _device(w, "gridded_dot"):
+        return gridded_dot_plain(w, x)
+    _check(w, x)
+    out = _launch(_lib().gridded_dot_bf16, w, x)
+    gridded_dot.launches += 1
+    return out
+
+
+dot_chain.launches = 0
+gridded_dot.launches = 0

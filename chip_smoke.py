@@ -21,6 +21,13 @@ Phases, each printing one JSON line with its seconds:
    the card, at the shapes the main path gave it (float32, TF32 off), on
    seeded inputs, timed with CUDA events, beside its least possible time
    on an H100.
+5. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
+   run through their ``run()`` entry points with the kernels' launch counts
+   read around them; then the persistent GRU (bf16 and int8, H = 1024,
+   T = 512, 8 rows), the dot chain (M = 128, 256, 512) and the gridded dot
+   (128 x 128 x 32 768) against their plain versions on the probes' own
+   inputs, and timed beside their bounds and, for the gridded dot,
+   ``torch.mm``.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -39,12 +46,17 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
+from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms
+from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
+from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
 from bvsc_tpu_torch.device import set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops import _build
 from bvsc_tpu_torch.ops import amp_resblock as AR
+from bvsc_tpu_torch.ops import dot_probe as DP
+from bvsc_tpu_torch.ops import persistent_gru as PG
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
@@ -55,29 +67,27 @@ BITRATE = 3000
 SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM bandwidth.  The least time of a function is the larger of
-# its FLOPs over the first and its bytes over the second.
+# cores, bf16 on the tensor cores, and HBM bandwidth.  The least time of a
+# function is the larger of its FLOPs over the peak for their type and its
+# bytes over the bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4  # float32, summation order differs over 6 chained convs
-REPS, WARMUP = 20, 3
+# Persistent GRU, one step: the same bf16 operands, only the order of the
+# float32 sums differs.
+GRU_STEP_TOL = 1e-5
+# Persistent GRU over 512 steps in bf16: a 1e-7 gap in h can flip one bf16
+# rounding of h (~2e-3) and feed back.  Also the int8 one-step bound: the
+# probe's int8 weights carry no scale, so gate sums reach ~1e4, whose float32
+# rounding (~1e-3) moves the gates that are not saturated.
+GRU_TOL = 2e-2
+CHAIN_RTOL = 1e-5  # of max |out|: 64 float32 additions in another order
+GRIDDED_TOL = 1e-4  # one product, K = 128 in float32
 
 
 def emit(phase: str, t0: float, **fields) -> None:
     print(json.dumps({"phase": phase, **fields, "seconds": time.time() - t0}), flush=True)
-
-
-def cuda_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
-    """Mean milliseconds of ``fn`` on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def load_batch() -> np.ndarray:
@@ -137,8 +147,7 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     t0 = time.time()
-    for name in _build.sources():
-        _build.load(name)
+    _build.load_all()
     emit("build", t0, libraries=[os.path.relpath(_build.library_path(name), REPO)
                                  for name in _build.sources()])
 
@@ -264,6 +273,188 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]
     return launches, shapes
 
 
+def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """Least milliseconds on an H100, and what bounds them."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check(name: str, err: float, tol: float) -> float:
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel vs plain {err} > {tol}")
+    return err
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a - b).abs().max().item()
+
+
+def gru_f64(wi, wh, bi, bh, xc, h0, steps: int) -> torch.Tensor:
+    """The plain GRU steps with float64 sums, to measure how far a change of
+    rounding alone moves the trajectory."""
+    wid, whd = wi.double(), wh.double()
+    xcb = xc.to(torch.bfloat16).double()
+    h = h0.double()
+    for _ in range(steps):
+        hb = h.float().to(torch.bfloat16).double()
+        h = PG.gru_math(torch.cat([hb, xcb], -1) @ wid + bi.double(), hb @ whd + bh.double(), h)
+    return h.float()
+
+
+def gru_checks(name: str, w, rest, dequant: bool) -> dict:
+    """The persistent GRU against its plain version at T = 1 and T = 512,
+    and its T = 512 trajectory step by step: the one launch equals 512
+    chained one-step launches bit for bit, and each of those steps is
+    within the one-step bound of the plain step from the same state.  With
+    the probe's int8 weights, which carry no scale, the gates saturate and
+    the recurrence parts between any two summation orders (the plain
+    version in float32 against float64 shows it), so int8 at T = 512 is
+    held by the step-by-step checks alone."""
+    T = probe_gru.T
+    step_tol = GRU_TOL if dequant else GRU_STEP_TOL
+    out = {"step1": check(f"{name} T=1", max_err(
+        PG.persistent_gru(*w, *rest, 1, dequant=dequant),
+        PG.persistent_gru_plain(*w, *rest, 1, dequant=dequant)), step_tol)}
+    got = PG.persistent_gru(*w, *rest, T, dequant=dequant)
+    out["direct"] = max_err(got, PG.persistent_gru_plain(*w, *rest, T, dequant=dequant))
+    out["plain_f32_vs_f64"] = max_err(PG.persistent_gru_plain(*w, *rest, T, dequant=dequant),
+                                      gru_f64(*w, *rest, T))
+    h, worst = rest[-1], 0.0
+    for _ in range(T):
+        nxt = PG.persistent_gru(*w, *rest[:-1], h, 1, dequant=dequant)
+        worst = max(worst, max_err(nxt, PG.persistent_gru_plain(*w, *rest[:-1], h, 1,
+                                                                dequant=dequant)))
+        h = nxt
+    out["chained_vs_one_launch"] = check(f"{name} one launch vs chained steps", max_err(got, h), 0.0)
+    out["worst_step"] = check(f"{name} steps of the T={T} trajectory", worst, step_tol)
+    return out
+
+
+def probes_phase() -> list[dict]:
+    """Both probes through their entry points, with the three kernels'
+    launch counts read around them; then each kernel against its plain
+    version on the probes' inputs, timed beside its bound.  Returns the
+    kernels' entries of the kernels line."""
+    t0 = time.time()
+    counted = {"persistent_gru": PG.persistent_gru, "dot_chain": DP.dot_chain,
+               "gridded_dot": DP.gridded_dot}
+    for fn in counted.values():
+        fn.launches = 0
+    gru_ms = probe_gru.run()
+    roof = probe_roof.run()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the probes did not launch: {launches}")
+    emit("probes", t0, launches=launches, persistent_gru_ms=gru_ms, roofline=roof)
+    shapes = probe_roof.make_inputs(DEV)
+    return [gru_kernel(launches["persistent_gru"]),
+            chain_kernel(launches["dot_chain"], shapes["chain"]),
+            gridded_kernel(launches["gridded_dot"], shapes["gridded"])]
+
+
+def gru_kernel(launches: int) -> dict:
+    """K2 against its plain version on the probe's seeded inputs, bf16 and
+    int8, and timed; returns its entry of the kernels line."""
+    t0 = time.time()
+    inputs = probe_gru.make_inputs()
+    a = {k: torch.from_numpy(v).to(DEV) for k, v in inputs.items()}
+    rest = (a["b_ih"], a["b_hh"], a["xc"], a["h0"])
+    weights = {"bf16": (a["w_ih"].to(torch.bfloat16), a["w_hh"].to(torch.bfloat16)),
+               "int8": (PG.quantize(inputs["w_ih"])[0].to(DEV),
+                        PG.quantize(inputs["w_hh"])[0].to(DEV))}
+    H, T, L = probe_gru.H, probe_gru.T, probe_gru.LANES
+    plan = PG.kernel_plan(DEV, H)
+    n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+    if plan != PG.plan(H, n_sm):
+        raise AssertionError(f"kernel plan {plan} != {PG.plan(H, n_sm)} for {n_sm} SMs")
+    flops = 2 * L * 3 * H * 3 * H * T
+    fields = {}
+    for dt, w in weights.items():
+        dequant = dt == "int8"
+        checks = gru_checks(f"persistent_gru {dt}", w, rest, dequant)
+        if not dequant:  # int8: see gru_checks
+            check("persistent_gru bf16 T=512", checks["direct"], GRU_TOL)
+        run = lambda: PG.persistent_gru(*w, *rest, T, dequant=dequant)  # noqa: E731
+        plain = lambda: PG.persistent_gru_plain(*w, *rest, T, dequant=dequant)  # noqa: E731
+        nbytes = sum(t.numel() * t.element_size() for t in (*w, *rest)) + 4 * L * H
+        fields[dt] = {**checks, "ms": cuda_ms(run, reps=10, warmup=2),
+                      "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                      "plain_graph_ms": graph_ms(plain, reps=1),
+                      "bound": bound(flops, nbytes, PEAK_BF16_FLOPS)}
+    emit("probe_kernel", t0, kernel="persistent_gru", H=H, T=T, lanes=L, plan=plan, sms=n_sm,
+         step_tol=GRU_STEP_TOL, tol=GRU_TOL, **fields)
+    bf = fields["bf16"]
+    return {"name": "persistent_gru", "route": "cuda", "source": "bvsc_tpu_torch/csrc/persistent_gru.cu",
+            "replaces": "benchmarks/probe_persistent_gru.py:133", "launches": launches,
+            "max_abs_err": bf["direct"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+            "bound_ms": bf["bound"][0], "bound_by": bf["bound"][1], "library_ms": None}
+
+
+def ragged_bf16(M: int, N: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded (M, 128) and (128, N) bf16 operands whose shapes cut tiles."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return (torch.randn(M, DP.K, device=DEV, generator=gen).to(torch.bfloat16),
+            torch.randn(DP.K, N, device=DEV, generator=gen).to(torch.bfloat16))
+
+
+def chain_kernel(launches: int, chain: dict) -> dict:
+    """K3 at M = 128, 256, 512 (and a ragged shape for the masks) against
+    its plain version, timed on the device; returns its kernels entry."""
+    t0 = time.time()
+    per_m, tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    for M, (w, x) in [*chain.items(), ("ragged", ragged_bf16(40, 200, SEED))]:
+        ref = DP.dot_chain_plain(w, x)
+        rel = max_err(DP.dot_chain(w, x), ref) / ref.abs().max().item()
+        check(f"dot_chain M={M}", rel, CHAIN_RTOL)
+        if M == "ragged":
+            per_m[M] = {"shape": [w.shape[0], x.shape[1]], "rel_err": rel}
+            continue
+        nbytes = 2 * (w.numel() + x.numel()) + 4 * M * x.shape[1]
+        b = bound(probe_roof.chain_flops(M, x.shape[1]), nbytes, PEAK_BF16_FLOPS)
+        per_m[M] = {"rel_err": rel, "abs_err": rel * ref.abs().max().item(),
+                    "ms": graph_ms(lambda: DP.dot_chain(w, x)),
+                    "call_ms": cuda_ms(lambda: DP.dot_chain(w, x)),
+                    "plain_ms": graph_ms(lambda: DP.dot_chain_plain(w, x)),
+                    "plain_call_ms": cuda_ms(lambda: DP.dot_chain_plain(w, x)),
+                    "bound_ms": b[0], "bound_by": b[1]}
+        tot["ms"] += per_m[M]["ms"]
+        tot["plain_ms"] += per_m[M]["plain_ms"]
+        tot["bound_ms"] += b[0]
+        tot["err"] = max(tot["err"], per_m[M]["abs_err"])
+    emit("probe_kernel", t0, kernel="dot_chain", rtol=CHAIN_RTOL, **{str(k): v for k, v in per_m.items()})
+    return {"name": "dot_chain", "route": "cuda", "source": "bvsc_tpu_torch/csrc/dot_probe.cu",
+            "replaces": "benchmarks/probe_roofline.py:20", "launches": launches,
+            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "operations", "library_ms": None}
+
+
+def gridded_kernel(launches: int, operands) -> dict:
+    """K4 (and a ragged shape) against its plain version, timed on the
+    device beside ``torch.mm`` (bf16 in, float32 out); returns its kernels
+    entry."""
+    t0 = time.time()
+    w, x = operands
+    err = check("gridded_dot", max_err(DP.gridded_dot(w, x), DP.gridded_dot_plain(w, x)), GRIDDED_TOL)
+    wr, xr = ragged_bf16(200, 1000, SEED + 1)
+    ragged_err = check("gridded_dot ragged", max_err(DP.gridded_dot(wr, xr),
+                                                     DP.gridded_dot_plain(wr, xr)), GRIDDED_TOL)
+    library = lambda: torch.mm(w, x, out_dtype=torch.float32)  # noqa: E731
+    lib_err = max_err(library(), DP.gridded_dot_plain(w, x))
+    nbytes = 2 * (w.numel() + x.numel()) + 4 * w.shape[0] * x.shape[1]
+    b = bound(probe_roof.gridded_flops(x.shape[1]), nbytes, PEAK_BF16_FLOPS)
+    k4 = {"max_abs_err": err, "ragged_err": ragged_err, "library_err": lib_err,
+          "ms": graph_ms(lambda: DP.gridded_dot(w, x)), "call_ms": cuda_ms(lambda: DP.gridded_dot(w, x)),
+          "plain_ms": graph_ms(lambda: DP.gridded_dot_plain(w, x)),
+          "plain_call_ms": cuda_ms(lambda: DP.gridded_dot_plain(w, x)),
+          "library_ms": graph_ms(library), "library_call_ms": cuda_ms(library),
+          "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes}
+    emit("probe_kernel", t0, kernel="gridded_dot", shape=[w.shape[0], DP.K, x.shape[1]],
+         tol=GRIDDED_TOL, **k4)
+    return {"name": "gridded_dot", "route": "cuda", "source": "bvsc_tpu_torch/csrc/dot_probe.cu",
+            "replaces": "benchmarks/probe_roofline.py:45", "launches": launches,
+            **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> None:
     name = device_phase()
     build_phase()
@@ -280,6 +471,7 @@ def main() -> None:
 
     launches, shapes = main_path_phase(codec, wav)
     totals = kernel_phase(codec, shapes)
+    probe_entries = probes_phase()
 
     print(json.dumps({"kernels": [{
         "name": "amp_resblock",
@@ -293,7 +485,7 @@ def main() -> None:
         "bound_ms": totals["bound_ms"],
         "bound_by": "/".join(sorted(totals["bound_by"])),
         "library_ms": None,
-    }]}), flush=True)
+    }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,0 +1,144 @@
+"""The matrix-unit probes' plain versions (bvsc_tpu_torch.ops.dot_probe)
+against the Pallas kernels of ``benchmarks/probe_roofline.py`` in interpret
+mode: the chain kernel ``mk_kernel(M)`` and the gridded ``k2``.  That
+script runs its benchmarks when imported, so only its imports, its
+constants ``L``, ``REPS`` and ``NG``, its two kernels and ``k2``'s
+BlockSpecs are compiled from its source.  The CUDA kernels themselves are
+compared with the plain versions on the card (``gpu`` marker; skipped
+without one)."""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from bvsc_tpu_torch.benchmarks import probe_roofline as PR
+from bvsc_tpu_torch.ops import dot_probe as DP
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROBE = os.path.join(REPO, "benchmarks", "probe_roofline.py")
+N_CHAIN = 256  # columns of x in the chain tests (the probe: 1024)
+GRID = 4  # grid steps of the gridded test (the probe: 64)
+# The chain: each of its 64 float32 additions rounds at up to 2^-24 of
+# |acc|, and XLA and torch round differently; both versions lie ~8e-7 of
+# max |out| from the float64 sum, on opposite sides (measured 1.2e-6 to
+# 1.5e-6 apart, relative to max |out|).
+CHAIN_RTOL = 3e-6
+# One product, K = 128 in float32 (measured ~1.5e-5).
+GRIDDED_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def probe():
+    """Namespace with the probe's imports, L/REPS/NG, mk_kernel and k2, and
+    the in_specs/out_specs expressions of k2's pallas_call."""
+    tree = ast.parse(open(PROBE).read(), PROBE)
+    keep = []
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            keep.append(node)
+        elif isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id in ("L", "REPS", "NG") for t in node.targets):
+            keep.append(node)
+        elif isinstance(node, ast.FunctionDef) and node.name in ("mk_kernel", "k2"):
+            keep.append(node)
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), PROBE, "exec"), ns)
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", "") == "pallas_call"
+                and any(k.arg == "grid" for k in n.keywords))
+    specs = {k.arg: k.value for k in call.keywords if k.arg in ("in_specs", "out_specs")}
+    ns["specs"] = {name: eval(compile(ast.Expression(expr), PROBE, "eval"), ns)
+                   for name, expr in specs.items()}
+    return ns
+
+
+def _bf16(rng, shape):
+    """(torch bf16, the same values as a jax bf16 array)."""
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+def test_probe_constants(probe):
+    assert (probe["L"], probe["REPS"], probe["NG"]) == (PR.L, DP.REPS, PR.NG)
+
+
+@pytest.mark.parametrize("M", [16, 48])
+def test_dot_chain_plain_matches_pallas(probe, M):
+    rng = np.random.default_rng(M)
+    (w, wj), (x, xj) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N_CHAIN))
+    ref = np.asarray(pl.pallas_call(
+        probe["mk_kernel"](M), out_shape=jax.ShapeDtypeStruct((M, N_CHAIN), jnp.float32),
+        interpret=True)(wj, xj))
+    got = DP.dot_chain_plain(w, x).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=CHAIN_RTOL * np.abs(ref).max())
+
+
+def test_gridded_dot_plain_matches_pallas(probe):
+    rng = np.random.default_rng(7)
+    N = GRID * PR.TILE_N
+    (w, wj), (x, xj) = _bf16(rng, (128, DP.K)), _bf16(rng, (DP.K, N))
+    ref = np.asarray(pl.pallas_call(
+        probe["k2"], grid=(GRID,), **probe["specs"],
+        out_shape=jax.ShapeDtypeStruct((128, N), jnp.float32), interpret=True)(wj, xj))
+    got = DP.gridded_dot_plain(w, x).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=GRIDDED_TOL)
+
+
+def test_wrappers_on_cpu_take_plain_and_count_nothing():
+    rng = np.random.default_rng(3)
+    (w, _), (x, _) = _bf16(rng, (32, DP.K)), _bf16(rng, (DP.K, 64))
+    before = DP.dot_chain.launches, DP.gridded_dot.launches
+    assert torch.equal(DP.dot_chain(w, x), DP.dot_chain_plain(w, x))
+    assert torch.equal(DP.gridded_dot(w, x), DP.gridded_dot_plain(w, x))
+    assert (DP.dot_chain.launches, DP.gridded_dot.launches) == before
+
+
+def test_wrappers_have_no_fallback_for_other_devices():
+    w = torch.empty(16, DP.K, dtype=torch.bfloat16, device="meta")
+    x = torch.empty(DP.K, 64, dtype=torch.bfloat16, device="meta")
+    for fn in (DP.dot_chain, DP.gridded_dot):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fn(w, x)
+
+
+def test_bounds_of_the_probe_shapes():
+    """Least times on an H100 (989 TFLOP/s bf16, 3.35 TB/s): the chain is
+    bound by operations, the gridded product by its bytes."""
+    assert [round(PR.chain_flops(M) / 989e12 * 1e6, 1) for M in PR.CHAIN_M] == [2.2, 4.3, 8.7]
+    n = PR.NG * PR.TILE_N
+    nbytes = 2 * 128 * DP.K + 2 * DP.K * n + 4 * 128 * n
+    assert round(nbytes / 1e6, 1) == 25.2 and round(PR.gridded_flops() / 1e9, 2) == 1.07
+    assert nbytes / 3.35e12 > PR.gridded_flops() / 989e12
+
+
+def _on_card(M, N, seed=0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    return _bf16(rng, (M, DP.K))[0].cuda(), _bf16(rng, (DP.K, N))[0].cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N", [(128, 1024), (40, 200)])
+def test_dot_chain_on_card(M, N):
+    w, x = _on_card(M, N)
+    got = DP.dot_chain(w, x)
+    ref = DP.dot_chain_plain(w, x)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N", [(128, 32768), (200, 1000)])
+def test_gridded_dot_on_card(M, N):
+    w, x = _on_card(M, N)
+    got = DP.gridded_dot(w, x)
+    assert (got - DP.gridded_dot_plain(w, x)).abs().max().item() <= GRIDDED_TOL
