@@ -1,15 +1,22 @@
 """The codec's public API in PyTorch: ``BVRNNCodecModel``.
 
-Port of ``bvsc_tpu/codec.py`` in reference-parity mode (float32, TF32 off):
-mel frontend -> BVRNN encode scan -> BVRNN decode -> causal vocoder.  The
-vocoder's residual stacks always go through ``ops.amp_resblock``: on a CUDA
-device that is the hand-written kernel, and no option sends CUDA tensors to
-the plain path.
+Port of ``bvsc_tpu/codec.py``: mel frontend -> BVRNN encode scan -> BVRNN
+decode -> causal vocoder.  The vocoder's residual stacks always go through
+``ops.amp_resblock``: on a CUDA device that is a hand-written kernel, and no
+option sends CUDA tensors to the plain path.  So the port is the counterpart
+of the reference built with ``use_pallas=True``, and resolves its knobs as
+that does:
+
+* ``precision='highest'``: reference parity, float32 with TF32 off;
+* ``precision='default'`` (fast serving): every BVRNN product and the
+  vocoder's direct convs take bf16 operands with float32 sums, the residual
+  stacks run the bf16 kernel, and ``fused_cell`` defaults to ``'auto'``;
+* ``quantize='int8'`` / ``'int8_mixed'``: weight-only int8 BVRNN weights.
 
 Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
 package, so both packages see the same padded input; the padded frames
-carry 0.5 codes.  PLC, streaming, the serving engines and the fast-serving
-knobs are later slices (``ROADMAP.md``).
+carry 0.5 codes.  PLC, streaming and the serving engines are later slices
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from bvsc_tpu_torch.convert import load_bvrnn_npz, to_torch
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
+from bvsc_tpu_torch.ops import quant
 from bvsc_tpu_torch.ops.mel import MelFrontend
+from bvsc_tpu_torch.ops.precision import resolve as resolve_precision
 
 # -10 dB input scaling, undone after the vocoder
 SCALING = 10 ** (-10 / 20)
@@ -32,10 +41,12 @@ SCALING = 10 ** (-10 / 20)
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
 
-_FAST_SERVING = "fast-serving mode (ROADMAP.md, 'Modules still to port')"
+_VOCODER_ARTIFACT = "the trained vocoder as a JAX-free artifact (ROADMAP.md)"
+_XLA_VOCODER = ("the direct-conv vocoder without the kernels (ROADMAP.md, "
+                "'approx_snake and the bf16 vocoder segment')")
 
 
-def _not_ported(what: str, item: str = _FAST_SERVING) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {item}")
 
 
@@ -59,33 +70,49 @@ class BVRNNCodecModel:
         fused_cell: bool | str | None = None,
         approx_snake: bool | None = None,
         voc_dtype: str | None = None,
+        use_pallas: bool | None = None,
     ):
         """``bvrnn_params`` / ``vocoder_params`` are port trees (see
         ``convert``); ``bvrnn_chkpt_path`` is a flat ``.npz``.  With neither
         the weights are random, from ``seed``.  ``device`` defaults to CUDA
-        and raises without a card; pass ``device='cpu'`` for the CPU."""
-        if precision != "highest":
-            raise _not_ported(f"precision={precision!r}")
-        if quantize is not None:
-            raise _not_ported(f"quantize={quantize!r}")
-        if fused_cell:
-            raise _not_ported(f"fused_cell={fused_cell!r}")
-        if approx_snake:
-            raise _not_ported("approx_snake=True")
-        if voc_dtype not in (None, "f32"):
-            raise _not_ported(f"voc_dtype={voc_dtype!r}")
+        and raises without a card; pass ``device='cpu'`` for the CPU.
+
+        precision: ``'highest'`` (parity) or anything else, which is the
+        fast-serving ``'default'``.  quantize: None, ``'int8'`` or
+        ``'int8_mixed'``.  fused_cell: True, False or ``'auto'`` (fused
+        below ``models.bvrnn.FUSED_AUTO_MAX_B``); None is ``'auto'`` at
+        ``'default'`` without ``quantize`` and False otherwise.
+        approx_snake and voc_dtype belong to the reference's direct-conv
+        vocoder: as with its ``use_pallas=True``, an explicit
+        ``approx_snake=True`` or any ``voc_dtype`` raises ValueError.
+        use_pallas: None or True (the kernel path, the only one ported);
+        False raises NotImplementedError."""
+        if use_pallas is not None and not use_pallas:
+            raise _not_ported("use_pallas=False", _XLA_VOCODER)
+        self.precision = resolve_precision(precision)
+        fast = self.precision == "default"
+        if voc_dtype not in (None, "f32", "bf16"):
+            raise ValueError(f"voc_dtype must be 'f32' or 'bf16', got {voc_dtype!r}")
+        if fused_cell not in (None, True, False, "auto"):
+            raise ValueError(f"fused_cell must be True/False/'auto', got {fused_cell!r}")
+        if fused_cell is None:
+            fused_cell = "auto" if fast and quantize is None else False
+        if fused_cell and quantize is not None:
+            raise ValueError(
+                "fused_cell is not supported with quantize= (int8 dict weights "
+                "cannot be re-concatenated); drop one")
+        self.fused_cell = fused_cell
         if vocoder_chkpt_path is not None:
-            raise _not_ported(
-                "loading a vocoder checkpoint",
-                "the trained vocoder as a JAX-free artifact (ROADMAP.md)",
-            )
+            raise _not_ported("loading a vocoder checkpoint", _VOCODER_ARTIFACT)
         self.device = resolve_device(device)
-        set_parity_mode()
+        if not fast:
+            set_parity_mode()
         self.conf = config if config is not None else load_config(config_path)
         conf = self.conf
         self.length_bucket = length_bucket
         self.bvrnn_cfg = bvrnn_mod.BVRNNConfig(
-            x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim, var_bit=conf.var_bit
+            x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim, var_bit=conf.var_bit,
+            precision=self.precision, fused_cell=self.fused_cell,
         )
         self.frontend = MelFrontend(
             sampling_rate=conf.fs,
@@ -106,13 +133,32 @@ class BVRNNCodecModel:
             elif bvrnn_chkpt_path.endswith(".npz"):
                 bvrnn_params = load_bvrnn_npz(bvrnn_chkpt_path)
             else:
-                raise _not_ported(
-                    "loading a non-npz BVRNN checkpoint",
-                    "the trained vocoder as a JAX-free artifact (ROADMAP.md)",
-                )
+                raise _not_ported("loading a non-npz BVRNN checkpoint", _VOCODER_ARTIFACT)
         if vocoder_params is None:
             vocoder_params = voc_mod.init_generator_params(seed_voc, conf.vocoder_config)
         self.bvrnn_params = to_torch(bvrnn_params, self.device)
+        if quantize == "int8":
+            self.bvrnn_params = quant.quantize_bvrnn_params(self.bvrnn_params)
+        elif quantize == "int8_mixed":
+            self.bvrnn_params = quant.quantize_bvrnn_params_mixed(self.bvrnn_params)
+        elif quantize is not None:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.quantize = quantize
+        # the kernel path's rules (the reference's use_pallas=True): its
+        # residual stacks compute exact snake in the precision's dtype
+        if approx_snake:
+            raise ValueError(
+                "approx_snake=True is not supported with use_pallas (the "
+                "kernels compute exact snake); drop one")
+        if voc_dtype is not None:
+            raise ValueError(
+                "voc_dtype is not supported with use_pallas (the kernel path's "
+                "compute dtype follows `precision`); drop one")
+        self.approx_snake = False
+        self.voc_dtype = "f32"
+        self.voc_compute_dtype = torch.bfloat16 if fast else torch.float32
+        # weights cast once to the precision's type (and the fused cell's)
+        self.scan_params = bvrnn_mod.prepare(self.bvrnn_params, self.bvrnn_cfg)
         self.vocoder_params = to_torch(vocoder_params, self.device)
         self.kernel_blocks = voc_mod.prepare_kernel_params(
             self.vocoder_params, conf.vocoder_config
@@ -168,7 +214,8 @@ class BVRNNCodecModel:
         """Mel (B, M, T) -> waveform (B, length), residual stacks through the
         kernel."""
         wav = voc_mod.generator_apply_kernel(
-            self.vocoder_params, self.kernel_blocks, self.conf.vocoder_config, mel, length
+            self.vocoder_params, self.kernel_blocks, self.conf.vocoder_config, mel, length,
+            precision=self.precision, compute_dtype=self.voc_compute_dtype,
         )
         return wav[:, 0, :] / SCALING
 
@@ -192,7 +239,7 @@ class BVRNNCodecModel:
         n_frames = self.frontend.num_frames(L)
         bits = self._frame_bits(bitrate, x.shape[0], L, Lp, n_frames)
         codes, _ = bvrnn_mod.encode_with_state(
-            self.bvrnn_params, self.bvrnn_cfg, self._mel(x), bits, self._h0(x.shape[0])
+            self.scan_params, self.bvrnn_cfg, self._mel(x), bits, self._h0(x.shape[0])
         )
         codes = codes[:, :n_frames]
         return codes[0] if squeeze else codes
@@ -206,7 +253,7 @@ class BVRNNCodecModel:
         padded_len = self._pad_length(max(codes.shape[1] * hop, length))
         codes = self._pad_codes(codes, padded_len // hop)
         mel, _ = bvrnn_mod.decode(
-            self.bvrnn_params, self.bvrnn_cfg, codes, self._h0(codes.shape[0])
+            self.scan_params, self.bvrnn_cfg, codes, self._h0(codes.shape[0])
         )
         y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
         return y[0] if squeeze else y
@@ -219,7 +266,7 @@ class BVRNNCodecModel:
         T = codes.shape[1]
         Tp = self._pad_length(T * self.conf.hopsize) // self.conf.hopsize
         mel, _ = bvrnn_mod.decode(
-            self.bvrnn_params, self.bvrnn_cfg, self._pad_codes(codes, Tp),
+            self.scan_params, self.bvrnn_cfg, self._pad_codes(codes, Tp),
             self._h0(codes.shape[0]),
         )
         mel = mel.transpose(1, 2)[..., :T]
@@ -241,7 +288,7 @@ class BVRNNCodecModel:
             bits = self._frame_bits(bitrate, B, length, Lp, n_frames)
             valid = (torch.arange(T, device=self.device) < n_frames).to(torch.float32)
             _, dec_mel, _ = bvrnn_mod.encode_decode(
-                self.bvrnn_params, self.bvrnn_cfg, mel, bits, self._h0(B),
+                self.scan_params, self.bvrnn_cfg, mel, bits, self._h0(B),
                 frame_valid=valid.expand(B, T),
             )
             y = self._vocode(dec_mel.transpose(1, 2), Lp)[:, :length]

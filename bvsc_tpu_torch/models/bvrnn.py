@@ -1,18 +1,27 @@
-"""Bernoulli-valued variational RNN (BVRNN), standard cell, in PyTorch.
+"""Bernoulli-valued variational RNN (BVRNN), inference, in PyTorch.
 
-Port of the inference half of ``bvsc_tpu/models/bvrnn.py`` (init, the MLP
-nets, the GRU step, the bit mask, ``encode``, ``encode_with_state``,
-``encode_decode`` and ``decode``).  Parameters are a nested dict of tensors
-with the JAX package's keys and layouts: linear weights are stored
-(in, out) and applied as ``x @ w``; the GRU gates are packed [r|z|n].
+Port of the inference half of ``bvsc_tpu/models/bvrnn.py``: init, the MLP
+nets, the GRU step, the bit mask, the standard and the fused cell, and
+``encode``, ``encode_with_state``, ``encode_decode`` and ``decode``.
+Parameters are a nested dict of tensors with the JAX package's keys and
+layouts: linear weights are stored (in, out) and applied as ``x @ w``; the
+GRU gates are packed [r|z|n].  Weights may also be weight-only int8 dicts
+(``ops.quant``).
 
-The frame recurrence is a Python loop; each step is a handful of
-``torch.matmul`` calls, as the JAX package leaves these GEMMs to XLA.
+``cfg.precision`` sets every product: ``'highest'`` is float32,
+``'default'`` takes bf16 operands with float32 sums (``ops.precision``).
+:func:`prepare` casts the weights to that type once (and builds the fused
+cell's weights); the scans take its :class:`ScanParams` or, as the tests
+do, a raw tree, which they prepare on each call.
+
+The frame recurrence is a Python loop; each step is a handful of products,
+as the JAX package leaves these GEMMs to XLA.
 
 Closed-loop state sync: encode and decode advance the GRU only with
 *generated* features, so both sides' hidden states follow the codes alone.
 ``decode`` therefore computes phi_z per step, in the same (B, z) shape as
-the encoder, never hoisted over the sequence.
+the encoder, never hoisted over the sequence; in the fused cell both sides
+share :func:`_fused_h_combo` and :func:`_fused_tail`.
 """
 
 from __future__ import annotations
@@ -23,7 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bvsc_tpu_torch.ops import precision as P
+from bvsc_tpu_torch.ops.quant import dequant_matmul, is_quantized as _is_quant_dict
+
 Params = dict
+
+# 'auto' picks the fused cell below this batch (the reference's threshold,
+# where its scan step stops being op-count-bound)
+FUSED_AUTO_MAX_B = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +48,8 @@ class BVRNNConfig:
     h_dim: int = 1024
     z_dim: int = 64
     var_bit: bool = True
+    precision: str = "highest"
+    fused_cell: bool | str = False
 
 
 # ---------------------------------------------------------------------------
@@ -88,39 +106,47 @@ def init_bvrnn_params(
 # ---------------------------------------------------------------------------
 
 
-def _dense(p, x):
-    return torch.matmul(x, p["w"]) + p["b"]
+def _matmul(x, w, precision):
+    """``x @ w`` at ``precision`` for float weights or int8 dicts."""
+    if isinstance(w, dict):
+        return dequant_matmul(x, w, precision)
+    return P.matmul(x, w, precision)
 
 
-def _mlp_elu(layers, x, final_activation=None):
+def _dense(p, x, precision="highest"):
+    return _matmul(x, p["w"], precision) + p["b"]
+
+
+def _mlp_elu(layers, x, precision, final_activation=None):
     """Linear+ELU stack; the last layer gets ``final_activation``."""
     for p in layers[:-1]:
-        x = F.elu(_dense(p, x))
-    x = _dense(layers[-1], x)
+        x = F.elu(_dense(p, x, precision))
+    x = _dense(layers[-1], x, precision)
     return x if final_activation is None else final_activation(x)
 
 
-def phi_x_apply(params, y):
-    return _mlp_elu(params["phi_x"], y, F.elu)
+def phi_x_apply(params, y, precision="highest"):
+    return _mlp_elu(params["phi_x"], y, precision, F.elu)
 
 
-def phi_z_apply(params, z):
-    return _mlp_elu(params["phi_z"], z, F.elu)
+def phi_z_apply(params, z, precision="highest"):
+    return _mlp_elu(params["phi_z"], z, precision, F.elu)
 
 
-def enc_apply(params, x):
-    return _mlp_elu(params["enc"], x, torch.sigmoid)
+def enc_apply(params, x, precision="highest"):
+    return _mlp_elu(params["enc"], x, precision, torch.sigmoid)
 
 
-def dec_apply(params, x):
-    return _mlp_elu(params["dec"], x)
+def dec_apply(params, x, precision="highest"):
+    return _mlp_elu(params["dec"], x, precision)
 
 
-def gru_step(gru: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def gru_step(gru: Params, x: torch.Tensor, h: torch.Tensor,
+             precision: str = "highest") -> torch.Tensor:
     """One torch-semantics GRU step, gates packed [r|z|n]:
     n = tanh(W_in x + b_in + r * (W_hn h + b_hn))."""
-    gi = torch.matmul(x, gru["w_ih"]) + gru["b_ih"]
-    gh = torch.matmul(h, gru["w_hh"]) + gru["b_hh"]
+    gi = _matmul(x, gru["w_ih"], precision) + gru["b_ih"]
+    gh = _matmul(h, gru["w_hh"], precision) + gru["b_hh"]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
@@ -144,19 +170,186 @@ def _normalize(params, y):
     return (y - params["mean_mel"]) / params["std_mel"]
 
 
-def _advance(params, z_t, h):
-    """Decoder half of a step: codes -> (decoded frame, next h)."""
-    phi_z_t = phi_z_apply(params, z_t)
-    dec_t = dec_apply(params, torch.cat([phi_z_t, h], -1))
-    phi_x_gen = phi_x_apply(params, _normalize(params, dec_t))
-    h_next = gru_step(params["gru"], torch.cat([phi_x_gen, phi_z_t], -1), h)
+# ---------------------------------------------------------------------------
+# Fused cell (cfg.fused_cell): fewer, larger products per step
+# ---------------------------------------------------------------------------
+#
+# Every Linear that reads concat([a, b]) distributes as a @ W[:k] + b @ W[k:],
+# so (as in the JAX package):
+#   * w_h_combo (h, 5h) = [enc_l1 h-part | dec_l1 h-part | gru w_hh]: all
+#     that reads only the carried h is one product at the step's start;
+#   * w_pz_combo (h, 4h) = [dec_l1 phi_z-part | gru w_ih phi_z-part];
+#   * w_ih_top (h, 3h): gru w_ih's part for the generated features;
+#   * enc_l1's phi_x-part is applied to the whole sequence before the loop;
+#   * dec_l4 -> normalize -> phi_x_l1 is affine, folded into one (h, h)
+#     product (w_fold); the loop emits dec_l3's activation a3 and the mel is
+#     one dec_l4 product after the loop.
+# The sums are reassociated against the standard cell, so codes may flip in
+# rare near-0.5 cases (the fast-serving contract).
+
+
+def is_quantized(params: Params) -> bool:
+    """True for weight-only int8 trees (``ops.quant``)."""
+    return _is_quant_dict(params["gru"]["w_ih"])
+
+
+def _use_fused(cfg: BVRNNConfig, batch: int) -> bool:
+    """The fused_cell policy for a batch size."""
+    if cfg.fused_cell == "auto":
+        return batch < FUSED_AUTO_MAX_B
+    return bool(cfg.fused_cell)
+
+
+def _fuse_inference_params(params: Params, cfg: BVRNNConfig) -> Params:
+    """The fused cell's weights from a float tree.  ``w_fold`` and ``b_fold``
+    are formed at full precision (float64 sums, rounded once to float32)
+    whatever ``cfg.precision``, so that no TF32 setting reaches them; only
+    the products that use them follow the precision."""
+    if is_quantized(params):
+        raise TypeError("fused_cell does not support quantized weights")
+    h = params["gru"]["w_hh"].shape[0]
+    enc1, enc2, enc3 = params["enc"]
+    dec1, dec2, dec3, dec4 = params["dec"]
+    px1, px2, px3 = params["phi_x"]
+    gru = params["gru"]
+    inv_std = 1.0 / params["std_mel"]
+    px1_w = px1["w"].double()
+    return {
+        "w_h_combo": torch.cat([enc1["w"][h:], dec1["w"][h:], gru["w_hh"]], dim=1),
+        "w_pz_combo": torch.cat([dec1["w"][:h], gru["w_ih"][h:]], dim=1),
+        "w_ih_top": gru["w_ih"][:h],
+        "w_enc1_x": enc1["w"][:h],
+        "b_enc1": enc1["b"],
+        "enc2": enc2,
+        "enc3": enc3,
+        "b_dec1": dec1["b"],
+        "dec2": dec2,
+        "dec3": dec3,
+        "dec4": dec4,
+        # norm(a3 @ W4 + b4) @ Wpx1 + bpx1
+        #   == a3 @ (W4 @ (Wpx1 * inv_std[:, None]))
+        #      + ((b4 - mean) * inv_std) @ Wpx1 + bpx1
+        "w_fold": (dec4["w"].double() @ (px1["w"] * inv_std[:, None]).double()).float(),
+        "b_fold": (((dec4["b"] - params["mean_mel"]) * inv_std).double() @ px1_w).float()
+        + px1["b"],
+        "px2": px2,
+        "px3": px3,
+        "phi_z": params["phi_z"],
+        "b_ih": gru["b_ih"],
+        "b_hh": gru["b_hh"],
+    }
+
+
+def _fused_h_combo(fp, h, prec):
+    """All that reads only the carried h, one (B, h) x (h, 5h) product:
+    (enc_l1 h-part, dec_l1 h-part, GRU hidden gates before their bias)."""
+    H = h.shape[-1]
+    combo = _matmul(h, fp["w_h_combo"], prec)
+    return combo[..., :H], combo[..., H : 2 * H], combo[..., 2 * H :]
+
+
+def _fused_tail(fp, h, z_t, d1h, gh, prec):
+    """phi_z -> dec stack -> folded generated-feature stack -> GRU update.
+    Returns (h_next, a3), a3 being dec's last hidden activation."""
+    H = h.shape[-1]
+    p = z_t
+    for lyr in fp["phi_z"]:
+        p = F.elu(_dense(lyr, p, prec))
+    pzc = _matmul(p, fp["w_pz_combo"], prec)
+    d1z, gi_bot = pzc[..., :H], pzc[..., H:]
+    d = F.elu(d1z + d1h + fp["b_dec1"])
+    d = F.elu(_dense(fp["dec2"], d, prec))
+    a3 = F.elu(_dense(fp["dec3"], d, prec))
+    u = F.elu(_matmul(a3, fp["w_fold"], prec) + fp["b_fold"])
+    u = F.elu(_dense(fp["px2"], u, prec))
+    xg = F.elu(_dense(fp["px3"], u, prec))
+    gi = _matmul(xg, fp["w_ih_top"], prec) + gi_bot + fp["b_ih"]
+    ghb = gh + fp["b_hh"]
+    r = torch.sigmoid(gi[..., :H] + ghb[..., :H])
+    zz = torch.sigmoid(gi[..., H : 2 * H] + ghb[..., H : 2 * H])
+    n = torch.tanh(gi[..., 2 * H :] + r * ghb[..., 2 * H :])
+    return (1.0 - zz) * n + zz * h, a3
+
+
+def _fused_enc(fp, encx_t, e1h, mask_t, prec):
+    """The enc stack from the hoisted phi_x projection and the combo's
+    h-part, rounded and masked."""
+    a = F.elu(encx_t + e1h + fp["b_enc1"])
+    a = F.elu(_dense(fp["enc2"], a, prec))
+    enc_t = torch.sigmoid(_dense(fp["enc3"], a, prec))
+    return _apply_bit_mask(torch.round(enc_t), mask_t)
+
+
+def _fused_dec_seq(fp, a3_seq, prec):
+    """The dec_l4 product after the loop: (B, T, h) -> mel (B, T, x)."""
+    return _dense(fp["dec4"], a3_seq, prec)
+
+
+# ---------------------------------------------------------------------------
+# Weights prepared for the scans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanParams:
+    """A BVRNN tree with its weight matrices in the precision's type (float32
+    or bf16; int8 ``q`` widened, exactly), and the fused cell's weights when
+    the config can use them."""
+
+    std: Params
+    fused: Params | None
+
+
+def _cast_weights(tree, precision: str):
+    """Every weight matrix (keys starting with ``w``) in the precision's
+    type; biases and mel statistics stay float32."""
+    dtype = torch.float32 if precision == "highest" else torch.bfloat16
+
+    def walk(node, key):
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        if _is_quant_dict(node):
+            return {"q": node["q"].to(dtype), "scale": node["scale"]}
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(dtype) if key.startswith("w") else node
+
+    return walk(tree, "")
+
+
+def prepare(params: Params | ScanParams, cfg: BVRNNConfig) -> ScanParams:
+    """Cast once what every step would otherwise cast; build the fused
+    cell's weights if ``cfg.fused_cell`` may pick it (a TypeError for int8
+    trees)."""
+    if isinstance(params, ScanParams):
+        return params
+    fused = None
+    if cfg.fused_cell:
+        fused = _cast_weights(_fuse_inference_params(params, cfg), cfg.precision)
+    return ScanParams(_cast_weights(params, cfg.precision), fused)
+
+
+def _fused_params(sp: ScanParams) -> Params:
+    if sp.fused is None:
+        raise ValueError("these ScanParams were prepared without the fused cell")
+    return sp.fused
+
+
+# ---------------------------------------------------------------------------
+# Scans
+# ---------------------------------------------------------------------------
+
+
+def _advance(params, z_t, h, prec):
+    """Decoder half of a standard step: codes -> (decoded frame, next h)."""
+    phi_z_t = phi_z_apply(params, z_t, prec)
+    dec_t = dec_apply(params, torch.cat([phi_z_t, h], -1), prec)
+    phi_x_gen = phi_x_apply(params, _normalize(params, dec_t), prec)
+    h_next = gru_step(params["gru"], torch.cat([phi_x_gen, phi_z_t], -1), h, prec)
     return dec_t, h_next
 
 
-def _scan(params, cfg, y, var_bitrate, h, frame_valid=None):
-    """The greedy encode scan.  Returns per-frame lists of codes, decoded
-    frames and the state before each frame, and the final state."""
-    phi_x = phi_x_apply(params, _normalize(params, y))  # (B, T, h), hoisted
+def _code_mask(cfg, y, var_bitrate, frame_valid):
     if cfg.var_bit:
         if var_bitrate is None:
             raise ValueError("var_bit config needs a bitrate")
@@ -165,29 +358,53 @@ def _scan(params, cfg, y, var_bitrate, h, frame_valid=None):
         mask = torch.ones(y.shape[0], y.shape[1], cfg.z_dim, device=y.device)
     if frame_valid is not None:
         mask = mask * frame_valid.to(mask.dtype)[:, :, None]
-    zs, decs, hs = [], [], []
+    return mask
+
+
+def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False):
+    """The greedy encode scan.  Returns the codes (B, T, z), the decoded mel
+    (B, T, x) if ``want_mel`` (else None), the per-frame list of the state
+    before each frame, and the final state."""
+    sp = prepare(params, cfg)
+    prec = cfg.precision
+    mask = _code_mask(cfg, y, var_bitrate, frame_valid)
+    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y), prec)  # (B, T, h), hoisted
+    zs, outs, hs = [], [], []
+    if _use_fused(cfg, y.shape[0]):
+        fp = _fused_params(sp)
+        encx = _matmul(phi_x, fp["w_enc1_x"], prec)
+        for t in range(y.shape[1]):
+            e1h, d1h, gh = _fused_h_combo(fp, h, prec)
+            z_t = _fused_enc(fp, encx[:, t], e1h, mask[:, t], prec)
+            hs.append(h)
+            h, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
+            zs.append(z_t)
+            outs.append(a3)
+        mel = _fused_dec_seq(fp, torch.stack(outs, 1), prec) if want_mel else None
+        return torch.stack(zs, 1), mel, hs, h
+    p = sp.std
     for t in range(y.shape[1]):
-        enc_t = enc_apply(params, torch.cat([phi_x[:, t], h], -1))
+        enc_t = enc_apply(p, torch.cat([phi_x[:, t], h], -1), prec)
         z_t = _apply_bit_mask(torch.round(enc_t), mask[:, t])
         hs.append(h)
-        dec_t, h = _advance(params, z_t, h)
+        dec_t, h = _advance(p, z_t, h, prec)
         zs.append(z_t)
-        decs.append(dec_t)
-    return zs, decs, hs, h
+        outs.append(dec_t)
+    return torch.stack(zs, 1), torch.stack(outs, 1) if want_mel else None, hs, h
 
 
 def encode(params, cfg, y, var_bitrate, h):
     """Greedy encode.  y: (B, T, x_dim); var_bitrate: (B, T) or None;
     h: (B, h_dim).  Returns (codes (B, T, z), h_seq (B, T, h)) where
     ``h_seq[:, t]`` is the state before frame t."""
-    zs, _, hs, _ = _scan(params, cfg, y, var_bitrate, h)
-    return torch.stack(zs, 1), torch.stack(hs, 1)
+    codes, _, hs, _ = _scan(params, cfg, y, var_bitrate, h)
+    return codes, torch.stack(hs, 1)
 
 
 def encode_with_state(params, cfg, y, var_bitrate, h):
     """Like :func:`encode` but returns the final hidden state."""
-    zs, _, _, h_final = _scan(params, cfg, y, var_bitrate, h)
-    return torch.stack(zs, 1), h_final
+    codes, _, _, h_final = _scan(params, cfg, y, var_bitrate, h)
+    return codes, h_final
 
 
 def encode_decode(params, cfg, y, var_bitrate, h, frame_valid=None):
@@ -197,14 +414,46 @@ def encode_decode(params, cfg, y, var_bitrate, h, frame_valid=None):
     emitted codes.  ``frame_valid`` (B, T) forces the codes of invalid
     frames to 0.5 inside the scan, as ``decode`` sees 0.5-padded codes.
     """
-    zs, decs, _, h_final = _scan(params, cfg, y, var_bitrate, h, frame_valid)
-    return torch.stack(zs, 1), torch.stack(decs, 1), h_final
+    codes, mel, _, h_final = _scan(params, cfg, y, var_bitrate, h, frame_valid, want_mel=True)
+    return codes, mel, h_final
+
+
+def codes_from_states(params, cfg, y, var_bitrate, h_seq):
+    """The codes each frame would get from the given states: frame t is
+    encoded from ``h_seq[:, t]`` (B, T, h) instead of from the scan's own
+    state, all frames in one batch.  With another model's ``encode`` states
+    this is the chaos-free comparison of two precisions: a trained closed
+    loop amplifies any difference in its state, so free-running codes part
+    after the first flip, while these differ only where the per-frame
+    function does."""
+    sp = prepare(params, cfg)
+    prec = cfg.precision
+    mask = _code_mask(cfg, y, var_bitrate, None)
+    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y), prec)
+    if _use_fused(cfg, y.shape[0]):
+        fp = _fused_params(sp)
+        e1h, _, _ = _fused_h_combo(fp, h_seq, prec)
+        return _fused_enc(fp, _matmul(phi_x, fp["w_enc1_x"], prec), e1h, mask, prec)
+    enc = enc_apply(sp.std, torch.cat([phi_x, h_seq], -1), prec)
+    return _apply_bit_mask(torch.round(enc), mask)
 
 
 def decode(params, cfg, z, h):
-    """Codes (B, T, z_dim) -> (mel (B, T, x_dim), final h); phi_z per step."""
-    decs = []
+    """Codes (B, T, z_dim) -> (mel (B, T, x_dim), final h); phi_z per step.
+    The fused cell runs the same (B, h) x (h, 5h) combo product as the
+    encoder (its enc columns unused), so the decoder's state stays bitwise
+    equal to the encoder's."""
+    sp = prepare(params, cfg)
+    prec = cfg.precision
+    outs = []
+    if _use_fused(cfg, z.shape[0]):
+        fp = _fused_params(sp)
+        for t in range(z.shape[1]):
+            _, d1h, gh = _fused_h_combo(fp, h, prec)
+            h, a3 = _fused_tail(fp, h, z[:, t], d1h, gh, prec)
+            outs.append(a3)
+        return _fused_dec_seq(fp, torch.stack(outs, 1), prec), h
     for t in range(z.shape[1]):
-        dec_t, h = _advance(params, z[:, t], h)
-        decs.append(dec_t)
-    return torch.stack(decs, 1), h
+        dec_t, h = _advance(sp.std, z[:, t], h, prec)
+        outs.append(dec_t)
+    return torch.stack(outs, 1), h

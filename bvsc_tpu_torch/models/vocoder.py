@@ -9,9 +9,11 @@ tanh -> trim to ``length``.  Channels 128 -> 64 -> 32 -> 16 -> 8.
 Parameters are a nested dict of tensors with the JAX package's keys and
 torch conv layouts.  :func:`generator_apply` is the plain path;
 :func:`generator_apply_kernel` runs the residual stacks through the CUDA
-kernel of ``ops.amp_resblock`` (its counterpart is
-``generator_apply_pallas``).  The symmetric and anti-aliased variants are
-not ported.
+kernels of ``ops.amp_resblock`` (its counterpart is
+``generator_apply_pallas``).  ``precision`` sets conv_pre, the upsamplers
+and conv_post (``ops.conv``); ``compute_dtype`` sets the residual stacks'
+mode (float32, or bf16 operands with float32 sums).  The symmetric and
+anti-aliased variants are not ported.
 """
 
 from __future__ import annotations
@@ -99,34 +101,39 @@ def prepare_kernel_params(params: Params, cfg: VocoderConfig) -> list[list[Resbl
     ]
 
 
-def _apply(params, cfg, x, length, stage_fn):
-    x = conv1d(pad1d(x, 6), params["conv_pre"])
+def _apply(params, cfg, x, length, stage_fn, precision):
+    x = conv1d(pad1d(x, 6), params["conv_pre"], precision=precision)
     for i, u in enumerate(cfg.upsample_rates):
-        x = conv_transpose1d(x, params["ups"][i], stride=u)
+        x = conv_transpose1d(x, params["ups"][i], stride=u, precision=precision)
         x = stage_fn(i, x)
     x = snake_beta(x, params["act_post"], logscale=cfg.snake_logscale)
-    x = torch.tanh(conv1d(pad1d(x, 6), params["conv_post"]))
+    x = torch.tanh(conv1d(pad1d(x, 6), params["conv_post"], precision=precision))
     return x if length is None else x[..., :length]
 
 
 def generator_apply(params: Params, cfg: VocoderConfig, x: torch.Tensor,
-                    length: int | None = None) -> torch.Tensor:
+                    length: int | None = None, precision: str = "highest",
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Mel (B, num_mels, T) -> waveform (B, 1, length), plain path."""
     _check_supported(cfg)
     num_k = len(cfg.resblock_kernel_sizes)
 
     def stage(i, x):
         kernels = zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
-        return average([amp_block_plain(x, params["resblocks"][i * num_k + j], ksz, dils)
+        return average([amp_block_plain(x, params["resblocks"][i * num_k + j], ksz, dils,
+                                        compute_dtype)
                         for j, (ksz, dils) in enumerate(kernels)])
 
-    return _apply(params, cfg, x, length, stage)
+    return _apply(params, cfg, x, length, stage, precision)
 
 
 def generator_apply_kernel(params: Params, kernel_blocks: list[list[ResblockParams]],
                            cfg: VocoderConfig, x: torch.Tensor,
-                           length: int | None = None) -> torch.Tensor:
+                           length: int | None = None, precision: str = "highest",
+                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """:func:`generator_apply` with the residual stacks through
-    ``ops.amp_resblock.amp_stack`` (the CUDA kernel on a CUDA tensor);
-    ``kernel_blocks`` from :func:`prepare_kernel_params`."""
-    return _apply(params, cfg, x, length, lambda i, x: amp_stack(x, kernel_blocks[i]))
+    ``ops.amp_resblock.amp_stack`` (the CUDA kernel of ``compute_dtype``'s
+    mode on a CUDA tensor); ``kernel_blocks`` from
+    :func:`prepare_kernel_params`."""
+    return _apply(params, cfg, x, length,
+                  lambda i, x: amp_stack(x, kernel_blocks[i], compute_dtype), precision)

@@ -1,26 +1,34 @@
-"""The vocoder's AMP residual blocks: CUDA kernel, plain and tiled versions.
+"""The vocoder's AMP residual blocks: CUDA kernels, plain and tiled versions.
 
 Replaces the Pallas TPU kernel ``bvsc_tpu/ops/pallas_voc.py:_amp_kernel``
 (launched by ``amp_resblock_folded``, driven per stage by
-``resblock_stack_folded``).  One AMP residual block is 3 units of
-SnakeBeta -> causal dilated conv (k, d in {1, 3, 5}) -> SnakeBeta ->
-causal conv (k, 1) -> residual add; a vocoder stage averages 3 blocks with
-k = 3, 7, 11.
+``resblock_stack_folded``) in both of its modes.  One AMP residual block is
+3 units of SnakeBeta -> causal dilated conv (k, d in {1, 3, 5}) ->
+SnakeBeta -> causal conv (k, 1) -> residual add; a vocoder stage averages 3
+blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
 
-* :func:`amp_resblock` is the kernel's wrapper.  For a CUDA tensor it
-  launches ``csrc/amp_resblock.cu`` (one launch per block, the stage
-  average in torch) or raises; only a CPU tensor takes the plain version.
-  ``amp_resblock.launches`` counts the launches.
+* float32 (parity): ``csrc/amp_resblock.cu``, float32 FMAs on the CUDA
+  cores, since parity mode forbids TF32;
+* bf16 (fast serving, the TPU kernel's default): ``csrc/amp_resblock_bf16.cu``
+  on the tensor cores.  Each conv's operands are rounded to bf16 and the
+  products summed in float32; snake, bias, start mask and residual stay
+  float32, and so do input and output.
+
+* :func:`amp_resblock` is the kernels' wrapper.  For a CUDA tensor it
+  launches the mode's kernel (one launch per block, the stage average in
+  torch) or raises; only a CPU tensor takes the plain version.
+  ``amp_resblock.launches`` and ``amp_resblock.launches_bf16`` count the
+  launches of each mode.
 * :func:`amp_block_plain` is the plain version, the reference
   ``_amp_block`` written with the port's ``conv1d`` and ``snake_beta``.
-* :func:`amp_block_tiled` reproduces the kernel's tiling in torch (per-tile
+* :func:`amp_block_tiled` reproduces a kernel's tiling in torch (per-tile
   halo recompute, shrinking windows, zeros re-imposed at t < 0 after every
-  conv's bias), so the CPU tests prove the kernel's indexing.
+  conv's bias; in bf16 mode each conv is the kernel's GEMM on its packed
+  weights), so the CPU tests prove the kernels' indexing.
 
-What bounds the kernel on an H100: float32 FLOPs on the CUDA cores, since
-parity mode forbids TF32.  The design keeps every intermediate of a block
-in shared memory, so device memory sees one read and one write of the
-activations per block; see the source for what it does not do yet.
+Both kernels keep every intermediate of a block in shared memory, so device
+memory sees one read and one write of the activations per block; see the
+sources for what they do not do yet.
 """
 
 from __future__ import annotations
@@ -34,10 +42,13 @@ import torch.nn.functional as F
 
 from bvsc_tpu_torch.ops import _build
 from bvsc_tpu_torch.ops.conv import conv1d, pad1d
+from bvsc_tpu_torch.ops.precision import round_bf16
 from bvsc_tpu_torch.ops.snake import EPS, snake_beta
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 N_UNITS = 3
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+BF16_CHANNELS = (8, 16, 32, 64)  # the bf16 kernel's instantiations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +65,21 @@ class ResblockParams:
     b2: torch.Tensor  # (3, C)
     alpha: torch.Tensor  # (6, C), exp(log alpha)
     inv_beta: torch.Tensor  # (6, C), 1 / (exp(log beta) + eps)
+    wk1: torch.Tensor  # (3, C, Kp) bf16, w1 packed for the bf16 kernel
+    wk2: torch.Tensor  # (3, C, Kp) bf16
 
     @property
     def channels(self) -> int:
         return self.w1.shape[1]
+
+
+def pack_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(3, C_out, C_in, k) float32 conv weights -> (3, C_out, Kp) bf16 GEMM
+    rows, column ``tap * C_in + c_in``, zero-padded to Kp, the least
+    multiple of 16 >= C_in * k (the bf16 kernel's K)."""
+    n, co, ci, k = w.shape
+    rows = w.permute(0, 1, 3, 2).reshape(n, co, k * ci)
+    return F.pad(rows, (0, -(k * ci) % 16)).to(torch.bfloat16).contiguous()
 
 
 def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams:
@@ -70,16 +92,20 @@ def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams
         return torch.stack(list(tensors)).contiguous()
 
     acts = block["acts"]
+    w1 = stack(c["w"] for c in block["convs1"])
+    w2 = stack(c["w"] for c in block["convs2"])
     return ResblockParams(
         block=block,
         kernel_size=int(kernel_size),
         dilations=dilations,
-        w1=stack(c["w"] for c in block["convs1"]),
+        w1=w1,
         b1=stack(c["b"] for c in block["convs1"]),
-        w2=stack(c["w"] for c in block["convs2"]),
+        w2=w2,
         b2=stack(c["b"] for c in block["convs2"]),
         alpha=stack(torch.exp(a["alpha"]) for a in acts),
         inv_beta=stack(1.0 / (torch.exp(a["beta"]) + EPS) for a in acts),
+        wk1=pack_bf16(w1),
+        wk2=pack_bf16(w2),
     )
 
 
@@ -88,15 +114,27 @@ def halo(kernel_size: int, dilations) -> int:
     return (kernel_size - 1) * (sum(dilations) + len(dilations))
 
 
-def tile_for(channels: int) -> int:
-    """Output samples per thread block: wide tiles where channels are few."""
+def tile_for(channels: int, compute_dtype: torch.dtype = torch.float32) -> int:
+    """Output samples per thread block: wide tiles where channels are few;
+    twice as wide in bf16 mode, whose operand buffers are half the size."""
+    if compute_dtype == torch.bfloat16:
+        return max(64, 16384 // channels)
     return max(32, 8192 // channels)
 
 
-def smem_bytes(rb: ResblockParams) -> int:
-    """Shared memory of one thread block: 3 buffers of C x (halo + tile)."""
+def smem_bytes(rb: ResblockParams, compute_dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one thread block.  float32: 3 buffers of
+    C x (halo + tile).  bf16: the float32 residual, C x SX (the window L
+    rounded up to 4 mod 16), and two bf16 operand buffers, L x SA
+    (SA = C + 8, or 8 at C = 8); as ``csrc/amp_resblock_bf16.cu`` computes
+    it."""
     C = rb.channels
-    return 3 * 4 * C * (halo(rb.kernel_size, rb.dilations) + tile_for(C))
+    L = halo(rb.kernel_size, rb.dilations) + tile_for(C, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        sx = L + (4 - L % 16) % 16
+        sa = C + 8 if C >= 16 else C
+        return 4 * C * sx + 2 * 2 * L * sa
+    return 3 * 4 * C * L
 
 
 # ---------------------------------------------------------------------------
@@ -104,37 +142,69 @@ def smem_bytes(rb: ResblockParams) -> int:
 # ---------------------------------------------------------------------------
 
 
-def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations) -> torch.Tensor:
-    """Causal AMP residual block (reference ``_amp_block``, causal branch)."""
+def _precision(compute_dtype: torch.dtype) -> str:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    return "highest" if compute_dtype == torch.float32 else "default"
+
+
+def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Causal AMP residual block (reference ``_amp_block``, causal branch);
+    in bf16 mode each conv takes bf16-rounded operands (``conv1d`` at
+    precision ``'default'``)."""
+    prec = _precision(compute_dtype)
     p2 = kernel_size - 1
     for j, d in enumerate(dilations):
         xt = snake_beta(x, block["acts"][2 * j], logscale=True)
-        xt = conv1d(pad1d(xt, (kernel_size - 1) * d), block["convs1"][j], dilation=d)
+        xt = conv1d(pad1d(xt, (kernel_size - 1) * d), block["convs1"][j], dilation=d,
+                    precision=prec)
         xt = snake_beta(xt, block["acts"][2 * j + 1], logscale=True)
-        xt = conv1d(pad1d(xt, p2), block["convs2"][j])
+        xt = conv1d(pad1d(xt, p2), block["convs2"][j], precision=prec)
         x = xt + x
     return x
 
 
-def amp_block_tiled(x: torch.Tensor, rb: ResblockParams) -> torch.Tensor:
-    """The kernel's algorithm in torch: tiles of ``tile_for(C)`` outputs,
-    each recomputing its left halo from a zero-filled window."""
+def _conv_gemm(xt: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, k: int, d: int) -> torch.Tensor:
+    """The bf16 kernel's conv: rows (t, tap * C + c) of the bf16-rounded
+    operand, zero-padded to Kp, times the packed weights ``wk`` (C, Kp);
+    float32 sums, then the bias."""
+    n = xt.shape[-1] - (k - 1) * d
+    taps = torch.stack([xt[..., tap * d : tap * d + n] for tap in range(k)], 1)  # (B, k, C, n)
+    rows = taps.permute(0, 3, 1, 2).reshape(xt.shape[0], n, -1)  # (B, n, k C)
+    rows = F.pad(round_bf16(rows), (0, wk.shape[-1] - rows.shape[-1]))
+    return (rows @ wk.to(torch.float32).T).transpose(1, 2) + b[:, None]
+
+
+def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A kernel's algorithm in torch: tiles of ``tile_for(C, compute_dtype)``
+    outputs, each recomputing its left halo from a zero-filled window; in
+    bf16 mode each conv is the kernel's GEMM (:func:`_conv_gemm`)."""
+    bf16 = _precision(compute_dtype) == "default"
     B, C, T = x.shape
     k, dils = rb.kernel_size, rb.dilations
-    H, tile = halo(k, dils), tile_for(C)
+    H, tile = halo(k, dils), tile_for(C, compute_dtype)
     xpad = F.pad(x, (H, tile))  # column i holds global time i - H
     acts = rb.block["acts"]
     out = torch.empty_like(x)
+
+    def conv(xt, n, j, d):
+        w, b, wk = (rb.w1, rb.b1, rb.wk1) if n == 1 else (rb.w2, rb.b2, rb.wk2)
+        if bf16:
+            return _conv_gemm(xt, wk[j], b[j], k, d)
+        return F.conv1d(xt, w[j], b[j], dilation=d)
+
     for t0 in range(0, T, tile):
         xw = xpad[..., t0 : t0 + H + tile]
         g = torch.arange(t0 - H, t0 + tile, device=x.device)  # global times
         for j, d in enumerate(dils):
             xt = snake_beta(xw, acts[2 * j], logscale=True)
-            xt = F.conv1d(xt, rb.w1[j], rb.b1[j], dilation=d)
+            xt = conv(xt, 1, j, d)
             g = g[(k - 1) * d :]
             xt = xt * (g >= 0).to(xt.dtype)
             xt = snake_beta(xt, acts[2 * j + 1], logscale=True)
-            xt = F.conv1d(xt, rb.w2[j], rb.b2[j])
+            xt = conv(xt, 2, j, 1)
             g = g[k - 1 :]
             xt = xt * (g >= 0).to(xt.dtype)
             xw = xt + xw[..., -xt.shape[-1] :]
@@ -151,13 +221,16 @@ def average(outs: list[torch.Tensor]) -> torch.Tensor:
     return xs / len(outs)
 
 
-def amp_stack_plain(x: torch.Tensor, stage: list[ResblockParams]) -> torch.Tensor:
+def amp_stack_plain(x: torch.Tensor, stage: list[ResblockParams],
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A vocoder stage: the plain blocks, averaged."""
-    return average([amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations) for rb in stage])
+    return average([amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype)
+                    for rb in stage])
 
 
-def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams]) -> torch.Tensor:
-    return average([amp_block_tiled(x, rb) for rb in stage])
+def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams],
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return average([amp_block_tiled(x, rb, compute_dtype) for rb in stage])
 
 
 # ---------------------------------------------------------------------------
@@ -166,56 +239,74 @@ def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams]) -> torch.Tenso
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("amp_resblock").amp_resblock_f32
+def _kernel(compute_dtype: torch.dtype):
+    if compute_dtype == torch.bfloat16:
+        fn = _build.load("amp_resblock_bf16").amp_resblock_bf16
+    else:
+        fn = _build.load("amp_resblock").amp_resblock_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x: torch.Tensor, rb: ResblockParams) -> None:
+def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype) -> None:
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"expected contiguous float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
     if not 0 < x.shape[0] <= 65535 or x.shape[2] == 0:
         raise ValueError(f"batch must be 1..65535 (a grid dimension) and T > 0, got {tuple(x.shape)}")
     if x.shape[1] != rb.channels:
         raise ValueError(f"{x.shape[1]} channels, resblock has {rb.channels}")
-    for t in (rb.w1, rb.b1, rb.w2, rb.b2, rb.alpha, rb.inv_beta):
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("resblock params must be contiguous float32 on the input's device")
-    if smem_bytes(rb) > SMEM_LIMIT:
-        raise ValueError(f"{smem_bytes(rb)} B of shared memory exceeds {SMEM_LIMIT}")
+    bf16 = compute_dtype == torch.bfloat16
+    weights = [(rb.wk1, torch.bfloat16), (rb.wk2, torch.bfloat16)] if bf16 else [
+        (rb.w1, torch.float32), (rb.w2, torch.float32)]
+    for t, dtype in weights + [(p, torch.float32) for p in (rb.b1, rb.b2, rb.alpha, rb.inv_beta)]:
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"resblock params must be contiguous {dtype} on the input's device")
+    if bf16 and rb.channels not in BF16_CHANNELS:
+        raise ValueError(f"the bf16 kernel takes C in {BF16_CHANNELS}, got {rb.channels}")
+    if smem_bytes(rb, compute_dtype) > SMEM_LIMIT:
+        raise ValueError(f"{smem_bytes(rb, compute_dtype)} B of shared memory exceeds {SMEM_LIMIT}")
 
 
-def amp_resblock(x: torch.Tensor, rb: ResblockParams) -> torch.Tensor:
-    """One AMP residual block.  CUDA tensors launch the kernel; CPU tensors
-    take :func:`amp_block_plain`; anything else raises."""
+def amp_resblock(x: torch.Tensor, rb: ResblockParams,
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One AMP residual block in ``compute_dtype``'s mode.  CUDA tensors
+    launch that mode's kernel; CPU tensors take :func:`amp_block_plain`;
+    anything else raises."""
+    _precision(compute_dtype)
     if x.device.type == "cpu":
-        return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations)
+        return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"amp_resblock runs on cuda or cpu, not {x.device}")
-    _check(x, rb)
+    _check(x, rb, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
     B, C, T = x.shape
+    w1, w2 = (rb.wk1, rb.wk2) if bf16 else (rb.w1, rb.w2)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _kernel()(
-            x.data_ptr(), y.data_ptr(), rb.w1.data_ptr(), rb.b1.data_ptr(),
-            rb.w2.data_ptr(), rb.b2.data_ptr(), rb.alpha.data_ptr(), rb.inv_beta.data_ptr(),
-            B, C, T, rb.kernel_size, *rb.dilations, tile_for(C),
+        err = _kernel(compute_dtype)(
+            x.data_ptr(), y.data_ptr(), w1.data_ptr(), rb.b1.data_ptr(),
+            w2.data_ptr(), rb.b2.data_ptr(), rb.alpha.data_ptr(), rb.inv_beta.data_ptr(),
+            B, C, T, rb.kernel_size, *rb.dilations, tile_for(C, compute_dtype),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"amp_resblock kernel launch failed: CUDA error {err}")
-    amp_resblock.launches += 1
+        raise RuntimeError(f"amp_resblock ({compute_dtype}) kernel launch failed: CUDA error {err}")
+    if bf16:
+        amp_resblock.launches_bf16 += 1
+    else:
+        amp_resblock.launches += 1
     return y
 
 
-amp_resblock.launches = 0
+amp_resblock.launches = 0  # float32 kernel
+amp_resblock.launches_bf16 = 0  # bf16 kernel
 
 
-def amp_stack(x: torch.Tensor, stage: list[ResblockParams]) -> torch.Tensor:
+def amp_stack(x: torch.Tensor, stage: list[ResblockParams],
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A vocoder stage through :func:`amp_resblock`: blocks averaged."""
-    return average([amp_resblock(x, rb) for rb in stage])
+    return average([amp_resblock(x, rb, compute_dtype) for rb in stage])
 
 
 def supported(cfg) -> bool:

@@ -5,13 +5,22 @@ ConvTranspose1d weights are (in, out, k), so parameters cross between the
 two packages unchanged.  Padding is explicit (left-only for causality);
 the convolutions themselves take no padding.  Parameters are inference
 params ``{'w', 'b'}``: ``convert`` folds weight-normed ``{'g', 'v'}`` on
-loading.
+loading.  ``precision='default'`` rounds both operands to bf16 and keeps a
+float32 output (``ops.precision``); the bias is added in float32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from bvsc_tpu_torch.ops.precision import round_bf16
+
+
+def _operands(x: torch.Tensor, w: torch.Tensor, precision: str):
+    if precision == "highest":
+        return x, w
+    return round_bf16(x), round_bf16(w)
 
 
 def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -27,12 +36,16 @@ def pad1d(x: torch.Tensor, left: int, right: int = 0) -> torch.Tensor:
     return F.pad(x, (left, right))
 
 
-def conv1d(x: torch.Tensor, p: dict, *, stride: int = 1, dilation: int = 1) -> torch.Tensor:
+def conv1d(x: torch.Tensor, p: dict, *, stride: int = 1, dilation: int = 1,
+           precision: str = "highest") -> torch.Tensor:
     """``F.conv1d`` with padding 0: (B, C_in, T) -> (B, C_out, T')."""
-    return F.conv1d(x, p["w"], p.get("b"), stride=stride, dilation=dilation)
+    x, w = _operands(x, p["w"], precision)
+    return F.conv1d(x, w, p.get("b"), stride=stride, dilation=dilation)
 
 
-def conv_transpose1d(x: torch.Tensor, p: dict, *, stride: int) -> torch.Tensor:
+def conv_transpose1d(x: torch.Tensor, p: dict, *, stride: int,
+                     precision: str = "highest") -> torch.Tensor:
     """``F.conv_transpose1d`` with padding 0 on the (in, out, k) weight;
     output length (T - 1) * stride + k."""
-    return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride)
+    x, w = _operands(x, p["w"], precision)
+    return F.conv_transpose1d(x, w, p.get("b"), stride=stride)

@@ -17,11 +17,26 @@ Phases, each printing one JSON line with its seconds:
    output.  Checks shape, finiteness, codes in {0, 0.5, 1}, each stage's
    kernel output against the plain version on the same input, and the
    kernel vocoder against the plain generator on the same decoded mel.
-4. ``kernel``: each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes the main path gave it (float32, TF32 off), on
-   seeded inputs, timed with CUDA events, beside its least possible time
-   on an H100.
-5. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
+4. ``fast_path``: the same batch, checkpoint and vocoder at
+   ``precision='default'`` (fast serving) in four forms: ``fused_cell``
+   ``'auto'`` (fused at B=4), ``fused_cell=False``, ``quantize='int8'`` and
+   ``quantize='int8_mixed'``.  The launch counts are read around the
+   ``'auto'`` call (12 bf16-kernel launches, 0 float32), which keeps each
+   stage's input and bf16-kernel output.  Checks shape, finiteness, codes
+   in {0, 0.5, 1}, each stage's kernel output against the plain bf16
+   version (1e-3), ``decode`` of the parity codes against the parity
+   ``decode`` (2e-2, the reference's fast-serving contract), and each
+   form's code agreement with the parity path (>= 99.5 %): chaos-free on
+   the trained checkpoint (every frame encoded from the parity path's own
+   state), and free-running on a seeded random-init BVRNN, whose dynamics
+   do not amplify a flip (the reference's documented figures come from
+   these two measurements).  The free-running agreement on the trained
+   checkpoint is printed too.
+5. ``kernel``: each kernel's wrapper against its plain PyTorch version on
+   the card, at the shapes the main path gave it (float32 with TF32 off,
+   and bf16 mode), on seeded inputs, timed with CUDA events, beside its
+   least possible time on an H100.
+6. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
    run through their ``run()`` entry points with the kernels' launch counts
    read around them; then the persistent GRU (bf16 and int8, H = 1024,
    T = 512, 8 rows), the dot chain (M = 128, 256, 512) and the gridded dot
@@ -74,6 +89,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4  # float32, summation order differs over 6 chained convs
+# bf16 mode: the same bf16 products, float32 sums in another order; where a
+# conv output lies within that noise of a bf16 rounding boundary the next
+# operand rounds the other way (~1e-5 moves, measured 3e-5 on the CPU
+# against the JAX kernel).
+BF16_KERNEL_TOL = 1e-3
+FAST_WAVE_TOL = 2e-2  # the reference's fast-serving waveform contract
+AGREE_MIN = 0.995  # code agreement of every fast form with the parity path
+FAST_FORMS = {"auto": {}, "unfused": {"fused_cell": False},
+              "int8": {"quantize": "int8"}, "int8_mixed": {"quantize": "int8_mixed"}}
 # Persistent GRU, one step: the same bf16 operands, only the order of the
 # float32 sums differs.
 GRU_STEP_TOL = 1e-5
@@ -116,16 +140,22 @@ def seeded_vocoder(vcfg) -> dict:
     return params
 
 
-def stage_bound_ms(stage_blocks, B: int, T: int) -> tuple[float, str]:
+def stage_bound_ms(stage_blocks, B: int, T: int,
+                   compute_dtype: torch.dtype = torch.float32) -> tuple[float, str]:
     """Least time of one vocoder stage (its resblocks and their average):
-    conv FLOPs (2 C^2 k per output sample, 6 convs per block) against the
-    input read once, the output written once and the weights read once."""
+    conv FLOPs (2 C^2 k per output sample, 6 convs per block) at the peak of
+    their type (float32 on the CUDA cores, or bf16 on the tensor cores)
+    against the input read once, the output written once and the weights
+    the mode reads (float32, or the packed bf16 ones) read once."""
     C = stage_blocks[0].channels
     flops = sum(6 * 2 * C * C * rb.kernel_size for rb in stage_blocks) * B * T
-    weights = sum(t.numel() for rb in stage_blocks
-                  for t in (rb.w1, rb.b1, rb.w2, rb.b2, rb.alpha, rb.inv_beta))
-    nbytes = 4 * (2 * B * C * T + weights)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bf16 = compute_dtype == torch.bfloat16
+    weights = sum(t.numel() * t.element_size() for rb in stage_blocks
+                  for t in ((rb.wk1, rb.wk2) if bf16 else (rb.w1, rb.w2))
+                  + (rb.b1, rb.b2, rb.alpha, rb.inv_beta))
+    nbytes = 4 * 2 * B * C * T + weights
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -152,27 +182,32 @@ def build_phase() -> None:
                                  for name in _build.sources()])
 
 
-def kernel_phase(codec: BVRNNCodecModel, stage_shapes) -> dict:
+def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
+                 compute_dtype: torch.dtype = torch.float32) -> dict:
     """Kernel against plain at each stage's (B, C, T) from the main path,
-    on seeded inputs; returns the summed numbers for the kernels line."""
+    on seeded inputs, in ``compute_dtype``'s mode; returns the summed
+    numbers for the kernels line."""
     total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
+    bf16 = compute_dtype == torch.bfloat16
+    name, tol = ("amp_resblock_bf16", BF16_KERNEL_TOL) if bf16 else ("amp_resblock", KERNEL_TOL)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for stage, (B, C, T) in enumerate(stage_shapes):
         t0 = time.time()
         blocks = codec.kernel_blocks[stage]
         x = 0.3 * torch.randn(B, C, T, device=DEV, generator=gen)
-        got = AR.amp_stack(x, blocks)
-        ref = AR.amp_stack_plain(x, blocks)
+        got = AR.amp_stack(x, blocks, compute_dtype)
+        ref = AR.amp_stack_plain(x, blocks, compute_dtype)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"stage {stage}: kernel vs plain {err} > {KERNEL_TOL}")
-        ms = cuda_ms(lambda: AR.amp_stack(x, blocks))
-        plain_ms = cuda_ms(lambda: AR.amp_stack_plain(x, blocks))
-        bound, bound_by = stage_bound_ms(blocks, B, T)
-        emit("kernel", t0, kernel="amp_resblock", stage=stage, shape=[B, C, T],
-             last_tile=T % AR.tile_for(C) or AR.tile_for(C), launches_per_stage=len(blocks), max_abs_err=err, tol=KERNEL_TOL, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        if not err <= tol:
+            raise AssertionError(f"stage {stage}: {name} vs plain {err} > {tol}")
+        ms = cuda_ms(lambda: AR.amp_stack(x, blocks, compute_dtype))
+        plain_ms = cuda_ms(lambda: AR.amp_stack_plain(x, blocks, compute_dtype))
+        bound, bound_by = stage_bound_ms(blocks, B, T, compute_dtype)
+        tile = AR.tile_for(C, compute_dtype)
+        emit("kernel", t0, kernel=name, stage=stage, shape=[B, C, T],
+             last_tile=T % tile or tile, launches_per_stage=len(blocks), max_abs_err=err, tol=tol,
+             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
              roofline_share=bound / ms)
         total["max_abs_err"] = max(total["max_abs_err"], err)
         total["ms"] += ms
@@ -196,8 +231,8 @@ def recorded_call(codec: BVRNNCodecModel, x: torch.Tensor):
     keep each stage's input and kernel output, in stage order."""
     stages = []
 
-    def stage(xs, blocks):
-        ys = AR.amp_stack(xs, blocks)
+    def stage(xs, blocks, compute_dtype=torch.float32):
+        ys = AR.amp_stack(xs, blocks, compute_dtype)
         stages.append((xs, ys))
         return ys
 
@@ -217,13 +252,14 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]
     t0 = time.time()
     B, L = wav.shape
     x = torch.from_numpy(wav).to(DEV)
-    AR.amp_resblock.launches = 0
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
     (y, stages), first_ms = timed(lambda: recorded_call(codec, x))
     launches = AR.amp_resblock.launches
     n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
-    if launches < n_blocks:
-        raise AssertionError(f"amp_resblock launched {launches} times in the main path, "
-                             f"expected at least {n_blocks}")
+    if launches < n_blocks or AR.amp_resblock.launches_bf16:
+        raise AssertionError(f"amp_resblock launched {launches} times (bf16: "
+                             f"{AR.amp_resblock.launches_bf16}) in the main path, "
+                             f"expected at least {n_blocks} (bf16: 0)")
     if tuple(y.shape) != (B, L) or not torch.isfinite(y).all():
         raise AssertionError(f"output shape {tuple(y.shape)}, finite {torch.isfinite(y).all()}")
     if len(stages) != len(codec.kernel_blocks):
@@ -254,7 +290,7 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]
         bits = codec._frame_bits(BITRATE, B, L, Lp, n_frames)
         valid = (torch.arange(T, device=DEV) < n_frames).float().expand(B, T)
         (_, dec, _), scan_ms = timed(lambda: bvrnn_mod.encode_decode(
-            codec.bvrnn_params, codec.bvrnn_cfg, mel, bits, codec._h0(B), frame_valid=valid))
+            codec.scan_params, codec.bvrnn_cfg, mel, bits, codec._h0(B), frame_valid=valid))
         dec = dec.transpose(1, 2).contiguous()
         wav_kernel, voc_ms = timed(lambda: codec._vocode(dec, Lp))
         vcfg = codec.conf.vocoder_config
@@ -270,7 +306,122 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]
          mel_ms=mel_ms, scan_ms=scan_ms, vocoder_ms=voc_ms, repeat_vs_first=repeat_err,
          vocoder_kernel_vs_plain=voc_err, phases_vs_call=phases_err, code_values=values,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches, shapes
+    return launches, shapes, {"call_ms": call_ms, "audio_s_per_s": audio_s / call_ms * 1e3,
+                              "scan_ms": scan_ms, "vocoder_ms": voc_ms}
+
+
+def call_phases(codec: BVRNNCodecModel, x: torch.Tensor):
+    """A warm call's scan and vocoder, timed one at a time: (ms, ms)."""
+    B, L = x.shape
+    Lp = codec._pad_length(L)
+    n_frames = codec.frontend.num_frames(L)
+    with torch.no_grad():
+        mel = codec._mel(torch.nn.functional.pad(x, (0, Lp - L)))
+        T = mel.shape[1]
+        bits = codec._frame_bits(BITRATE, B, L, Lp, n_frames)
+        valid = (torch.arange(T, device=DEV) < n_frames).float().expand(B, T)
+        (_, dec, _), scan_ms = timed(lambda: bvrnn_mod.encode_decode(
+            codec.scan_params, codec.bvrnn_cfg, mel, bits, codec._h0(B), frame_valid=valid))
+        _, voc_ms = timed(lambda: codec._vocode(dec.transpose(1, 2).contiguous(), Lp))
+    return scan_ms, voc_ms
+
+
+def parity_states(codec: BVRNNCodecModel, x: torch.Tensor):
+    """The parity path's encode inputs and its states before each frame:
+    (mel, bits, h_seq, valid frames)."""
+    B, L = x.shape
+    Lp = codec._pad_length(L)
+    n_frames = codec.frontend.num_frames(L)
+    with torch.no_grad():
+        mel = codec._mel(torch.nn.functional.pad(x, (0, Lp - L)))
+        bits = codec._frame_bits(BITRATE, B, L, Lp, n_frames)
+        _, h_seq = bvrnn_mod.encode(codec.scan_params, codec.bvrnn_cfg, mel, bits, codec._h0(B))
+    return mel, bits, h_seq, n_frames
+
+
+def agreement(codes: torch.Tensor, ref: torch.Tensor, bits_per_frame: int) -> dict:
+    """Code agreement over every entry of the valid frames (the reference's
+    measure, masked bits included) and over the transmitted bits only."""
+    if tuple(codes.shape) != tuple(ref.shape):
+        raise AssertionError(f"codes {tuple(codes.shape)} vs {tuple(ref.shape)}")
+    values = set(torch.unique(codes).tolist())
+    if not values <= {0.0, 0.5, 1.0}:
+        raise AssertionError(f"codes take values {sorted(values)}")
+    eq = codes == ref
+    return {"all": eq.float().mean().item(), "sent": eq[..., :bits_per_frame].float().mean().item()}
+
+
+def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict):
+    """The fast-serving forms on the main path's batch, checkpoint and
+    vocoder; returns the bf16 kernel's launches in the 'auto' call and the
+    (B, C, T) it gave each stage."""
+    t0 = time.time()
+    B, L = wav.shape
+    x = torch.from_numpy(wav).to(DEV)
+    bits_per_frame = int(parity.bits_per_frame(BITRATE))
+    ref_codes = parity.encode(x, BITRATE)
+    mel, bits, h_seq, n_frames = parity_states(parity, x)
+    ref_wav = parity.decode(ref_codes, L)
+    forms, report = {}, {}
+    for name, kw in FAST_FORMS.items():
+        forms[name] = BVRNNCodecModel(config=parity.conf, bvrnn_params=parity.bvrnn_params,
+                                      vocoder_params=parity.vocoder_params, precision="default",
+                                      length_bucket=parity.length_bucket, device=DEV, **kw)
+    auto = forms["auto"]
+    if not bvrnn_mod._use_fused(auto.bvrnn_cfg, B):
+        raise AssertionError(f"fused_cell='auto' did not pick the fused cell at B={B}")
+
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    (y, stages), first_ms = timed(lambda: recorded_call(auto, x))
+    launches = {"bf16": AR.amp_resblock.launches_bf16, "f32": AR.amp_resblock.launches}
+    n_blocks = sum(len(blocks) for blocks in auto.kernel_blocks)
+    if launches != {"bf16": n_blocks, "f32": 0}:
+        raise AssertionError(f"fast call launches {launches}, expected bf16 {n_blocks}, f32 0")
+    if tuple(y.shape) != (B, L) or not torch.isfinite(y).all():
+        raise AssertionError(f"fast output shape {tuple(y.shape)}, finite {torch.isfinite(y).all()}")
+    stage_errs = []
+    for i, (xs, ys) in enumerate(stages):
+        err = (ys - AR.amp_stack_plain(xs, auto.kernel_blocks[i], torch.bfloat16)).abs().max().item()
+        if not err <= BF16_KERNEL_TOL:
+            raise AssertionError(f"fast path stage {i}: bf16 kernel vs plain {err} > {BF16_KERNEL_TOL}")
+        stage_errs.append(err)
+    shapes = [tuple(xs.shape) for xs, _ in stages]
+    decode_err = (auto.decode(ref_codes, L) - ref_wav).abs().max().item()
+    if not decode_err <= FAST_WAVE_TOL:
+        raise AssertionError(f"fast decode vs parity decode {decode_err} > {FAST_WAVE_TOL}")
+
+    for name, codec in forms.items():
+        yw, call_ms = timed(lambda: codec(x, BITRATE))
+        if tuple(yw.shape) != (B, L) or not torch.isfinite(yw).all():
+            raise AssertionError(f"{name}: output shape {tuple(yw.shape)}, finite {torch.isfinite(yw).all()}")
+        codes = codec.encode(x, BITRATE)
+        with torch.no_grad():
+            step = bvrnn_mod.codes_from_states(codec.scan_params, codec.bvrnn_cfg, mel, bits, h_seq)
+        scan_ms, voc_ms = call_phases(codec, x)
+        report[name] = {"call_ms": call_ms, "audio_s_per_s": B * L / parity.conf.fs / call_ms * 1e3,
+                        "scan_ms": scan_ms, "vocoder_ms": voc_ms,
+                        "free_running": agreement(codes, ref_codes, bits_per_frame),
+                        "per_step": agreement(step[:, :n_frames], ref_codes, bits_per_frame)}
+
+    # the reference's bench conditions: a random-init BVRNN (seeded), whose
+    # dynamics do not amplify a flip, free-running
+    rand = BVRNNCodecModel(config=parity.conf, vocoder_params=parity.vocoder_params, seed=SEED,
+                           length_bucket=parity.length_bucket, device=DEV)
+    rand_codes = rand.encode(x, BITRATE)
+    for name, kw in FAST_FORMS.items():
+        codec = BVRNNCodecModel(config=parity.conf, bvrnn_params=rand.bvrnn_params,
+                                vocoder_params=parity.vocoder_params, precision="default",
+                                length_bucket=parity.length_bucket, device=DEV, **kw)
+        report[name]["random_init"] = agreement(codec.encode(x, BITRATE), rand_codes, bits_per_frame)
+    for name, r in report.items():
+        for measure in ("per_step", "random_init"):
+            if not r[measure]["all"] >= AGREE_MIN:
+                raise AssertionError(f"{name}: {measure} code agreement {r[measure]} < {AGREE_MIN}")
+    emit("fast_path", t0, batch=B, samples=L, bitrate=BITRATE, bits_per_frame=bits_per_frame,
+         launches=launches, stage_shapes=shapes, stage_kernel_vs_plain=stage_errs,
+         first_call_ms=first_ms, decode_vs_parity=decode_err, parity=parity_times,
+         forms=report, agree_min=AGREE_MIN, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches["bf16"], shapes
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -469,23 +620,25 @@ def main() -> None:
     emit("model", t0, h_dim=codec.conf.h_dim, z_dim=codec.conf.z_dim,
          vocoder_channels=codec.conf.vocoder_config.upsample_initial_channel)
 
-    launches, shapes = main_path_phase(codec, wav)
+    launches, shapes, parity_times = main_path_phase(codec, wav)
+    launches_bf16, shapes_bf16 = fast_path_phase(codec, wav, parity_times)
     totals = kernel_phase(codec, shapes)
+    totals_bf16 = kernel_phase(codec, shapes_bf16, torch.bfloat16)
     probe_entries = probes_phase()
 
-    print(json.dumps({"kernels": [{
-        "name": "amp_resblock",
-        "route": "cuda",
-        "source": "bvsc_tpu_torch/csrc/amp_resblock.cu",
-        "replaces": "bvsc_tpu/ops/pallas_voc.py:240",
-        "launches": launches,
-        "max_abs_err": totals["max_abs_err"],
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": "/".join(sorted(totals["bound_by"])),
-        "library_ms": None,
-    }, *probe_entries]}), flush=True)
+    def k1_entry(name, source, replaces, n, tot):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "/".join(sorted(tot["bound_by"])), "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        k1_entry("amp_resblock", "bvsc_tpu_torch/csrc/amp_resblock.cu",
+                 "bvsc_tpu/ops/pallas_voc.py:240", launches, totals),
+        k1_entry("amp_resblock_bf16", "bvsc_tpu_torch/csrc/amp_resblock_bf16.cu",
+                 "bvsc_tpu/ops/pallas_voc.py:240 (compute_dtype=bfloat16)", launches_bf16,
+                 totals_bf16),
+        *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -117,8 +117,9 @@ def test_load_bvrnn_npz_matches_jax_loader():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"precision": "default"}, {"quantize": "int8"}, {"fused_cell": True},
-    {"approx_snake": True}, {"voc_dtype": "bf16"}, {"vocoder_chkpt_path": "voc/"},
+    {"use_pallas": False}, {"use_pallas": False, "precision": "default"},
+    {"use_pallas": False, "quantize": "int8"}, {"bvrnn_chkpt_path": "bvrnn.pt"},
+    {"vocoder_chkpt_path": "voc/", "precision": "default"}, {"vocoder_chkpt_path": "voc/"},
 ])
 def test_unported_knobs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
