@@ -10,7 +10,10 @@ a probe without a card raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from bvsc_tpu_torch.models import vocoder as voc_mod
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -37,3 +40,15 @@ def graph_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def seeded_vocoder(vcfg, seed: int = 0) -> dict:
+    """A random full-width vocoder from ``seed``, with per-channel snake
+    parameters drawn too (the init sets them all to 0), so that the
+    kernels' channel indexing is exercised."""
+    params = voc_mod.init_generator_params(seed, vcfg)
+    rng = np.random.default_rng(seed + 1)
+    for act in [a for block in params["resblocks"] for a in block["acts"]] + [params["act_post"]]:
+        for key in ("alpha", "beta"):
+            act[key] = (0.3 * rng.standard_normal(act[key].shape)).astype(np.float32)
+    return params

@@ -7,8 +7,10 @@ Replaces the Pallas TPU kernel ``bvsc_tpu/ops/pallas_voc.py:_amp_kernel``
 SnakeBeta -> causal conv (k, 1) -> residual add; a vocoder stage averages 3
 blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
 
-* float32 (parity): ``csrc/amp_resblock.cu``, float32 FMAs on the CUDA
-  cores, since parity mode forbids TF32;
+* float32 (parity): ``csrc/amp_resblock.cu``, register-blocked float32
+  FMAs on the CUDA cores, since parity mode forbids TF32, compiled for the
+  shipped shapes only (:data:`F32_SHAPES`), its weights packed by
+  :func:`pack_f32`;
 * bf16 (fast serving, the TPU kernel's default): ``csrc/amp_resblock_bf16.cu``
   on the tensor cores.  Each conv's operands are rounded to bf16 and the
   products summed in float32; snake, bias, start mask and residual stay
@@ -23,8 +25,8 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
   ``_amp_block`` written with the port's ``conv1d`` and ``snake_beta``.
 * :func:`amp_block_tiled` reproduces a kernel's tiling in torch (per-tile
   halo recompute, shrinking windows, zeros re-imposed at t < 0 after every
-  conv's bias; in bf16 mode each conv is the kernel's GEMM on its packed
-  weights), so the CPU tests prove the kernels' indexing.
+  conv's bias; each conv reads the mode's packed weights as its kernel
+  does), so the CPU tests prove the kernels' indexing and packing.
 
 Both kernels keep every intermediate of a block in shared memory, so device
 memory sees one read and one write of the activations per block; see the
@@ -49,6 +51,9 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 N_UNITS = 3
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 BF16_CHANNELS = (8, 16, 32, 64)  # the bf16 kernel's instantiations
+# The float32 kernel's (C, k, d): templates on (C, k), a unit's dilation d
+# by switch; the shipped configs use no other.
+F32_SHAPES = tuple((C, k, d) for C in (8, 16, 32, 64) for k in (3, 7, 11) for d in (1, 3, 5))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,18 +64,26 @@ class ResblockParams:
     block: dict
     kernel_size: int
     dilations: tuple[int, ...]
-    w1: torch.Tensor  # (3, C, C, k)
+    w1: torch.Tensor  # (3, C_out, C_in, k)
     b1: torch.Tensor  # (3, C)
-    w2: torch.Tensor  # (3, C, C, k)
+    w2: torch.Tensor  # (3, C_out, C_in, k)
     b2: torch.Tensor  # (3, C)
     alpha: torch.Tensor  # (6, C), exp(log alpha)
     inv_beta: torch.Tensor  # (6, C), 1 / (exp(log beta) + eps)
+    wf1: torch.Tensor  # (3, C_in, k, C_out) float32, w1 packed for the float32 kernel
+    wf2: torch.Tensor  # (3, C_in, k, C_out) float32
     wk1: torch.Tensor  # (3, C, Kp) bf16, w1 packed for the bf16 kernel
     wk2: torch.Tensor  # (3, C, Kp) bf16
 
     @property
     def channels(self) -> int:
         return self.w1.shape[1]
+
+
+def pack_f32(w: torch.Tensor) -> torch.Tensor:
+    """(3, C_out, C_in, k) float32 conv weights -> (3, C_in, k, C_out): the
+    float32 kernel reads the C_out weights of one (c_in, tap) as float4s."""
+    return w.permute(0, 2, 3, 1).contiguous()
 
 
 def pack_bf16(w: torch.Tensor) -> torch.Tensor:
@@ -104,6 +117,8 @@ def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams
         b2=stack(c["b"] for c in block["convs2"]),
         alpha=stack(torch.exp(a["alpha"]) for a in acts),
         inv_beta=stack(1.0 / (torch.exp(a["beta"]) + EPS) for a in acts),
+        wf1=pack_f32(w1),
+        wf2=pack_f32(w2),
         wk1=pack_bf16(w1),
         wk2=pack_bf16(w2),
     )
@@ -114,27 +129,36 @@ def halo(kernel_size: int, dilations) -> int:
     return (kernel_size - 1) * (sum(dilations) + len(dilations))
 
 
-def tile_for(channels: int, compute_dtype: torch.dtype = torch.float32) -> int:
+def tile_for(channels: int, compute_dtype: torch.dtype = torch.float32, batch: int = 0,
+             length: int = 0, sms: int = 0) -> int:
     """Output samples per thread block: wide tiles where channels are few;
-    twice as wide in bf16 mode, whose operand buffers are half the size."""
+    twice as wide in bf16 mode, whose operand buffers are half the size.
+    float32 halves its tile where ``batch`` rows of ``length`` samples
+    would leave some of the card's ``sms`` SMs without a block (a B = 4
+    call's stage 0, 2 056 samples at C = 64: 68 blocks of 128 for 132 SMs,
+    132 of 64); the defaults give the full tile."""
     if compute_dtype == torch.bfloat16:
         return max(64, 16384 // channels)
-    return max(32, 8192 // channels)
+    tile = max(32, 8192 // channels)
+    return tile // 2 if batch * -(-length // tile) < sms else tile
 
 
-def smem_bytes(rb: ResblockParams, compute_dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one thread block.  float32: 3 buffers of
-    C x (halo + tile).  bf16: the float32 residual, C x SX (the window L
-    rounded up to 4 mod 16), and two bf16 operand buffers, L x SA
-    (SA = C + 8, or 8 at C = 8); as ``csrc/amp_resblock_bf16.cu`` computes
-    it."""
+def smem_bytes(rb: ResblockParams, compute_dtype: torch.dtype = torch.float32,
+               tile: int | None = None) -> int:
+    """Shared memory of one thread block for the window L = halo + tile
+    (``tile_for``'s by default).  float32: as the kernel's build reports it
+    (:func:`f32_plan`, so it needs the built kernel).  bf16: the float32
+    residual, C x SX (L rounded up to 4 mod 16), and two bf16 operand
+    buffers, L x SA (SA = C + 8, or 8 at C = 8); as
+    ``csrc/amp_resblock_bf16.cu`` computes it."""
     C = rb.channels
-    L = halo(rb.kernel_size, rb.dilations) + tile_for(C, compute_dtype)
-    if compute_dtype == torch.bfloat16:
-        sx = L + (4 - L % 16) % 16
-        sa = C + 8 if C >= 16 else C
-        return 4 * C * sx + 2 * 2 * L * sa
-    return 3 * 4 * C * L
+    tile = tile or tile_for(C, compute_dtype)
+    if compute_dtype != torch.bfloat16:
+        return f32_plan(rb, tile)["smem_bytes"]
+    L = halo(rb.kernel_size, rb.dilations) + tile
+    sx = L + (4 - L % 16) % 16
+    sa = C + 8 if C >= 16 else C
+    return 4 * C * sx + 2 * 2 * L * sa
 
 
 # ---------------------------------------------------------------------------
@@ -176,24 +200,35 @@ def _conv_gemm(xt: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, k: int, d: i
     return (rows @ wk.to(torch.float32).T).transpose(1, 2) + b[:, None]
 
 
+def _conv_packed(xt: torch.Tensor, wf: torch.Tensor, b: torch.Tensor, k: int, d: int) -> torch.Tensor:
+    """The float32 kernel's conv: sum over (c_in, tap) of the packed weights
+    ``wf`` (C_in, k, C_out) times the input at t - (k - 1 - tap) d, then the
+    bias."""
+    n = xt.shape[-1] - (k - 1) * d
+    taps = torch.stack([xt[..., tap * d : tap * d + n] for tap in range(k)], 2)  # (B, C, k, n)
+    return torch.einsum("bikn,iko->bon", taps, wf) + b[:, None]
+
+
 def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A kernel's algorithm in torch: tiles of ``tile_for(C, compute_dtype)``
-    outputs, each recomputing its left halo from a zero-filled window; in
-    bf16 mode each conv is the kernel's GEMM (:func:`_conv_gemm`)."""
+                    compute_dtype: torch.dtype = torch.float32,
+                    tile: int | None = None) -> torch.Tensor:
+    """A kernel's algorithm in torch: tiles of ``tile`` outputs
+    (``tile_for(C, compute_dtype)``'s by default), each recomputing its left
+    halo from a zero-filled window; each conv reads the mode's packed
+    weights (:func:`_conv_packed`, or the bf16 GEMM :func:`_conv_gemm`)."""
     bf16 = _precision(compute_dtype) == "default"
     B, C, T = x.shape
     k, dils = rb.kernel_size, rb.dilations
-    H, tile = halo(k, dils), tile_for(C, compute_dtype)
+    H, tile = halo(k, dils), tile or tile_for(C, compute_dtype)
     xpad = F.pad(x, (H, tile))  # column i holds global time i - H
     acts = rb.block["acts"]
     out = torch.empty_like(x)
 
     def conv(xt, n, j, d):
-        w, b, wk = (rb.w1, rb.b1, rb.wk1) if n == 1 else (rb.w2, rb.b2, rb.wk2)
+        wf, b, wk = (rb.wf1, rb.b1, rb.wk1) if n == 1 else (rb.wf2, rb.b2, rb.wk2)
         if bf16:
             return _conv_gemm(xt, wk[j], b[j], k, d)
-        return F.conv1d(xt, w[j], b[j], dilation=d)
+        return _conv_packed(xt, wf[j], b[j], k, d)
 
     for t0 in range(0, T, tile):
         xw = xpad[..., t0 : t0 + H + tile]
@@ -229,8 +264,9 @@ def amp_stack_plain(x: torch.Tensor, stage: list[ResblockParams],
 
 
 def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams],
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return average([amp_block_tiled(x, rb, compute_dtype) for rb in stage])
+                    compute_dtype: torch.dtype = torch.float32,
+                    tile: int | None = None) -> torch.Tensor:
+    return average([amp_block_tiled(x, rb, compute_dtype, tile) for rb in stage])
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +285,45 @@ def _kernel(compute_dtype: torch.dtype):
     return fn
 
 
-def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype) -> None:
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_tile(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> int:
+    """The tile :func:`amp_resblock` launches with for a CUDA tensor ``x``:
+    ``tile_for`` at its (B, C, T) on its card's SMs."""
+    B, C, T = x.shape
+    return tile_for(C, compute_dtype, B, T, _sm_count(x.device))
+
+
+@functools.cache
+def _plan():
+    fn = _build.load("amp_resblock").amp_resblock_f32_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def f32_plan(rb: ResblockParams, tile: int | None = None) -> dict:
+    """The float32 kernel's launch for one resblock and ``tile`` (default
+    ``tile_for``'s), as its build reports it: threads per block, bytes of
+    shared memory and the micro-tile (R_co, R_t).  The kernel source owns
+    that layout; this builds the kernel if needed."""
+    out = (ctypes.c_int * 4)()
+    err = _plan()(rb.channels, rb.kernel_size, *rb.dilations, tile or tile_for(rb.channels),
+             ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"the float32 kernel does not take C={rb.channels}, k={rb.kernel_size}, "
+                         f"d={rb.dilations} (CUDA error {err})")
+    return {"threads": out[0], "smem_bytes": out[1], "rco": out[2], "rt": out[3]}
+
+
+def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
+           tile: int | None = None) -> None:
+    """Refuses what the mode's kernel cannot take; with a ``tile``, also a
+    window whose shared memory (the float32 kernel's, as its build reports
+    it) exceeds :data:`SMEM_LIMIT`."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"expected contiguous float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
     if not 0 < x.shape[0] <= 65535 or x.shape[2] == 0:
@@ -258,36 +332,43 @@ def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype) -> N
         raise ValueError(f"{x.shape[1]} channels, resblock has {rb.channels}")
     bf16 = compute_dtype == torch.bfloat16
     weights = [(rb.wk1, torch.bfloat16), (rb.wk2, torch.bfloat16)] if bf16 else [
-        (rb.w1, torch.float32), (rb.w2, torch.float32)]
+        (rb.wf1, torch.float32), (rb.wf2, torch.float32)]
     for t, dtype in weights + [(p, torch.float32) for p in (rb.b1, rb.b2, rb.alpha, rb.inv_beta)]:
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"resblock params must be contiguous {dtype} on the input's device")
     if bf16 and rb.channels not in BF16_CHANNELS:
         raise ValueError(f"the bf16 kernel takes C in {BF16_CHANNELS}, got {rb.channels}")
-    if smem_bytes(rb, compute_dtype) > SMEM_LIMIT:
-        raise ValueError(f"{smem_bytes(rb, compute_dtype)} B of shared memory exceeds {SMEM_LIMIT}")
+    shapes = [(rb.channels, rb.kernel_size, d) for d in rb.dilations]
+    if not bf16 and not set(shapes) <= set(F32_SHAPES):
+        raise ValueError(f"the float32 kernel takes (C, k, d) in F32_SHAPES, got {shapes}")
+    if tile is not None and smem_bytes(rb, compute_dtype, tile) > SMEM_LIMIT:
+        raise ValueError(f"{smem_bytes(rb, compute_dtype, tile)} B of shared memory exceeds "
+                         f"{SMEM_LIMIT}")
 
 
 def amp_resblock(x: torch.Tensor, rb: ResblockParams,
-                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 compute_dtype: torch.dtype = torch.float32,
+                 tile: int | None = None) -> torch.Tensor:
     """One AMP residual block in ``compute_dtype``'s mode.  CUDA tensors
-    launch that mode's kernel; CPU tensors take :func:`amp_block_plain`;
-    anything else raises."""
+    launch that mode's kernel with ``tile`` outputs per thread block
+    (:func:`launch_tile`'s by default); CPU tensors take
+    :func:`amp_block_plain`; anything else raises."""
     _precision(compute_dtype)
     if x.device.type == "cpu":
         return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"amp_resblock runs on cuda or cpu, not {x.device}")
-    _check(x, rb, compute_dtype)
+    tile = tile or launch_tile(x, compute_dtype)
+    _check(x, rb, compute_dtype, tile)
     bf16 = compute_dtype == torch.bfloat16
     B, C, T = x.shape
-    w1, w2 = (rb.wk1, rb.wk2) if bf16 else (rb.w1, rb.w2)
+    w1, w2 = (rb.wk1, rb.wk2) if bf16 else (rb.wf1, rb.wf2)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _kernel(compute_dtype)(
             x.data_ptr(), y.data_ptr(), w1.data_ptr(), rb.b1.data_ptr(),
             w2.data_ptr(), rb.b2.data_ptr(), rb.alpha.data_ptr(), rb.inv_beta.data_ptr(),
-            B, C, T, rb.kernel_size, *rb.dilations, tile_for(C, compute_dtype),
+            B, C, T, rb.kernel_size, *rb.dilations, tile,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

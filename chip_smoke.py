@@ -35,7 +35,10 @@ Phases, each printing one JSON line with its seconds:
 5. ``kernel``: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gave it (float32 with TF32 off,
    and bf16 mode), on seeded inputs, timed with CUDA events, beside its
-   least possible time on an H100.
+   least possible time on an H100; float32 stage lines also carry the
+   grid (``blocks``), ``threads`` and ``smem_bytes`` per resblock as the
+   kernel's build reports them (the shared memory checked against the
+   limit), the micro-tile and the useful ``tflops``.
 6. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
    run through their ``run()`` entry points with the kernels' launch counts
    read around them; then the persistent GRU (bf16 and int8, H = 1024,
@@ -61,7 +64,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
-from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms
+from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms, seeded_vocoder
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
@@ -128,18 +131,6 @@ def load_batch() -> np.ndarray:
     return np.stack([speech, *noisy])
 
 
-def seeded_vocoder(vcfg) -> dict:
-    """A random full-width vocoder from SEED, with per-channel snake
-    parameters drawn too (the init sets them all to 0), so that the kernel's
-    channel indexing is exercised."""
-    params = voc_mod.init_generator_params(SEED, vcfg)
-    rng = np.random.default_rng(SEED + 1)
-    for act in [a for block in params["resblocks"] for a in block["acts"]] + [params["act_post"]]:
-        for key in ("alpha", "beta"):
-            act[key] = (0.3 * rng.standard_normal(act[key].shape)).astype(np.float32)
-    return params
-
-
 def stage_bound_ms(stage_blocks, B: int, T: int,
                    compute_dtype: torch.dtype = torch.float32) -> tuple[float, str]:
     """Least time of one vocoder stage (its resblocks and their average):
@@ -182,6 +173,21 @@ def build_phase() -> None:
                                  for name in _build.sources()])
 
 
+def f32_launch(blocks, B: int, T: int, tile: int, ms: float) -> dict:
+    """The float32 kernel's launch shape at one stage (per resblock, as its
+    build reports it; its shared memory within one block's limit) and the
+    stage's useful TFLOP/s at ``ms``."""
+    plans = [AR.f32_plan(rb, tile) for rb in blocks]
+    for rb, plan in zip(blocks, plans):
+        if plan["smem_bytes"] > AR.SMEM_LIMIT:
+            raise AssertionError(f"k={rb.kernel_size}: the kernel takes {plan['smem_bytes']} B of "
+                                 f"shared memory, more than {AR.SMEM_LIMIT}")
+    flops = sum(6 * 2 * rb.channels ** 2 * rb.kernel_size for rb in blocks) * B * T
+    return {"blocks": -(-T // tile) * B, "threads": [p["threads"] for p in plans],
+            "smem_bytes": [p["smem_bytes"] for p in plans],
+            "micro_tile": [plans[0]["rco"], plans[0]["rt"]], "tflops": flops / ms / 1e9}
+
+
 def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
                  compute_dtype: torch.dtype = torch.float32) -> dict:
     """Kernel against plain at each stage's (B, C, T) from the main path,
@@ -204,11 +210,12 @@ def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
         ms = cuda_ms(lambda: AR.amp_stack(x, blocks, compute_dtype))
         plain_ms = cuda_ms(lambda: AR.amp_stack_plain(x, blocks, compute_dtype))
         bound, bound_by = stage_bound_ms(blocks, B, T, compute_dtype)
-        tile = AR.tile_for(C, compute_dtype)
+        tile = AR.launch_tile(x, compute_dtype)
+        launch = {} if bf16 else f32_launch(blocks, B, T, tile, ms)
         emit("kernel", t0, kernel=name, stage=stage, shape=[B, C, T],
              last_tile=T % tile or tile, launches_per_stage=len(blocks), max_abs_err=err, tol=tol,
              ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-             roofline_share=bound / ms)
+             roofline_share=bound / ms, **launch)
         total["max_abs_err"] = max(total["max_abs_err"], err)
         total["ms"] += ms
         total["plain_ms"] += plain_ms
@@ -616,7 +623,7 @@ def main() -> None:
     t0 = time.time()
     conf = load_config(DEFAULT_CONFIG)
     codec = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ,
-                            vocoder_params=seeded_vocoder(conf.vocoder_config), device=DEV)
+                            vocoder_params=seeded_vocoder(conf.vocoder_config, SEED), device=DEV)
     emit("model", t0, h_dim=codec.conf.h_dim, z_dim=codec.conf.z_dim,
          vocoder_channels=codec.conf.vocoder_config.upsample_initial_channel)
 

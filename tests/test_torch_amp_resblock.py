@@ -128,12 +128,17 @@ def test_wrapper_has_no_fallback_for_other_devices(params):
 
 
 def test_halo_tile_and_shared_memory(params):
-    """H = (k - 1) * (sum(d) + 3): 24, 72, 120 for k = 3, 7, 11; every stage
-    of the full config fits one thread block's shared memory."""
+    """H = (k - 1) * (sum(d) + 3): 24, 72, 120 for k = 3, 7, 11; at every
+    stage of the full config and both float32 tiles, the kernel's three
+    float32 windows of C x (H + tile) fit one thread block's shared memory
+    (the rest of its layout is its build's: ``test_torch_amp_resblock_f32``
+    asks it on the card)."""
     assert [AR.halo(k, (1, 3, 5)) for k in (3, 7, 11)] == [24, 72, 120]
     for stage_blocks in params[1]:
         for rb in stage_blocks:
-            assert AR.smem_bytes(rb) <= AR.SMEM_LIMIT
+            C = rb.channels
+            for tile in (AR.tile_for(C), AR.tile_for(C) // 2):
+                assert 3 * 4 * C * (AR.halo(rb.kernel_size, rb.dilations) + tile) <= AR.SMEM_LIMIT
 
 
 @pytest.mark.gpu
