@@ -12,9 +12,9 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
   shipped shapes only (:data:`F32_SHAPES`), its weights packed by
   :func:`pack_f32`;
 * bf16 (fast serving, the TPU kernel's default): ``csrc/amp_resblock_bf16.cu``
-  on the tensor cores.  Each conv's operands are rounded to bf16 and the
-  products summed in float32; snake, bias, start mask and residual stay
-  float32, and so do input and output.
+  on the tensor cores, for the same shapes.  Each conv's operands are
+  rounded to bf16 and the products summed in float32; snake, bias, start
+  mask and residual stay float32, and so do input and output.
 
 * :func:`amp_resblock` is the kernels' wrapper.  For a CUDA tensor it
   launches the mode's kernel (one launch per block, the stage average in
@@ -50,10 +50,16 @@ from bvsc_tpu_torch.ops.snake import EPS, snake_beta
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 N_UNITS = 3
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-BF16_CHANNELS = (8, 16, 32, 64)  # the bf16 kernel's instantiations
-# The float32 kernel's (C, k, d): templates on (C, k), a unit's dilation d
-# by switch; the shipped configs use no other.
+# The kernels' (C, k, d): templates on (C, k), a unit's dilation d by
+# switch (float32) or as a row shift (bf16); the shipped configs use no other.
 F32_SHAPES = tuple((C, k, d) for C in (8, 16, 32, 64) for k in (3, 7, 11) for d in (1, 3, 5))
+BF16_SHAPES = F32_SHAPES
+MIN_TILE = 32  # shortest tile tile_for picks in bf16 mode (two m16 tiles)
+# Blocks of the bf16 kernel an SM runs at once, per C, at every k: 256
+# threads at C <= 16 with room for two, 512 above (its build's occupancy,
+# ``bf16_plan(...)["blocks_per_sm"]``, is at least this; chip_smoke.py
+# checks it).  A wave of the grid is this many blocks per SM.
+BF16_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 1, 64: 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,34 +137,34 @@ def halo(kernel_size: int, dilations) -> int:
 
 def tile_for(channels: int, compute_dtype: torch.dtype = torch.float32, batch: int = 0,
              length: int = 0, sms: int = 0) -> int:
-    """Output samples per thread block: wide tiles where channels are few;
-    twice as wide in bf16 mode, whose operand buffers are half the size.
-    float32 halves its tile where ``batch`` rows of ``length`` samples
-    would leave some of the card's ``sms`` SMs without a block (a B = 4
-    call's stage 0, 2 056 samples at C = 64: 68 blocks of 128 for 132 SMs,
-    132 of 64); the defaults give the full tile."""
+    """Output samples per thread block: 8192 / C, wide where channels are
+    few; the defaults give that full tile.  Where ``batch`` rows of
+    ``length`` samples would leave some of the card's ``sms`` SMs without a
+    block, float32 halves it once (a B = 4 call's stage 0, 2 056 samples at
+    C = 64: 68 blocks of 128 for 132 SMs, 132 of 64); bf16 halves it while
+    the halved grid still fits in one wave, ``sms`` times
+    :data:`BF16_BLOCKS_PER_SM` blocks, down to :data:`MIN_TILE` (the same
+    B = 4 stage 0 gets 64; a B = 1 call halves every stage, stage 0 to 32)."""
+    tile = 8192 // channels
     if compute_dtype == torch.bfloat16:
-        return max(64, 16384 // channels)
-    tile = max(32, 8192 // channels)
+        wave = sms * BF16_BLOCKS_PER_SM.get(channels, 1)
+        while (wave and tile // 2 >= MIN_TILE
+               and batch * -(-length // tile) < wave
+               and batch * -(-length // (tile // 2)) <= wave):
+            tile //= 2
+        return tile
+    tile = max(32, tile)
     return tile // 2 if batch * -(-length // tile) < sms else tile
 
 
 def smem_bytes(rb: ResblockParams, compute_dtype: torch.dtype = torch.float32,
                tile: int | None = None) -> int:
     """Shared memory of one thread block for the window L = halo + tile
-    (``tile_for``'s by default).  float32: as the kernel's build reports it
-    (:func:`f32_plan`, so it needs the built kernel).  bf16: the float32
-    residual, C x SX (L rounded up to 4 mod 16), and two bf16 operand
-    buffers, L x SA (SA = C + 8, or 8 at C = 8); as
-    ``csrc/amp_resblock_bf16.cu`` computes it."""
-    C = rb.channels
-    tile = tile or tile_for(C, compute_dtype)
-    if compute_dtype != torch.bfloat16:
-        return f32_plan(rb, tile)["smem_bytes"]
-    L = halo(rb.kernel_size, rb.dilations) + tile
-    sx = L + (4 - L % 16) % 16
-    sa = C + 8 if C >= 16 else C
-    return 4 * C * sx + 2 * 2 * L * sa
+    (``tile_for``'s by default), as the mode's kernel build reports it
+    (:func:`f32_plan`, :func:`bf16_plan`; so it needs the built kernel)."""
+    tile = tile or tile_for(rb.channels, compute_dtype)
+    plan = bf16_plan if compute_dtype == torch.bfloat16 else f32_plan
+    return plan(rb, tile)["smem_bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +304,27 @@ def launch_tile(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> 
 
 
 @functools.cache
-def _plan():
-    fn = _build.load("amp_resblock").amp_resblock_f32_plan
+def _plan(compute_dtype: torch.dtype):
+    if compute_dtype == torch.bfloat16:
+        fn = _build.load("amp_resblock_bf16").amp_resblock_bf16_plan
+    else:
+        fn = _build.load("amp_resblock").amp_resblock_f32_plan
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _ask_plan(compute_dtype: torch.dtype, C: int, k: int, dilations: tuple, tile: int,
+              n: int) -> tuple:
+    """The ``n`` ints the mode's build reports for one launch shape (asked
+    once per shape: the wrapper checks every launch against it)."""
+    out = (ctypes.c_int * n)()
+    err = _plan(compute_dtype)(C, k, *dilations, tile, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"the {compute_dtype} kernel does not take C={C}, k={k}, "
+                         f"d={dilations}, tile={tile} (CUDA error {err})")
+    return tuple(out)
 
 
 def f32_plan(rb: ResblockParams, tile: int | None = None) -> dict:
@@ -310,20 +332,30 @@ def f32_plan(rb: ResblockParams, tile: int | None = None) -> dict:
     ``tile_for``'s), as its build reports it: threads per block, bytes of
     shared memory and the micro-tile (R_co, R_t).  The kernel source owns
     that layout; this builds the kernel if needed."""
-    out = (ctypes.c_int * 4)()
-    err = _plan()(rb.channels, rb.kernel_size, *rb.dilations, tile or tile_for(rb.channels),
-             ctypes.addressof(out))
-    if err != 0:
-        raise ValueError(f"the float32 kernel does not take C={rb.channels}, k={rb.kernel_size}, "
-                         f"d={rb.dilations} (CUDA error {err})")
+    out = _ask_plan(torch.float32, rb.channels, rb.kernel_size, rb.dilations,
+                    tile or tile_for(rb.channels), 4)
     return {"threads": out[0], "smem_bytes": out[1], "rco": out[2], "rt": out[3]}
+
+
+def bf16_plan(rb: ResblockParams, tile: int | None = None) -> dict:
+    """The bf16 kernel's launch for one resblock and ``tile`` (default
+    ``tile_for``'s), as its build reports it: threads per block, bytes of
+    shared memory, the warp tile (``rm`` m16 tiles x ``channels`` output
+    channels), how many convs' weights it stages at once
+    (``weight_buffers``) and how many blocks an SM holds at once
+    (``blocks_per_sm``, CUDA's occupancy calculator).  The kernel source
+    owns that layout; this builds the kernel if needed."""
+    out = _ask_plan(torch.bfloat16, rb.channels, rb.kernel_size, rb.dilations,
+                    tile or tile_for(rb.channels, torch.bfloat16), 6)
+    return {"threads": out[0], "smem_bytes": out[1], "rm": out[2], "channels": out[3],
+            "weight_buffers": out[4], "blocks_per_sm": out[5]}
 
 
 def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
            tile: int | None = None) -> None:
     """Refuses what the mode's kernel cannot take; with a ``tile``, also a
-    window whose shared memory (the float32 kernel's, as its build reports
-    it) exceeds :data:`SMEM_LIMIT`."""
+    window whose shared memory, as the kernel's build reports it, exceeds
+    :data:`SMEM_LIMIT`."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"expected contiguous float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
     if not 0 < x.shape[0] <= 65535 or x.shape[2] == 0:
@@ -336,14 +368,16 @@ def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
     for t, dtype in weights + [(p, torch.float32) for p in (rb.b1, rb.b2, rb.alpha, rb.inv_beta)]:
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"resblock params must be contiguous {dtype} on the input's device")
-    if bf16 and rb.channels not in BF16_CHANNELS:
-        raise ValueError(f"the bf16 kernel takes C in {BF16_CHANNELS}, got {rb.channels}")
+    if bf16 and any(t.data_ptr() % 16 for t in (rb.wk1, rb.wk2)):
+        raise ValueError("the bf16 kernel copies its weights in 16-byte pieces: align them")
     shapes = [(rb.channels, rb.kernel_size, d) for d in rb.dilations]
-    if not bf16 and not set(shapes) <= set(F32_SHAPES):
-        raise ValueError(f"the float32 kernel takes (C, k, d) in F32_SHAPES, got {shapes}")
-    if tile is not None and smem_bytes(rb, compute_dtype, tile) > SMEM_LIMIT:
-        raise ValueError(f"{smem_bytes(rb, compute_dtype, tile)} B of shared memory exceeds "
-                         f"{SMEM_LIMIT}")
+    if not set(shapes) <= set(BF16_SHAPES if bf16 else F32_SHAPES):
+        name = "BF16_SHAPES" if bf16 else "F32_SHAPES"
+        raise ValueError(f"the {compute_dtype} kernel takes (C, k, d) in {name}, got {shapes}")
+    if tile is not None and (tile <= 0 or bf16 and tile % 16):
+        raise ValueError(f"the tile must be positive (a multiple of 16 in bf16), got {tile}")
+    if tile is not None and (smem := smem_bytes(rb, compute_dtype, tile)) > SMEM_LIMIT:
+        raise ValueError(f"{smem} B of shared memory exceeds {SMEM_LIMIT}")
 
 
 def amp_resblock(x: torch.Tensor, rb: ResblockParams,

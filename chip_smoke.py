@@ -9,7 +9,9 @@ Phases, each printing one JSON line with its seconds:
    (also printed raw on a line of its own).  Without a card the script
    exits non-zero and prints no result.
 2. ``build``: nvcc builds every CUDA source of ``bvsc_tpu_torch/csrc``
-   into the gitignored ``bvsc_tpu_torch/_build``.
+   into the gitignored ``bvsc_tpu_torch/_build``; ``cuobjdump`` counts the
+   float32-pipe instructions of one snake on its fast path in the bf16
+   build's SASS (``k1_tiles.snake_instructions``).
 3. ``main_path``: ``BVRNNCodecModel`` at full width (the shipped BVRNN
    checkpoint, a seeded full-width vocoder) resynthesises a batch of 4
    waveforms at 3 kbps; the kernels' launch counts are read around that
@@ -34,11 +36,15 @@ Phases, each printing one JSON line with its seconds:
    checkpoint is printed too.
 5. ``kernel``: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gave it (float32 with TF32 off,
-   and bf16 mode), on seeded inputs, timed with CUDA events, beside its
-   least possible time on an H100; float32 stage lines also carry the
-   grid (``blocks``), ``threads`` and ``smem_bytes`` per resblock as the
+   and bf16 mode), on seeded inputs, timed with CUDA events (``ms``, host
+   launches included; ``device_ms`` from a replayed CUDA graph), beside its
+   least possible time on an H100; each stage line also carries the grid
+   (``blocks``), ``threads`` and ``smem_bytes`` per resblock as the
    kernel's build reports them (the shared memory checked against the
-   limit), the micro-tile and the useful ``tflops``.
+   limit), the micro-tile (float32) or warp tile and weight buffers (bf16),
+   and the useful ``tflops``; bf16 lines add ``snake_floor_ms``, the
+   stage's snakes at the count from ``build`` over 128 lanes of every SM at
+   the SM clock's maximum.  A ``kernel_total`` line per mode sums them.
 6. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
    run through their ``run()`` entry points with the kernels' launch counts
    read around them; then the persistent GRU (bf16 and int8, H = 1024,
@@ -64,7 +70,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
-from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms, seeded_vocoder
+from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms, k1_tiles, seeded_vocoder
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
@@ -150,7 +156,7 @@ def stage_bound_ms(stage_blocks, B: int, T: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def device_phase() -> str:
+def device_phase() -> tuple[str, float]:
     t0 = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -161,39 +167,74 @@ def device_phase() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
     emit("device", t0, name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
-    return name
+         sm_clock_max_mhz=float(clock), torch=torch.__version__, cuda=torch.version.cuda)
+    return name, float(clock)
 
 
-def build_phase() -> None:
+def build_phase(clock_mhz: float) -> dict:
+    """Builds every kernel; returns one snake's float32-pipe instruction
+    count in the bf16 build's SASS and the SM clock, for the snake floor."""
     t0 = time.time()
     _build.load_all()
+    snake = {**k1_tiles.snake_instructions(), "clock_mhz": clock_mhz}
     emit("build", t0, libraries=[os.path.relpath(_build.library_path(name), REPO)
-                                 for name in _build.sources()])
+                                 for name in _build.sources()], snake=snake)
+    return snake
 
 
-def f32_launch(blocks, B: int, T: int, tile: int, ms: float) -> dict:
-    """The float32 kernel's launch shape at one stage (per resblock, as its
+def launch_fields(blocks, B: int, T: int, tile: int, ms: float,
+                  compute_dtype: torch.dtype = torch.float32) -> dict:
+    """The mode's kernel launch shape at one stage (per resblock, as its
     build reports it; its shared memory within one block's limit) and the
-    stage's useful TFLOP/s at ``ms``."""
-    plans = [AR.f32_plan(rb, tile) for rb in blocks]
+    stage's useful TFLOP/s at ``ms``.  float32: the micro-tile (R_co, R_t);
+    bf16: the warp tile (m16 tiles, output channels), and per resblock the
+    weight buffers and the blocks an SM holds (at least what ``tile_for``
+    counts on)."""
+    bf16 = compute_dtype == torch.bfloat16
+    plans = [(AR.bf16_plan if bf16 else AR.f32_plan)(rb, tile) for rb in blocks]
     for rb, plan in zip(blocks, plans):
         if plan["smem_bytes"] > AR.SMEM_LIMIT:
             raise AssertionError(f"k={rb.kernel_size}: the kernel takes {plan['smem_bytes']} B of "
                                  f"shared memory, more than {AR.SMEM_LIMIT}")
+        if bf16 and plan["blocks_per_sm"] < AR.BF16_BLOCKS_PER_SM[rb.channels]:
+            raise AssertionError(f"k={rb.kernel_size}: an SM holds {plan['blocks_per_sm']} blocks, "
+                                 f"tile_for counts on {AR.BF16_BLOCKS_PER_SM[rb.channels]}")
     flops = sum(6 * 2 * rb.channels ** 2 * rb.kernel_size for rb in blocks) * B * T
+    shape = ({"warp_tile": [plans[0]["rm"], plans[0]["channels"]],
+              "weight_buffers": [p["weight_buffers"] for p in plans],
+              "blocks_per_sm": [p["blocks_per_sm"] for p in plans]} if bf16 else
+             {"micro_tile": [plans[0]["rco"], plans[0]["rt"]]})
     return {"blocks": -(-T // tile) * B, "threads": [p["threads"] for p in plans],
-            "smem_bytes": [p["smem_bytes"] for p in plans],
-            "micro_tile": [plans[0]["rco"], plans[0]["rt"]], "tflops": flops / ms / 1e9}
+            "smem_bytes": [p["smem_bytes"] for p in plans], **shape, "tflops": flops / ms / 1e9}
+
+
+def snake_floor_ms(stage_blocks, B: int, T: int, snake_fp32: int, clock_mhz: float) -> float:
+    """Least time of a stage's snakes on the CUDA cores: 6 per unit chain
+    (3 units, 2 each) per resblock, channel and sample, each ``snake_fp32``
+    float32-pipe instructions, over 128 lanes per SM on every SM at
+    ``clock_mhz``."""
+    C = stage_blocks[0].channels
+    evals = 2 * AR.N_UNITS * len(stage_blocks) * B * C * T
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return evals * snake_fp32 / (sms * 128 * clock_mhz * 1e6) * 1e3
 
 
 def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
-                 compute_dtype: torch.dtype = torch.float32) -> dict:
+                 compute_dtype: torch.dtype = torch.float32, snake: dict | None = None) -> dict:
     """Kernel against plain at each stage's (B, C, T) from the main path,
     on seeded inputs, in ``compute_dtype``'s mode; returns the summed
-    numbers for the kernels line."""
-    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
+    numbers for the kernels line.  ``ms`` is a stage call as the caller sees
+    it (CUDA events around 20 calls, host launches included), ``device_ms``
+    the device's time alone (a CUDA graph of 20 calls, replayed).  With
+    ``snake`` (the fp32 instruction count of one snake and the SM clock),
+    each line also carries the stage's snake floor."""
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set(),
+             "device_ms": 0.0, "snake_floor_ms": 0.0}
     bf16 = compute_dtype == torch.bfloat16
     name, tol = ("amp_resblock_bf16", BF16_KERNEL_TOL) if bf16 else ("amp_resblock", KERNEL_TOL)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -208,16 +249,22 @@ def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
         if not err <= tol:
             raise AssertionError(f"stage {stage}: {name} vs plain {err} > {tol}")
         ms = cuda_ms(lambda: AR.amp_stack(x, blocks, compute_dtype))
+        device_ms = graph_ms(lambda: AR.amp_stack(x, blocks, compute_dtype))
         plain_ms = cuda_ms(lambda: AR.amp_stack_plain(x, blocks, compute_dtype))
         bound, bound_by = stage_bound_ms(blocks, B, T, compute_dtype)
         tile = AR.launch_tile(x, compute_dtype)
-        launch = {} if bf16 else f32_launch(blocks, B, T, tile, ms)
-        emit("kernel", t0, kernel=name, stage=stage, shape=[B, C, T],
+        floor = {}
+        if snake:
+            floor["snake_floor_ms"] = snake_floor_ms(blocks, B, T, snake["fp32"], snake["clock_mhz"])
+            total["snake_floor_ms"] += floor["snake_floor_ms"]
+        emit("kernel", t0, kernel=name, stage=stage, shape=[B, C, T], tile=tile,
              last_tile=T % tile or tile, launches_per_stage=len(blocks), max_abs_err=err, tol=tol,
-             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-             roofline_share=bound / ms, **launch)
+             ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+             roofline_share=bound / ms, **floor,
+             **launch_fields(blocks, B, T, tile, ms, compute_dtype))
         total["max_abs_err"] = max(total["max_abs_err"], err)
         total["ms"] += ms
+        total["device_ms"] += device_ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound
         total["bound_by"].add(bound_by)
@@ -614,8 +661,8 @@ def gridded_kernel(launches: int, operands) -> dict:
 
 
 def main() -> None:
-    name = device_phase()
-    build_phase()
+    name, clock_mhz = device_phase()
+    snake = build_phase(clock_mhz)
     set_parity_mode()
     torch.matmul(torch.ones(8, 8, device=DEV), torch.ones(8, 8, device=DEV))  # cuBLAS set-up
     wav = load_batch()
@@ -630,7 +677,10 @@ def main() -> None:
     launches, shapes, parity_times = main_path_phase(codec, wav)
     launches_bf16, shapes_bf16 = fast_path_phase(codec, wav, parity_times)
     totals = kernel_phase(codec, shapes)
-    totals_bf16 = kernel_phase(codec, shapes_bf16, torch.bfloat16)
+    totals_bf16 = kernel_phase(codec, shapes_bf16, torch.bfloat16, snake)
+    for kernel, tot in (("amp_resblock", totals), ("amp_resblock_bf16", totals_bf16)):
+        emit("kernel_total", time.time(), kernel=kernel,
+             **{key: v for key, v in tot.items() if key != "bound_by"})
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

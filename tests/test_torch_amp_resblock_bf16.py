@@ -20,6 +20,7 @@ from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
 from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
 from bvsc_tpu_torch.ops import amp_resblock as AR
 from test_torch_amp_resblock import perturbed_generator_params
+from test_torch_amp_resblock_f32 import random_block
 
 torch.set_num_threads(1)
 
@@ -35,7 +36,10 @@ BF16 = torch.bfloat16
 # port that rounds where JAX rounds from one that is merely near float32.
 TOL = 5e-5
 GAP_SHARE = 0.25
-STAGE_T = {0: 700, 3: 5000}  # three bf16 tiles each (256 and 2048 samples)
+STAGE_T = {0: 700, 3: 5000}  # several full bf16 tiles each (128 and 1024 samples)
+# At the shortest tile the wrapper can pick (AR.MIN_TILE), every stage:
+# seven tiles, each window mostly halo (up to 120 samples at k = 11).
+SHORT_T = 7 * 32 - 5
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +106,8 @@ def test_bf16_start_mask_bias_only(vcfg, params, stage):
     xt = torch.from_numpy(x)
     np.testing.assert_allclose(AR.amp_stack_plain(xt, blocks, BF16).numpy(), ref, atol=TOL)
     np.testing.assert_allclose(AR.amp_stack_tiled(xt, blocks, BF16).numpy(), ref, atol=TOL)
+    np.testing.assert_allclose(AR.amp_stack_tiled(xt, blocks, BF16, tile=AR.MIN_TILE).numpy(),
+                               ref, atol=TOL)
 
 
 def test_packed_weights_layout(params):
@@ -136,14 +142,63 @@ def test_wrapper_dispatch_on_cpu(params, refs):
 
 
 def test_bf16_tile_and_shared_memory(params):
-    """Every stage of the full config fits one thread block's shared memory
-    in bf16 mode, with tiles twice the float32 kernel's."""
+    """Every stage of the full config takes the bf16 kernel, at tiles that
+    are multiples of 16 (the kernel's m16 tiles; it refuses others): the
+    full tile and whatever the rule picks for 1-64 rows on 132 SMs, never
+    below MIN_TILE.  The shared memory those tiles take is the kernel
+    build's to report (``test_bf16_shared_memory_fits``, on the card)."""
     for stage_blocks in params[1]:
         for rb in stage_blocks:
             C = rb.channels
-            assert C in AR.BF16_CHANNELS
-            assert AR.tile_for(C, BF16) == 2 * AR.tile_for(C) and AR.tile_for(C, BF16) % 16 == 0
-            assert AR.smem_bytes(rb, BF16) <= AR.SMEM_LIMIT
+            assert {(C, rb.kernel_size, d) for d in rb.dilations} <= set(AR.BF16_SHAPES)
+            tiles = {AR.tile_for(C, BF16, B, T, 132) for B in (1, 2, 4, 8, 64)
+                     for T in (100, 2056, 16456, 32914, 65830)}
+            assert AR.tile_for(C, BF16) in tiles
+            assert all(t % 16 == 0 and AR.MIN_TILE <= t <= AR.tile_for(C, BF16) for t in tiles)
+
+
+@pytest.mark.parametrize("C, k, dils", [(24, 3, (1, 3, 5)), (16, 5, (1, 3, 5)),
+                                        (16, 3, (1, 2, 5))])
+def test_check_refuses_shapes_outside_bf16_shapes(C, k, dils):
+    rb = AR.prepare_resblock(random_block(C, k), k, dils)
+    with pytest.raises(ValueError, match="BF16_SHAPES"):
+        AR._check(torch.zeros(1, C, 64), rb, BF16)
+
+
+def test_check_refuses_bf16_tile_off_the_m16_grid():
+    rb = AR.prepare_resblock(random_block(16, 7), 7, (1, 3, 5))
+    AR._check(torch.zeros(2, 16, 100), rb, BF16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        AR._check(torch.zeros(2, 16, 100), rb, BF16, tile=40)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_bf16_tiled_at_short_tile_matches_jax(vcfg, params, stage):
+    """The bf16 kernel's algorithm at the shortest tile the wrapper can
+    pick, whose windows are mostly recomputed halo, against the JAX kernel
+    in its bf16 mode."""
+    C = vcfg.upsample_initial_channel // (2 ** (stage + 1))
+    x = (np.random.default_rng(40 + stage).standard_normal((2, C, SHORT_T)) * 0.3).astype(np.float32)
+    ref = _pallas(params[0], vcfg, stage, x, jnp.bfloat16)
+    got = AR.amp_stack_tiled(torch.from_numpy(x), params[1][stage], BF16, tile=AR.MIN_TILE).numpy()
+    assert np.abs(got - ref).max() <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_bf16_shared_memory_fits(params, stage):
+    """The bf16 kernel's build owns its shared-memory layout: at every stage
+    of the full config, at the full tile and the shortest, what it reports
+    fits one thread block, and grows with the tile; an SM holds at least as
+    many blocks at the full tile as ``tile_for`` counts on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    for rb in params[1][stage]:
+        full = AR.tile_for(rb.channels, BF16)
+        small, big = (AR.bf16_plan(rb, t)["smem_bytes"] for t in (AR.MIN_TILE, full))
+        assert small < big <= AR.SMEM_LIMIT
+        assert AR.smem_bytes(rb, BF16) == big
+        assert AR.bf16_plan(rb)["blocks_per_sm"] >= AR.BF16_BLOCKS_PER_SM[rb.channels]
 
 
 @pytest.mark.gpu

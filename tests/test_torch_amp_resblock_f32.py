@@ -90,19 +90,29 @@ STAGE_T = (2056, 16456, 32914, 65830)
 H100_SMS = 132
 
 
-@pytest.mark.parametrize("B, tiles", [(4, (64, 256, 512, 1024)), (1, (64, 128, 256, 512)),
-                                      (8, (128, 256, 512, 1024))])
-def test_tile_fills_the_card(stages, B, tiles):
-    """8192 / C samples a block, halved only where that grid would leave
-    some of 132 SMs without a block: a B = 4 call halves at stage 0 alone
-    (68 blocks of 128 -> 132 of 64), B = 1 everywhere, B = 8 nowhere."""
-    for stage, (T, tile) in enumerate(zip(STAGE_T, tiles)):
+@pytest.mark.parametrize("B, tiles, bf16_tiles", [
+    (4, (64, 256, 512, 1024), (64, 256, 512, 1024)),
+    (1, (64, 128, 256, 512), (32, 128, 128, 256)),
+    (8, (128, 256, 512, 1024), (128, 256, 512, 1024))])
+def test_tile_fills_the_card(stages, B, tiles, bf16_tiles):
+    """8192 / C samples a block in both modes.  float32 halves it once where
+    that grid would leave some of 132 SMs without a block: a B = 4 call
+    halves at stage 0 alone (68 blocks of 128 -> 132 of 64), B = 1
+    everywhere, B = 8 nowhere.  bf16 halves it while the halved grid still
+    fits in one wave (132 blocks, 264 at C <= 16, where an SM holds two):
+    the same at B = 4 and 8; B = 1's stage 0 down to 32 (65 blocks) and
+    stages 2-3 twice (258 blocks)."""
+    for stage, (T, tile, tile16) in enumerate(zip(STAGE_T, tiles, bf16_tiles)):
         C = stages[stage][0].channels
-        assert AR.tile_for(C) == 8192 // C
+        assert AR.tile_for(C) == AR.tile_for(C, torch.bfloat16) == 8192 // C
         assert AR.tile_for(C, torch.float32, B, T, H100_SMS) == tile
         full = B * -(-T // (8192 // C))
         assert (full >= H100_SMS) == (tile == 8192 // C)
-        assert AR.tile_for(C, torch.bfloat16, B, T, H100_SMS) == AR.tile_for(C, torch.bfloat16)
+        assert AR.tile_for(C, torch.bfloat16, B, T, H100_SMS) == tile16
+        blocks, wave = B * -(-T // tile16), H100_SMS * AR.BF16_BLOCKS_PER_SM[C]
+        assert blocks >= wave or tile16 == AR.MIN_TILE or B * -(-T // (tile16 // 2)) > wave
+        if B == 4:
+            assert blocks >= H100_SMS
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
