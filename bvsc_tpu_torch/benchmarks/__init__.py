@@ -4,8 +4,9 @@
     python -m bvsc_tpu_torch.benchmarks.probe_roofline
 
 Each module has a ``main()`` that prints the probe's lines and a ``run()``
-that returns its numbers.  Times come from CUDA events (:func:`cuda_ms`);
-a probe without a card raises.
+that returns its numbers.  Times come from CUDA events (:func:`cuda_ms`,
+:func:`graph_ms`, :func:`cold_ms`); a probe without a card raises.
+``k1_tiles`` and ``dot_sizes`` time single kernels over several shapes.
 """
 
 from __future__ import annotations
@@ -40,6 +41,29 @@ def graph_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def cold_ms(fn, reps: int = 30, flush_bytes: int = 128 << 20) -> float:
+    """Median device milliseconds of one call of ``fn`` with the L2 cold:
+    before each call, a write of ``flush_bytes`` (more than the H100's
+    50 MB of L2) evicts its inputs.  CUDA events time the call alone; a
+    spin of ~0.1 ms on the device after the write keeps the device busy
+    while the host enqueues the call, so the host's launch time does not
+    count."""
+    flush = torch.empty(flush_bytes // 4, device=torch.cuda.current_device())
+    fn()  # warm-up: builds, loads, library handles
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(200_000)  # clock cycles; touches no memory
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in pairs)
+    return times[len(times) // 2]
 
 
 def seeded_vocoder(vcfg, seed: int = 0) -> dict:

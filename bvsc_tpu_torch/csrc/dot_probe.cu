@@ -20,16 +20,31 @@
 // 2 M 128 N reps FLOP.
 //
 // gridded_dot_bf16 replaces the Pallas kernel `k2` (probe_roofline.py:45-57):
-// out = w @ x with w (M, 128) and x (128, N) bf16, out f32, cut into output
-// tiles.  One block owns a 128 x 64 output tile (Pallas: a grid over 128 x
-// 512 tiles); it stages its x tile in shared memory with 16-byte loads
-// (rows padded by 16 bytes so the B-fragment reads hit 32 distinct banks),
-// and each of its 8 warps computes 16 rows x 64 columns with A fragments
-// read from w (L2-resident, shared by every block).  Rows past M and
-// columns past N (in steps of 8, N % 8 == 0) are masked.  What bounds it:
+// out = w @ x with w (M, 128) and x (128, N) bf16, out f32.  What bounds it:
 // the bytes, x read once and the f32 output written once (25.2 MB at
-// N = 32 768), against 1.07 GFLOP.
+// N = 32 768), against 1.07 GFLOP, so it is written as a bandwidth kernel:
+// - a persistent grid of min(tiles, SMs x blocks an SM) blocks walks the
+//   128 x kGridTN output tiles with a stride of gridDim.x, m-tile major;
+// - on a block's first tile of each m-tile, the bulk-copy engine (TMA)
+//   stages that 128-row slab of w in shared memory once; each consumer warp
+//   takes its 16 rows' A fragments from it by `ldmatrix` into registers;
+// - one producer warp streams x tiles by TMA into a ring of kGridStages
+//   shared-memory stages, signalled on mbarriers, while 8 consumer warps
+//   form each tile's products (mma.sync m16n8k16, B by `ldmatrix.trans`);
+// - each tile's float32 accumulators go to a staging buffer in shared
+//   memory and out by TMA stores, which overlap the next tile's copy and
+//   products.
+// Every shared-memory tile is a set of 128-byte-row boxes in the TMA's
+// 128-byte swizzle, so `ldmatrix` and the staging writes hit distinct
+// banks.  The TMA zero-fills rows of w past M and columns of x past N, and
+// its stores clip at the M and N edges.  Each output is one product over
+// K = 128 from a zero float32 accumulator, as before.  The tile width, the
+// stages and the staging buffers are the fastest of a sweep of builds on
+// the H100 (PERF.md): 64-column tiles give each block ~4 tiles at the
+// probe's shape, and 6 stages with 2 staging buffers start the first store
+// sooner and keep stores in flight.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -40,10 +55,22 @@ constexpr int kK = 128;              // contraction depth of both probes
 constexpr int kKSteps = kK / 16;     // mma.sync k16 steps
 constexpr int kChainWarps = 4;       // warps per block of the chain kernel
 constexpr int kChainTilesN = 2;      // n8 tiles per warp: a 16 x 16 tile
-constexpr int kTileM = 128;          // gridded: output tile rows
-constexpr int kTileN = 64;           // gridded: output tile columns
-constexpr int kPad = 8;              // gridded: bf16 padding per smem row
-constexpr int kGridWarps = kTileM / 16;
+constexpr int kGridTM = 128;         // gridded: output tile rows (one w slab)
+constexpr int kGridTN = 64;          // gridded: output tile columns
+constexpr int kGridStages = 6;       // gridded: x stages in the ring
+constexpr int kGridOutBufs = 2;      // gridded: output staging buffers
+constexpr int kGridConsumers = kGridTM / 16;  // warps of 16 output rows each
+constexpr int kGridThreads = 32 * (kGridConsumers + 1);  // + the producer warp
+constexpr int kBox = 16384;          // one 128-row x 128-byte swizzled box
+constexpr int kWBytes = kGridTM * kK * 2;
+constexpr int kXStageBytes = kK * kGridTN * 2;
+constexpr int kOutBufBytes = kGridTM * kGridTN * 4;
+constexpr int kBarOffset = kWBytes + kGridStages * kXStageBytes + kGridOutBufs * kOutBufBytes;
+constexpr int kBars = 2 * kGridStages + 2;  // full and empty per stage; w full, w empty
+// 1024 bytes of slack align the swizzled boxes to the swizzle's period.
+constexpr int kGridSmem = 1024 + kBarOffset + 8 * kBars;
+static_assert(kGridTN % 64 == 0 && kGridTN <= 256, "x boxes are 64 columns wide");
+static_assert(kGridStages >= 2 && kGridOutBufs >= 1, "a ring needs two stages");
 
 // d += a . b on the tensor cores: A 16 x 16 row-major, B 16 x 8
 // column-major, bf16 pairs packed low element first; D 16 x 8 f32.
@@ -78,17 +105,17 @@ __device__ __forceinline__ void load_a(const uint16_t* w, int M, int r0, int ks,
   a[3] = ld(rb, c + 8);
 }
 
-// B fragment of columns [n0, n0 + 8) and k-step ks of a row-major (128, N)
-// bf16 matrix with row stride `stride`; lane (g, t) holds column g, rows
-// 2t, 2t + 1 and 2t + 8, 2t + 9.  Columns past N read 0.
-__device__ __forceinline__ void load_b(const uint16_t* x, int stride, int N, int n0, int ks,
-                                       int lane, uint32_t (&b)[2]) {
+// B fragment of columns [n0, n0 + 8) and k-step ks of the row-major
+// (128, N) bf16 matrix x; lane (g, t) holds column g, rows 2t, 2t + 1 and
+// 2t + 8, 2t + 9.  Columns past N read 0.
+__device__ __forceinline__ void load_b(const uint16_t* x, int N, int n0, int ks, int lane,
+                                       uint32_t (&b)[2]) {
   const int g = lane >> 2, t = lane & 3;
   const int n = n0 + g;
-  const uint16_t* p = x + static_cast<size_t>(ks * 16 + 2 * t) * stride + n;
+  const uint16_t* p = x + static_cast<size_t>(ks * 16 + 2 * t) * N + n;
   if (n < N) {
-    b[0] = pack(p[0], p[stride]);
-    b[1] = pack(p[8 * stride], p[9 * stride]);
+    b[0] = pack(p[0], p[N]);
+    b[1] = pack(p[8 * N], p[9 * N]);
   } else {
     b[0] = b[1] = 0u;
   }
@@ -123,7 +150,7 @@ __global__ void __launch_bounds__(32 * kChainWarps)
   for (int ks = 0; ks < kKSteps; ++ks) {
     load_a(w, M, r0, ks, lane, a[ks]);
 #pragma unroll
-    for (int nt = 0; nt < kChainTilesN; ++nt) load_b(x, N, N, n0 + 8 * nt, ks, lane, b[ks][nt]);
+    for (int nt = 0; nt < kChainTilesN; ++nt) load_b(x, N, n0 + 8 * nt, ks, lane, b[ks][nt]);
   }
   float acc[kChainTilesN][4] = {};
 #pragma unroll 1
@@ -142,40 +169,212 @@ __global__ void __launch_bounds__(32 * kChainWarps)
   for (int nt = 0; nt < kChainTilesN; ++nt) store_c(out, M, N, r0, n0 + 8 * nt, lane, acc[nt]);
 }
 
-__global__ void __launch_bounds__(32 * kGridWarps)
-    gridded_dot_kernel(const uint16_t* w, const uint16_t* x, float* out, int M, int N) {
-  constexpr int kStride = kTileN + kPad;
-  __shared__ __align__(16) uint16_t xs[kK * kStride];
-  const int n0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-  constexpr int kVecPerRow = kTileN / 8;  // 16-byte vectors of one tile row
-  for (int i = threadIdx.x; i < kK * kVecPerRow; i += blockDim.x) {
-    const int k = i / kVecPerRow, q = i % kVecPerRow;
-    const int n = n0 + 8 * q;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N) v = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(k) * N + n));
-    *reinterpret_cast<uint4*>(xs + k * kStride + 8 * q) = v;
+// Byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a box of
+// 128-byte rows under the TMA's 128-byte swizzle (box base 1024-aligned).
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrives and adds `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed (a new
+// barrier counts its phase of parity 1 as completed).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box of `map` at (inner c0, outer c1) into shared memory at `dst`,
+// its bytes completing on `bar`.  Elements outside the tensor read 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// TMA: the box at `src` in shared memory to (inner c0, outer c1) of `map`,
+// clipped at the tensor's edges, in the thread's current bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int c0, int c1, uint32_t src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The consumer warps' barrier (named barrier 1; the producer takes no part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(32 * kGridConsumers) : "memory");
+}
+
+// Shared memory (from a 1024-aligned base): w's slab as two boxes of 64
+// k-columns, kGridStages x stages as kGridTN / 64 boxes of 64 columns, the
+// output staging buffers as kGridTN / 32 boxes of 32 float32 columns, then
+// the mbarriers.  Warps 0-7 compute rows 16 warp .. 16 warp + 15 of each
+// tile; warp 8 is the producer.
+__global__ void __launch_bounds__(kGridThreads, 1)
+    gridded_dot_kernel(const __grid_constant__ CUtensorMap w_map,
+                       const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap out_map, int tiles_n, int tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t w_s = (raw + 1023u) & ~1023u;
+  const uint32_t x_s = w_s + kWBytes;
+  const uint32_t out_s = x_s + kGridStages * kXStageBytes;
+  const uint32_t bars = w_s + kBarOffset;
+  const uint32_t w_full = bars + 16 * kGridStages, w_empty = w_full + 8;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kGridStages + s); };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGridStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kGridConsumers);
+    }
+    mbar_init(w_full, 1);
+    mbar_init(w_empty, kGridConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int r0 = m0 + (threadIdx.x / 32) * 16;
-  if (r0 >= M) return;  // warp-uniform, after the block's last barrier
-  constexpr int kTilesN = kTileN / 8;
-  float acc[kTilesN][4] = {};
+  if (warp == kGridConsumers) {  // the producer: one lane issues every copy
+    if (lane != 0) return;
+    int cur_m = -1, s = 0;
+    uint32_t phase = 0, w_phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m = t / tiles_n, n = t - m * tiles_n;
+      if (m != cur_m) {  // the consumers hold the last slab in registers
+        if (cur_m >= 0) {
+          mbar_wait(w_empty, w_phase);
+          w_phase ^= 1;
+        }
+        mbar_expect_tx(w_full, kWBytes);
+        for (int b = 0; b < kK / 64; ++b) tma_load(w_s + b * kBox, &w_map, 64 * b, m * kGridTM, w_full);
+        cur_m = m;
+      }
+      mbar_wait(empty(s), phase ^ 1);
+      mbar_expect_tx(full(s), kXStageBytes);
+      for (int b = 0; b < kGridTN / 64; ++b)
+        tma_load(x_s + s * kXStageBytes + b * kBox, &x_map, n * kGridTN + 64 * b, 0, full(s));
+      if (++s == kGridStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ldmatrix lanes: matrix q = lane / 8, its row r = lane % 8.
+  const int q = lane >> 3, r = lane & 7;
+  const int g = lane >> 2, tq = lane & 3;  // mma fragment lanes
+  const int r0 = 16 * warp;
+  uint32_t a[kKSteps][4];
+  int cur_m = -1, s = 0, i = 0;
+  uint32_t phase = 0, w_phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+    const int m = t / tiles_n, n = t - m * tiles_n;
+    if (m != cur_m) {  // A fragments of the warp's 16 rows, kept for the m-tile
+      mbar_wait(w_full, w_phase);
+      w_phase ^= 1;
+      const int row = r0 + r + 8 * (q & 1);
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    uint32_t a[4];
-    load_a(w, M, r0, ks, lane, a);
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const int chunk = 2 * ks + (q >> 1);  // 8-column chunk of k
+        ldsm_x4(w_s + (chunk >> 3) * kBox + swz(row, chunk & 7), a[ks]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(w_empty);
+      cur_m = m;
+    }
+
+    constexpr int kTilesN = kGridTN / 8;
+    float acc[kTilesN][4] = {};
+    mbar_wait(full(s), phase);
+    const uint32_t xs = x_s + s * kXStageBytes;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      const int k = 16 * ks + 8 * (q & 1) + r;
+#pragma unroll
+      for (int np = 0; np < kTilesN / 2; ++np) {
+        const int chunk = 2 * np + (q >> 1);  // 8-column chunk of the tile
+        uint32_t b[4];
+        ldsm_x4_trans(xs + (chunk >> 3) * kBox + swz(k, chunk & 7), b);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(acc[2 * np], a[ks], b0);
+        mma_bf16(acc[2 * np + 1], a[ks], b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (++s == kGridStages) {
+      s = 0;
+      phase ^= 1;
+    }
+
+    // Epilogue: wait until the store kGridOutBufs tiles back has read its
+    // buffer, stage the accumulators, and store them by TMA.
+    if (threadIdx.x == 0)
+      asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kGridOutBufs - 1) : "memory");
+    consumers_sync();
+    const uint32_t os = out_s + (i % kGridOutBufs) * kOutBufBytes;
 #pragma unroll
     for (int nt = 0; nt < kTilesN; ++nt) {
-      uint32_t b[2];
-      load_b(xs, kStride, kTileN, 8 * nt, ks, lane, b);
-      mma_bf16(acc[nt], a, b);
+      const int col = 8 * nt + 2 * tq, cc = col & 31;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t addr = os + (col >> 5) * kBox + swz(r0 + g + 8 * h, cc >> 2) + 4 * (cc & 3);
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(acc[nt][2 * h]),
+                     "f"(acc[nt][2 * h + 1])
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < kGridTN / 32; ++b)
+        tma_store(&out_map, n * kGridTN + 32 * b, m * kGridTM, os + b * kBox);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
   }
-#pragma unroll
-  for (int nt = 0; nt < kTilesN; ++nt) store_c(out, M, N, r0, n0 + 8 * nt, lane, acc[nt]);
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 }  // namespace
@@ -193,13 +392,109 @@ extern "C" int dot_chain_bf16(const void* w, const void* x, float* out, int M, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the build
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (outer, inner) tensor as boxes of 128 rows x box_inner
+// elements (128 bytes) in the 128-byte swizzle; out-of-range elements read 0.
+static bool encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+                   int inner, int outer, int box_inner) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), 128u};
+  const cuuint32_t unit[2] = {1u, 1u};
+  const EncodeTiled fn = encoder();
+  return fn && fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct GridPlan {
+  int sms, blocks_per_sm, tiles_n, tiles, grid;
+};
+
+// The persistent grid for (M, N) on the current device: min(tiles, SMs x
+// the blocks an SM holds at kGridSmem, as the occupancy calculator says).
+static int grid_plan(int M, int N, GridPlan* p) {
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices], occupancy[kMaxDevices];  // 0: not asked yet
+  if (M <= 0 || N <= 0 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!occupancy[dev]) {
+    err = cudaFuncSetAttribute(gridded_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGridSmem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gridded_dot_kernel, kGridThreads,
+                                                          kGridSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    occupancy[dev] = blocks;
+  }
+  const long long tiles_n = (N + kGridTN - 1) / kGridTN;
+  const long long tiles = (M + kGridTM - 1) / kGridTM * tiles_n;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long slots = static_cast<long long>(sms[dev]) * occupancy[dev];
+  *p = {sms[dev], occupancy[dev], static_cast<int>(tiles_n), static_cast<int>(tiles),
+        static_cast<int>(tiles < slots ? tiles : slots)};
+  return 0;
+}
+
+// K4's launch for (M, N) on the current device, as 9 ints: tile rows, tile
+// columns, x stages, output staging buffers, threads, shared-memory bytes,
+// blocks an SM (occupancy calculator), SMs and the grid.  Returns the CUDA
+// error code.
+extern "C" int gridded_dot_plan(int M, int N, int* out) {
+  GridPlan g;
+  const int err = grid_plan(M, N, &g);
+  if (err != 0) return err;
+  const int plan[9] = {kGridTM, kGridTN, kGridStages, kGridOutBufs, kGridThreads,
+                       kGridSmem, g.blocks_per_sm, g.sms, g.grid};
+  for (int i = 0; i < 9; ++i) out[i] = plan[i];
+  return 0;
+}
+
 // out (M, N) f32 = w @ x; w (M, 128), x (128, N) bf16 with N % 8 == 0, all
 // row-major on the device, 16-byte aligned.  Launches on `stream` and
 // returns the CUDA error code (0 on success).
 extern "C" int gridded_dot_bf16(const void* w, const void* x, float* out, int M, int N,
                                 void* stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-  gridded_dot_kernel<<<grid, 32 * kGridWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(w), static_cast<const uint16_t*>(x), out, M, N);
+  GridPlan g;
+  const int err = grid_plan(M, N, &g);
+  if (err != 0) return err;
+  CUtensorMap w_map, x_map, out_map;
+  if (!encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, kK, M, 64) ||
+      !encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, kK, 64) ||
+      !encode(&out_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, N, M, 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gridded_dot_kernel<<<g.grid, kGridThreads, kGridSmem, static_cast<cudaStream_t>(stream)>>>(
+      w_map, x_map, out_map, g.tiles_n, g.tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ Replace the Pallas TPU kernels of ``benchmarks/probe_roofline.py``:
 
 For CUDA tensors each wrapper launches ``csrc/dot_probe.cu`` (``mma.sync``,
 no library GEMM) or raises; only CPU tensors take the plain version.  Each
-wrapper's ``launches`` counts its launches.
+wrapper's ``launches`` counts its launches.  The gridded kernel is a
+persistent grid that streams x through a ring of shared-memory stages; its
+build reports its launch (:func:`gridded_plan`) and
+:func:`gridded_dot_tiled` walks the same schedule on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +44,40 @@ def gridded_dot_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.float() @ x.float()
 
 
+def gridded_dot_tiled(w: torch.Tensor, x: torch.Tensor, plan: dict,
+                      writes: torch.Tensor | None = None) -> torch.Tensor:
+    """``w @ x`` by the gridded kernel's schedule, on the CPU (for the tests).
+
+    ``plan`` gives ``tile_m``, ``tile_n`` and ``grid`` (G).  Block b takes
+    output tiles b, b + G, ... of tile_m x tile_n, m-tile major; on its
+    first tile of an m-tile it stages that slab of w, rows past M as zeros,
+    and each x tile has its columns past N as zeros; each tile is one
+    float32 product, and only its part inside (M, N) is written.  The output starts as NaN;
+    ``writes``, an (M, N) integer tensor, counts every element written."""
+    M, N = w.shape[0], x.shape[1]
+    TM, TN, G = plan["tile_m"], plan["tile_n"], plan["grid"]
+    tiles_n = -(-N // TN)
+    tiles = -(-M // TM) * tiles_n
+    out = torch.full((M, N), float("nan"))
+    for b in range(G):
+        cur_m, slab = -1, None
+        for t in range(b, tiles, G):
+            m, n = divmod(t, tiles_n)
+            if m != cur_m:
+                slab = torch.zeros(TM, K)
+                slab[:min(TM, M - m * TM)] = w[m * TM:(m + 1) * TM].float()
+                cur_m = m
+            xs = torch.zeros(K, TN)
+            cols = min(TN, N - n * TN)
+            xs[:, :cols] = x[:, n * TN:n * TN + cols].float()
+            acc = slab @ xs
+            rows = min(TM, M - m * TM)
+            out[m * TM:m * TM + rows, n * TN:n * TN + cols] = acc[:rows, :cols]
+            if writes is not None:
+                writes[m * TM:m * TM + rows, n * TN:n * TN + cols] += 1
+    return out
+
+
 def _check(w: torch.Tensor, x: torch.Tensor) -> None:
     if w.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or w.dim() != 2 or x.dim() != 2:
         raise ValueError(f"expected 2-D bf16 w and x, got {w.dtype} {tuple(w.shape)} "
@@ -61,8 +98,26 @@ def _lib():
     lib = _build.load("dot_probe")
     lib.dot_chain_bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.gridded_dot_bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.gridded_dot_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.dot_chain_bf16.restype = lib.gridded_dot_bf16.restype = ctypes.c_int
+    lib.gridded_dot_plan.restype = ctypes.c_int
     return lib
+
+
+def gridded_plan(M: int, N: int) -> dict:
+    """The gridded kernel's launch for (M, N) on the current CUDA device, as
+    its build reports it: ``tile_m`` and ``tile_n`` (output tile rows and
+    columns), ``stages`` (x stages in the ring), ``out_buffers`` (output
+    staging buffers), ``threads``, ``smem_bytes``, ``blocks_per_sm`` (CUDA's
+    occupancy calculator), ``sms`` and ``grid``.  Builds the kernel if
+    needed; needs a card."""
+    keys = ("tile_m", "tile_n", "stages", "out_buffers", "threads", "smem_bytes",
+            "blocks_per_sm", "sms", "grid")
+    out = (ctypes.c_int * len(keys))()
+    err = _lib().gridded_dot_plan(M, N, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"the gridded kernel does not take M={M}, N={N} (CUDA error {err})")
+    return dict(zip(keys, out))
 
 
 def _device(w: torch.Tensor, name: str) -> bool:

@@ -49,9 +49,11 @@ Phases, each printing one JSON line with its seconds:
    run through their ``run()`` entry points with the kernels' launch counts
    read around them; then the persistent GRU (bf16 and int8, H = 1024,
    T = 512, 8 rows), the dot chain (M = 128, 256, 512) and the gridded dot
-   (128 x 128 x 32 768) against their plain versions on the probes' own
-   inputs, and timed beside their bounds and, for the gridded dot,
-   ``torch.mm``.
+   (128 x 128 x 32 768, and three shapes that cut its tiles) against their
+   plain versions on the probes' own inputs, and timed beside their bounds;
+   the gridded dot also beside ``torch.mm``, with the L2 warm (replayed
+   back-to-back calls) and cold (flushed before each call), and its plan
+   as its build reports it: one block on each of the card's SMs.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -70,7 +72,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
-from bvsc_tpu_torch.benchmarks import cuda_ms, graph_ms, k1_tiles, seeded_vocoder
+from bvsc_tpu_torch.benchmarks import cold_ms, cuda_ms, graph_ms, k1_tiles, seeded_vocoder
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
@@ -117,6 +119,9 @@ GRU_STEP_TOL = 1e-5
 GRU_TOL = 2e-2
 CHAIN_RTOL = 1e-5  # of max |out|: 64 float32 additions in another order
 GRIDDED_TOL = 1e-4  # one product, K = 128 in float32
+# Shapes that cut K4's 128-row tiles and its column tiles at both edges, by
+# one row and 8 columns, and fit inside one tile.
+GRIDDED_RAGGED = ((200, 1000), (129, 4104), (40, 8))
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -634,27 +639,38 @@ def chain_kernel(launches: int, chain: dict) -> dict:
 
 
 def gridded_kernel(launches: int, operands) -> dict:
-    """K4 (and a ragged shape) against its plain version, timed on the
-    device beside ``torch.mm`` (bf16 in, float32 out); returns its kernels
-    entry."""
+    """K4 at the probe's shape and at shapes that cut its tiles against its
+    plain version; its plan, as its build reports it, held to one block on
+    each SM; timed on the device beside ``torch.mm`` (bf16 in, float32
+    out) with the L2 warm (``graph_ms``) and cold (``cold_ms``).  Returns
+    its kernels entry (``ms`` is the warm time)."""
     t0 = time.time()
     w, x = operands
+    M, N = w.shape[0], x.shape[1]
     err = check("gridded_dot", max_err(DP.gridded_dot(w, x), DP.gridded_dot_plain(w, x)), GRIDDED_TOL)
-    wr, xr = ragged_bf16(200, 1000, SEED + 1)
-    ragged_err = check("gridded_dot ragged", max_err(DP.gridded_dot(wr, xr),
-                                                     DP.gridded_dot_plain(wr, xr)), GRIDDED_TOL)
+    ragged = {}
+    for i, (Mr, Nr) in enumerate(GRIDDED_RAGGED):
+        wr, xr = ragged_bf16(Mr, Nr, SEED + 1 + i)
+        ragged[f"{Mr}x{Nr}"] = check(f"gridded_dot {Mr}x{Nr}", max_err(
+            DP.gridded_dot(wr, xr), DP.gridded_dot_plain(wr, xr)), GRIDDED_TOL)
+    plan = DP.gridded_plan(M, N)
+    if plan["grid"] != torch.cuda.get_device_properties(w.device).multi_processor_count:
+        raise AssertionError(f"gridded_dot plan {plan}: the probe's {M} x {N} should launch one "
+                             "block on each SM (its shared memory holds one block an SM)")
     library = lambda: torch.mm(w, x, out_dtype=torch.float32)  # noqa: E731
     lib_err = max_err(library(), DP.gridded_dot_plain(w, x))
-    nbytes = 2 * (w.numel() + x.numel()) + 4 * w.shape[0] * x.shape[1]
-    b = bound(probe_roof.gridded_flops(x.shape[1]), nbytes, PEAK_BF16_FLOPS)
-    k4 = {"max_abs_err": err, "ragged_err": ragged_err, "library_err": lib_err,
-          "ms": graph_ms(lambda: DP.gridded_dot(w, x)), "call_ms": cuda_ms(lambda: DP.gridded_dot(w, x)),
+    nbytes = 2 * (w.numel() + x.numel()) + 4 * M * N
+    b = bound(probe_roof.gridded_flops(N), nbytes, PEAK_BF16_FLOPS)
+    kernel = lambda: DP.gridded_dot(w, x)  # noqa: E731
+    k4 = {"max_abs_err": err, "ragged_err": ragged, "library_err": lib_err,
+          "ms": graph_ms(kernel), "cold_ms": cold_ms(kernel), "call_ms": cuda_ms(kernel),
           "plain_ms": graph_ms(lambda: DP.gridded_dot_plain(w, x)),
           "plain_call_ms": cuda_ms(lambda: DP.gridded_dot_plain(w, x)),
-          "library_ms": graph_ms(library), "library_call_ms": cuda_ms(library),
+          "library_ms": graph_ms(library), "library_cold_ms": cold_ms(library),
+          "library_call_ms": cuda_ms(library),
           "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes}
-    emit("probe_kernel", t0, kernel="gridded_dot", shape=[w.shape[0], DP.K, x.shape[1]],
-         tol=GRIDDED_TOL, **k4)
+    emit("probe_kernel", t0, kernel="gridded_dot", shape=[M, DP.K, N], tol=GRIDDED_TOL, plan=plan,
+         **k4)
     return {"name": "gridded_dot", "route": "cuda", "source": "bvsc_tpu_torch/csrc/dot_probe.cu",
             "replaces": "benchmarks/probe_roofline.py:45", "launches": launches,
             **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}

@@ -33,6 +33,13 @@ GRID = 4  # grid steps of the gridded test (the probe: 64)
 CHAIN_RTOL = 3e-6
 # One product, K = 128 in float32 (measured ~1.5e-5).
 GRIDDED_TOL = 1e-4
+# The gridded kernel's schedule: grids of one block, a few blocks and one
+# block per H100 SM; shapes that fill tiles exactly, cut them at both edges,
+# cut one row and 8 columns into new tiles, and fit inside one tile.
+SCHEDULE_GRIDS = (1, 7, 132)
+SCHEDULE_SHAPES = ((128, 4 * 512), (200, 1000), (129, 4104), (40, 8))
+TILE_M = 128  # output tile rows: one slab of w
+TILE_NS = (64, 128)  # output tile columns the kernel's build may take
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +99,39 @@ def test_gridded_dot_plain_matches_pallas(probe):
     np.testing.assert_allclose(got, ref, rtol=0, atol=GRIDDED_TOL)
 
 
+@pytest.mark.parametrize("tile_n", TILE_NS)
+@pytest.mark.parametrize("M,N", SCHEDULE_SHAPES)
+def test_gridded_tiled_writes_every_element_once(M, N, tile_n):
+    rng = np.random.default_rng(M + N)
+    (w, _), (x, _) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N))
+    writes = torch.zeros(M, N, dtype=torch.int32)
+    out = DP.gridded_dot_tiled(w, x, {"tile_m": TILE_M, "tile_n": tile_n, "grid": 7}, writes)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert not out.isnan().any()
+
+
+@pytest.mark.parametrize("tile_n", TILE_NS)
+@pytest.mark.parametrize("M,N", SCHEDULE_SHAPES)
+@pytest.mark.parametrize("grid", SCHEDULE_GRIDS)
+def test_gridded_tiled_matches_plain(M, N, grid, tile_n):
+    rng = np.random.default_rng(grid * 1000 + M)
+    (w, _), (x, _) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N))
+    got = DP.gridded_dot_tiled(w, x, {"tile_m": TILE_M, "tile_n": tile_n, "grid": grid})
+    assert (got - DP.gridded_dot_plain(w, x)).abs().max().item() <= GRIDDED_TOL
+
+
+@pytest.mark.parametrize("tile_n", TILE_NS)
+def test_gridded_tiled_matches_pallas(probe, tile_n):
+    rng = np.random.default_rng(7)
+    N = GRID * PR.TILE_N
+    (w, wj), (x, xj) = _bf16(rng, (128, DP.K)), _bf16(rng, (DP.K, N))
+    ref = np.asarray(pl.pallas_call(
+        probe["k2"], grid=(GRID,), **probe["specs"],
+        out_shape=jax.ShapeDtypeStruct((128, N), jnp.float32), interpret=True)(wj, xj))
+    got = DP.gridded_dot_tiled(w, x, {"tile_m": TILE_M, "tile_n": tile_n, "grid": 3}).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=GRIDDED_TOL)
+
+
 def test_wrappers_on_cpu_take_plain_and_count_nothing():
     rng = np.random.default_rng(3)
     (w, _), (x, _) = _bf16(rng, (32, DP.K)), _bf16(rng, (DP.K, 64))
@@ -137,8 +177,13 @@ def test_dot_chain_on_card(M, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N", [(128, 32768), (200, 1000)])
+@pytest.mark.parametrize("M,N", [(128, 32768), *SCHEDULE_SHAPES])
 def test_gridded_dot_on_card(M, N):
     w, x = _on_card(M, N)
     got = DP.gridded_dot(w, x)
     assert (got - DP.gridded_dot_plain(w, x)).abs().max().item() <= GRIDDED_TOL
+    # One block on each SM, or one on each tile where there are fewer.
+    plan = DP.gridded_plan(M, N)
+    assert plan["tile_m"] == TILE_M and plan["tile_n"] in TILE_NS
+    tiles = -(-M // TILE_M) * -(-N // plan["tile_n"])
+    assert plan["grid"] == min(tiles, torch.cuda.get_device_properties(0).multi_processor_count)
