@@ -44,10 +44,22 @@ DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
 _VOCODER_ARTIFACT = "the trained vocoder as a JAX-free artifact (ROADMAP.md)"
 _XLA_VOCODER = ("the direct-conv vocoder without the kernels (ROADMAP.md, "
                 "'approx_snake and the bf16 vocoder segment')")
+_BF16_STORAGE = "the bf16 storage dtype (ROADMAP.md, 'The bf16 storage dtype')"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {item}")
+
+
+def _is_float32(dtype) -> bool:
+    """Whether ``dtype`` names float32: ``torch.float32``, or anything numpy
+    reads as float32 (``np.float32``, ``"float32"``, JAX's ``float32``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.float32
+    try:
+        return np.dtype(dtype) == np.float32
+    except TypeError:
+        return False
 
 
 class BVRNNCodecModel:
@@ -71,6 +83,8 @@ class BVRNNCodecModel:
         approx_snake: bool | None = None,
         voc_dtype: str | None = None,
         use_pallas: bool | None = None,
+        dtype=torch.float32,
+        scan_unroll: int = 1,
     ):
         """``bvrnn_params`` / ``vocoder_params`` are port trees (see
         ``convert``); ``bvrnn_chkpt_path`` is a flat ``.npz``.  With neither
@@ -86,7 +100,17 @@ class BVRNNCodecModel:
         vocoder: as with its ``use_pallas=True``, an explicit
         ``approx_snake=True`` or any ``voc_dtype`` raises ValueError.
         use_pallas: None or True (the kernel path, the only one ported);
-        False raises NotImplementedError."""
+        False raises NotImplementedError.
+        dtype: the weights' storage type; float32 (``torch.float32``,
+        ``np.float32`` or ``"float32"``) is the one ported, any other raises
+        NotImplementedError.
+        scan_unroll: the reference's ``lax.scan`` unroll factor, an int
+        >= 1; it changes only scheduling there, and nothing in the port."""
+        if not _is_float32(dtype):
+            raise _not_ported(f"dtype={dtype!r}", _BF16_STORAGE)
+        if int(scan_unroll) != scan_unroll or scan_unroll < 1:
+            raise ValueError(f"scan_unroll must be an int >= 1, got {scan_unroll!r}")
+        self.dtype = torch.float32
         if use_pallas is not None and not use_pallas:
             raise _not_ported("use_pallas=False", _XLA_VOCODER)
         self.precision = resolve_precision(precision)

@@ -6,6 +6,8 @@ goes to ``bvsc_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of the source and the flags, so a changed source is rebuilt and an
 unchanged one is built once per checkout.  Nothing is built at import: the
 first launch builds, or :func:`load_all` builds every source at once.
+:func:`compile_files` builds any source file the same way, such as a
+benchmark's copy of a kernel with one change.
 """
 
 from __future__ import annotations
@@ -40,46 +42,55 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+    """The library built from ``csrc/<name>.cu``."""
+    return library_for(os.path.join(CSRC, f"{name}.cu"))
+
+
+def library_for(source: str) -> str:
+    """The library built from the CUDA source file ``source``, named by a
+    hash of its text and the flags."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 
 
-def _compile(names) -> None:
-    """Start one nvcc for each of ``names`` whose library is missing, all
-    together, and wait for every one of them; raise if any failed."""
-    missing = [name for name in names if not os.path.exists(library_path(name))]
+def compile_files(sources) -> list[str]:
+    """Start one nvcc for each source file whose library is missing, all
+    together, and wait for every one of them; raise if any failed.
+    Returns the libraries' paths."""
+    outs = [library_for(src) for src in sources]
+    missing = [(src, out) for src, out in zip(sources, outs) if not os.path.exists(out)]
     if not missing:
-        return
+        return outs
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = []
-    for name in missing:
-        out = library_path(name)
+    for src, out in dict(missing).items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started.append((name, out, tmp, proc))
+        started.append((src, out, tmp, proc))
     failed = []
-    for name, out, tmp, proc in started:
+    for src, out, tmp, proc in started:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, and load it."""
-    _compile([name])
-    return ctypes.CDLL(library_path(name))
+    return ctypes.CDLL(compile_files([os.path.join(CSRC, f"{name}.cu")])[0])
 
 
 def load_all() -> dict[str, ctypes.CDLL]:
     """Build every source under ``csrc/`` (one nvcc each, run in parallel)
     and load them all."""
-    _compile(sources())
+    compile_files([os.path.join(CSRC, f"{name}.cu") for name in sources()])
     return {name: load(name) for name in sources()}

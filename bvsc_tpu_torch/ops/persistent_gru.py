@@ -1,4 +1,4 @@
-"""A persistent GRU recurrence: CUDA kernel, plain and partitioned versions,
+"""A persistent GRU recurrence: CUDA kernel, plain and tiled versions,
 and the torch scans it is measured against.
 
 Replaces the Pallas TPU kernel ``persistent_kernel`` of
@@ -13,8 +13,12 @@ then the GRU update in float32 (gates packed [r | z | n]).
   only CPU tensors take the plain version.  ``persistent_gru.launches``
   counts the launches.
 * :func:`persistent_gru_plain` is the TPU kernel's arithmetic step by step.
-* :func:`persistent_gru_partitioned` splits the hidden units over blocks as
-  the kernel does (:func:`plan`), so the CPU tests prove its column gather.
+* :func:`persistent_gru_tiled` walks the kernel's schedule (:func:`plan`):
+  the units split over blocks, each block's row tiles ``[r | z]`` and
+  ``[n | 0]`` over the stacked contraction ``[h | xc | h]``, its k-steps
+  split over the warps of W_ih's part and of W_hh's, each 16-deep slab
+  formed from zero and the sums added in the kernel's order, int8 widened
+  once; the CPU tests prove it.
 * :func:`scan`, :func:`quantize` and :func:`scan_int8` are the probe's
   variants A-C (``scan_fn``, ``quantize``, ``scan_int8``): plain PyTorch
   products, as the JAX probe leaves them to XLA.
@@ -27,15 +31,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bvsc_tpu_torch.ops import _build
 
-LANES = 8  # rows of h the kernel runs (the probe's LANES)
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-MAX_UNITS = 12  # hidden units per block: at most 384 threads
+LANES = 8  # rows of h the kernel runs (the probe's LANES): the mma's N
+MAX_UNITS = 8  # hidden units per block: [r | z] is one m16 tile
+KSTEPS = 8  # 16-deep k-steps a warp holds in registers
+IH_WARPS, HH_WARPS = 16, 8  # warps over W_ih's 2H and W_hh's H: H <= 1024
+WARPS = IH_WARPS + HH_WARPS
+RED_ROWS = 3 * MAX_UNITS  # a warp's sums: r, z and n of 8 units
+MAX_H = 16 * KSTEPS * HH_WARPS
 
 
 def gru_math(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -91,36 +100,94 @@ def persistent_gru_plain(wi, wh, bi, bh, xc, h0, steps: int, dequant: bool = Fal
     return h
 
 
-def plan(H: int, n_sm: int, dequant: bool = False) -> tuple[int, int, int]:
-    """The kernel's launch plan for a card with ``n_sm`` SMs: units per
-    block (ceil(H / n_sm)), blocks, and shared-memory bytes per block (3U
-    weight columns of W_ih and W_hh, and the bf16 x)."""
+class Plan(NamedTuple):
+    """The kernel's launch plan (``csrc/persistent_gru.cu``), the same for
+    both weight types."""
+
+    units: int  # hidden units per block, ceil(H / SMs)
+    blocks: int
+    smem: int  # shared-memory bytes per block: x and the warps' partial sums
+    threads: int
+    ksteps: int  # k-steps per warp
+    scratch: int  # bytes: the published bf16 h (two copies) and the step counter
+
+
+def plan(H: int, n_sm: int, dequant: bool = False) -> Plan:
+    """The kernel's launch plan for a card with ``n_sm`` SMs.  ``dequant``
+    changes nothing: int8 weights are widened to bf16 as they are staged."""
+    del dequant
     units = -(-H // n_sm)
-    blocks = -(-H // units)
-    smem = (1 if dequant else 2) * 3 * units * 3 * H + 2 * LANES * 2 * H
-    return units, blocks, smem
+    return Plan(units=units, blocks=-(-H // units),
+                smem=2 * LANES * (2 * H + 8) + 4 * WARPS * RED_ROWS * LANES,
+                threads=32 * WARPS, ksteps=KSTEPS, scratch=2 * 2 * LANES * H + 128)
 
 
-def persistent_gru_partitioned(wi, wh, bi, bh, xc, h0, steps: int, units: int,
-                               dequant: bool = False):
-    """The kernel's partition in torch: block b owns hidden units
-    [b U, (b + 1) U) and gathers their 3U gate columns [r | z | n] out of the
-    packed 3H, computes its gate sums from the whole of x and writes its
-    units of the next h."""
+def check_shape(H: int, units: int) -> None:
+    """Raises unless the kernel takes hidden size ``H`` at ``units`` units
+    a block: its warps hold whole runs of 8 k-steps of at most 1024."""
+    if H % 64 or H > MAX_H or units > MAX_UNITS:
+        raise ValueError(f"the kernel takes H % 64 == 0, H <= {MAX_H} and at most {MAX_UNITS} "
+                         f"units a block; got H = {H}, {units} units")
+
+
+def block_units(H: int, units: int) -> list[range]:
+    """The hidden units each block owns: ``units`` consecutive ones, the
+    last block ragged where ``units`` does not divide H."""
+    return [range(u0, min(H, u0 + units)) for u0 in range(0, H, units)]
+
+
+def _row_tiles(w: torch.Tensor, H: int, j: torch.Tensor) -> torch.Tensor:
+    """One block's A (32, 3H) over the stacked contraction [h | xc | h]:
+    rows 0-7 the r columns of units ``j``, 8-15 the z columns, 16-23 the
+    n columns (tiles [r | z] and [n | 0]); rows past ``len(j)`` and rows
+    24-31 zero.  ``w`` is [W_ih; W_hh] (3H, 3H)."""
+    a = torch.zeros(4 * MAX_UNITS, 3 * H)
+    n = len(j)
+    for gate in range(3):
+        a[gate * MAX_UNITS:gate * MAX_UNITS + n] = w[:, gate * H + j].T
+    return a
+
+
+def persistent_gru_tiled(wi, wh, bi, bh, xc, h0, steps: int, units: int, dequant: bool = False):
+    """The kernel's schedule in torch: block b owns the units
+    ``block_units(H, units)[b]`` and holds their row tiles (int8 widened
+    once); each step every block forms ``A . [bf16(h) | bf16(xc) | bf16(h)]^T``
+    as the kernel's warps do: 16 warps over W_ih's 2H and 8 over W_hh's H,
+    8 k-steps each, each adding its 16-deep slabs' products (each from
+    zero) in k order; then gi's warps' sums in warp order, and gh's; then
+    the biases and the GRU as the plain version applies them.  Every unit
+    of the next h is written by exactly one block."""
     _check(wi, wh, bi, bh, xc, h0, steps, dequant)
     H = h0.shape[-1]
-    wif, whf = wi.float(), wh.float()
+    check_shape(H, units)
+    owned = block_units(H, units)
+    w = torch.cat([wi.float(), wh.float()])  # bf16 and int8 values are exact in float32
+    a = torch.stack([_row_tiles(w, H, torch.tensor(list(r))) for r in owned])
+    ks = 3 * H // 16
+    slabs = a.view(len(owned), 4 * MAX_UNITS, ks, 16)
+    ih = 2 * H // 16  # W_ih's k-steps, then W_hh's; W_hh's last warp may hold 4
+    warps = [range(k0, min(k0 + KSTEPS, end)) for start, end in ((0, ih), (ih, ks))
+             for k0 in range(start, end, KSTEPS)]
     xcb = _bf16(xc)
     h = h0
     for _ in range(steps):
         hb = _bf16(h)
-        x = torch.cat([hb, xcb], dim=-1)
-        nxt = torch.empty_like(h)
-        for u0 in range(0, H, units):
-            j = torch.arange(u0, min(H, u0 + units), device=h.device)
+        x = torch.cat([hb, xcb, hb], dim=-1).view(LANES, ks, 16)
+        prods = torch.einsum("bmsk,lsk->sbml", slabs, x)  # each slab from zero
+        total = torch.zeros(2, len(owned), 4 * MAX_UNITS, LANES)  # gi's sums, gh's
+        for kr in warps:
+            acc = torch.zeros_like(total[0])
+            for s in kr:
+                acc = acc + prods[s]
+            part = 0 if kr[0] < ih else 1
+            total[part] = total[part] + acc
+        nxt = torch.full_like(h, float("nan"))
+        for blk, r in enumerate(owned):
+            j = torch.tensor(list(r))
+            rows = torch.cat([torch.arange(len(j)) + gate * MAX_UNITS for gate in range(3)])
             cols = torch.cat([j, H + j, 2 * H + j])
-            gi = x @ wif[:, cols] + bi[:, cols]
-            gh = hb @ whf[:, cols] + bh[:, cols]
+            gi = total[0, blk, rows].T + bi[:, cols]
+            gh = total[1, blk, rows].T + bh[:, cols]
             nxt[:, j] = gru_math(gi, gh, h[:, j])
         h = nxt
     return h
@@ -182,9 +249,8 @@ def scan_int8(wi_q, wi_s, wh_q, wh_s, bi, bh, xconst, h0, steps: int):
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("persistent_gru")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a build of ``csrc/persistent_gru.cu``."""
     lib.persistent_gru.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.persistent_gru.restype = ctypes.c_int
     lib.persistent_gru_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -192,14 +258,35 @@ def _lib():
     return lib
 
 
-def kernel_plan(device: torch.device, H: int, dequant: bool = False) -> tuple[int, int, int]:
+@functools.cache
+def _lib():
+    return bind(_build.load("persistent_gru"))
+
+
+def kernel_plan(device: torch.device, H: int, dequant: bool = False) -> Plan:
     """The plan the kernel computes on ``device``'s card (see :func:`plan`)."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * len(Plan._fields))()
     with torch.cuda.device(device):
         err = _lib().persistent_gru_plan(H, int(dequant), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"persistent_gru_plan failed: CUDA error {err}")
-    return tuple(out)
+    return Plan(*out)
+
+
+def launch(lib: ctypes.CDLL, wi, wh, bi, bh, xc, h0, steps: int, dequant: bool,
+           scratch: torch.Tensor) -> torch.Tensor:
+    """One launch of the build ``lib`` (see :func:`bind`) on checked CUDA
+    tensors, with ``scratch`` as its scratch buffer; returns the output."""
+    out = torch.empty_like(h0)
+    with torch.cuda.device(h0.device):
+        err = lib.persistent_gru(
+            wi.data_ptr(), wh.data_ptr(), bi.data_ptr(), bh.data_ptr(), xc.data_ptr(),
+            h0.data_ptr(), scratch.data_ptr(), out.data_ptr(), h0.shape[-1], steps, int(dequant),
+            torch.cuda.current_stream(h0.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"persistent_gru kernel launch failed: CUDA error {err}")
+    return out
 
 
 def persistent_gru(wi, wh, bi, bh, xc, h0, steps: int, dequant: bool = False) -> torch.Tensor:
@@ -212,25 +299,13 @@ def persistent_gru(wi, wh, bi, bh, xc, h0, steps: int, dequant: bool = False) ->
         raise ValueError(f"persistent_gru runs on cuda or cpu, not {h0.device}")
     _check(wi, wh, bi, bh, xc, h0, steps, dequant)
     H = h0.shape[-1]
-    if H % 16:
-        raise ValueError(f"the kernel needs H % 16 == 0, got H = {H}")
     for t in (wi, wh, bi, bh, xc, h0):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("persistent_gru needs contiguous, 16-byte aligned tensors")
-    units, _, smem = kernel_plan(h0.device, H, dequant)
-    if units > MAX_UNITS or smem > SMEM_LIMIT:
-        raise ValueError(f"H = {H} needs {units} units and {smem} B of shared memory per "
-                         f"block; the kernel takes at most {MAX_UNITS} and {SMEM_LIMIT}")
-    hbuf = torch.empty(2, LANES, H, device=h0.device)
-    out = torch.empty_like(h0)
-    with torch.cuda.device(h0.device):
-        err = _lib().persistent_gru(
-            wi.data_ptr(), wh.data_ptr(), bi.data_ptr(), bh.data_ptr(), xc.data_ptr(),
-            h0.data_ptr(), hbuf.data_ptr(), out.data_ptr(), H, steps, int(dequant),
-            torch.cuda.current_stream(h0.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"persistent_gru kernel launch failed: CUDA error {err}")
+    kp = kernel_plan(h0.device, H, dequant)
+    check_shape(H, kp.units)
+    scratch = torch.empty(kp.scratch, dtype=torch.uint8, device=h0.device)
+    out = launch(_lib(), wi, wh, bi, bh, xc, h0, steps, dequant, scratch)
     persistent_gru.launches += 1
     return out
 

@@ -51,7 +51,9 @@ Phases, each printing one JSON line with its seconds:
    T = 512, 8 rows), the dot chain (M = 128, 256, 512) and the gridded dot
    (128 x 128 x 32 768, and three shapes that cut its tiles) against their
    plain versions on the probes' own inputs, and timed beside their bounds;
-   the gridded dot also beside ``torch.mm``, with the L2 warm (replayed
+   the persistent GRU also at T = 64 (``us_per_step``: the slope from 64
+   to 512 steps) with its plan as its build reports it; the gridded dot
+   also beside ``torch.mm``, with the L2 warm (replayed
    back-to-back calls) and cold (flushed before each call), and its plan
    as its build reports it: one block on each of the card's SMs.
 
@@ -72,7 +74,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
-from bvsc_tpu_torch.benchmarks import cold_ms, cuda_ms, graph_ms, k1_tiles, seeded_vocoder
+from bvsc_tpu_torch.benchmarks import cold_ms, cuda_ms, graph_ms, gru_steps, k1_tiles, seeded_vocoder
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
@@ -587,15 +589,18 @@ def gru_kernel(launches: int) -> dict:
         run = lambda: PG.persistent_gru(*w, *rest, T, dequant=dequant)  # noqa: E731
         plain = lambda: PG.persistent_gru_plain(*w, *rest, T, dequant=dequant)  # noqa: E731
         nbytes = sum(t.numel() * t.element_size() for t in (*w, *rest)) + 4 * L * H
-        fields[dt] = {**checks, "ms": cuda_ms(run, reps=10, warmup=2),
+        ms = {T: cuda_ms(run, reps=10, warmup=2),
+              64: cuda_ms(lambda: PG.persistent_gru(*w, *rest, 64, dequant=dequant), reps=20, warmup=2)}
+        fields[dt] = {**checks, "ms": ms[T], "ms_T64": ms[64], **gru_steps.per_step(ms),
+                      "bound_us_per_step": gru_steps.step_bound_us(H),
                       "plain_ms": cuda_ms(plain, reps=3, warmup=1),
                       "plain_graph_ms": graph_ms(plain, reps=1),
                       "bound": bound(flops, nbytes, PEAK_BF16_FLOPS)}
-    emit("probe_kernel", t0, kernel="persistent_gru", H=H, T=T, lanes=L, plan=plan, sms=n_sm,
-         step_tol=GRU_STEP_TOL, tol=GRU_TOL, **fields)
+    emit("probe_kernel", t0, kernel="persistent_gru", H=H, T=T, lanes=L, plan=plan._asdict(),
+         sms=n_sm, step_tol=GRU_STEP_TOL, tol=GRU_TOL, **fields)
     bf = fields["bf16"]
     return {"name": "persistent_gru", "route": "cuda", "source": "bvsc_tpu_torch/csrc/persistent_gru.cu",
-            "replaces": "benchmarks/probe_persistent_gru.py:133", "launches": launches,
+            "replaces": "benchmarks/probe_persistent_gru.py:135", "launches": launches,
             "max_abs_err": bf["direct"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound"][0], "bound_by": bf["bound"][1], "library_ms": None}
 

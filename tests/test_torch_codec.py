@@ -8,6 +8,7 @@ import os
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -30,19 +31,34 @@ BUCKET = 16
 
 
 @pytest.fixture(scope="module")
-def codecs():
+def trees():
+    """The JAX config and numpy weight trees both codecs are built from."""
     jconf = JCodecConfig(**SMALL)
     bcfg = jb.BVRNNConfig(x_dim=80, h_dim=SMALL["h_dim"], z_dim=SMALL["z_dim"])
     mean_std = (np.random.default_rng(1).standard_normal(80) * 0.5 - 4.0,
                 np.abs(np.random.default_rng(2).standard_normal(80)) + 1.0)
     btree = jax.tree.map(np.asarray, jb.init_bvrnn_params(jax.random.key(0), bcfg, mean_std))
     vtree = perturbed_generator_params(jconf.vocoder_config, seed=3)
-    jc = JCodec(config=jconf, bvrnn_params=jax.tree.map(jax.numpy.asarray, btree),
-                vocoder_params=jax.tree.map(jax.numpy.asarray, vtree), length_bucket=BUCKET)
-    tc = BVRNNCodecModel(config=CodecConfig(**SMALL), bvrnn_params=bvrnn_params_from_jax(btree),
-                         vocoder_params=vocoder_params_from_jax(vtree), length_bucket=BUCKET,
-                         device="cpu")
-    return jc, tc
+    return jconf, btree, vtree
+
+
+def _jax_codec(trees, **kwargs):
+    jconf, btree, vtree = trees
+    return JCodec(config=jconf, bvrnn_params=jax.tree.map(jax.numpy.asarray, btree),
+                  vocoder_params=jax.tree.map(jax.numpy.asarray, vtree), length_bucket=BUCKET,
+                  **kwargs)
+
+
+def _port_codec(trees, **kwargs):
+    _, btree, vtree = trees
+    return BVRNNCodecModel(config=CodecConfig(**SMALL), bvrnn_params=bvrnn_params_from_jax(btree),
+                           vocoder_params=vocoder_params_from_jax(vtree), length_bucket=BUCKET,
+                           device="cpu", **kwargs)
+
+
+@pytest.fixture(scope="module")
+def codecs(trees):
+    return _jax_codec(trees), _port_codec(trees)
 
 
 @pytest.fixture(scope="module")
@@ -132,3 +148,32 @@ def test_default_device_is_cuda():
         pytest.skip("a card is present; the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BVRNNCodecModel(config=CodecConfig(**SMALL))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, np.float32, "float32", jnp.float32])
+def test_reference_constructor_knobs(trees, codecs, x, dtype):
+    """The reference's ``dtype=float32`` and ``scan_unroll=`` (scheduling
+    only there): the port takes them and its output does not change."""
+    _, tc = codecs
+    tc2 = _port_codec(trees, scan_unroll=2, dtype=dtype)
+    assert tc2.dtype == torch.float32
+    np.testing.assert_array_equal(tc2(x, 3000).numpy(), tc(x, 3000).numpy())
+
+
+def test_scan_unroll_codes_match_reference_constructor(trees, x):
+    """Both constructors called with the same arguments give the same codes."""
+    kwargs = {"scan_unroll": 2, "dtype": jnp.float32}
+    ref = np.asarray(_jax_codec(trees, **kwargs).encode(x, 3000))
+    np.testing.assert_array_equal(_port_codec(trees, **kwargs).encode(x, 3000).numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, jnp.bfloat16, np.float16, "bfloat16"])
+def test_other_storage_dtypes_raise(dtype):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, 'The bf16 storage dtype'"):
+        BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", dtype=dtype)
+
+
+@pytest.mark.parametrize("scan_unroll", [0, -1, 1.5])
+def test_bad_scan_unroll_raises(scan_unroll):
+    with pytest.raises(ValueError, match="scan_unroll"):
+        BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", scan_unroll=scan_unroll)

@@ -1,4 +1,4 @@
-"""The persistent-GRU kernel's plain and partitioned versions
+"""The persistent-GRU kernel's plain and tiled versions
 (bvsc_tpu_torch.ops.persistent_gru) against the JAX probe
 ``benchmarks/probe_persistent_gru.py``: its Pallas kernel
 ``persistent_kernel`` in interpret mode, bf16 and int8 (``dequant``), and
@@ -116,12 +116,13 @@ def test_plain_matches_pallas(inputs, pallas_out, dequant, steps):
 @pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("dequant", [False, True], ids=["bf16", "int8"])
 def test_partitioned_matches_pallas(inputs, pallas_out, dequant, steps, n_sm):
-    """The kernel's column gather, for the plans of cards with n_sm SMs."""
-    units, blocks, _ = PG.plan(H, n_sm, dequant)
-    assert blocks <= n_sm
+    """The kernel's column gather and tiles (:func:`persistent_gru_tiled`),
+    for the plans of cards with n_sm SMs."""
+    kp = PG.plan(H, n_sm, dequant)
+    assert kp.blocks <= n_sm and kp.units <= PG.MAX_UNITS
     _, (wi, wh) = _weights(inputs, dequant)
-    got = PG.persistent_gru_partitioned(wi, wh, *_rest(inputs), steps, units,
-                                        dequant=dequant).numpy()
+    got = PG.persistent_gru_tiled(wi, wh, *_rest(inputs), steps, kp.units,
+                                  dequant=dequant).numpy()
     np.testing.assert_allclose(got, pallas_out[dequant, steps], rtol=0, atol=tol(steps))
 
 
@@ -158,12 +159,73 @@ def test_scan_int8_matches_probe(probe, inputs):
 
 
 def test_plan_fits_an_h100():
-    """H = 1024 on 132 SMs: 128 blocks of 8 units, in bf16 147 456 B of
-    weights plus 32 KB of x per block; a 114-SM card takes 9 units."""
-    assert PG.plan(1024, 132) == (8, 128, 147_456 + 32_768)
-    assert PG.plan(1024, 132, dequant=True) == (8, 128, 73_728 + 32_768)
-    units, blocks, smem = PG.plan(1024, 114)
-    assert (units, blocks) == (9, 114) and smem <= PG.SMEM_LIMIT
+    """H = 1024 on 132 SMs: 128 blocks of 8 units and 24 warps of 8
+    k-steps (16 over W_ih's 2H, 8 over W_hh's H), the same plan for both
+    weight types (int8 is widened as it is staged into registers); shared
+    memory holds x (8 rows of 2H + 8 bf16) and the 24 warps' 24 x 8 partial
+    sums.  A 114-SM card would need 9 units a block, more than an m16 tile
+    of [r | z] holds."""
+    assert PG.plan(1024, 132) == (8, 128, 32_896 + 18_432, 768, 8, 32_768 + 128)
+    assert PG.plan(1024, 132, dequant=True) == PG.plan(1024, 132)
+    assert PG.plan(1024, 114).units == 9 > PG.MAX_UNITS
+    assert PG.IH_WARPS * PG.KSTEPS * 16 == 2 * PG.MAX_H and PG.HH_WARPS * PG.KSTEPS * 16 == PG.MAX_H
+    with pytest.raises(ValueError, match="units"):
+        PG.check_shape(1024, PG.plan(1024, 114).units)
+    for bad in (1056, 2048, 96):
+        with pytest.raises(ValueError, match="H % 64"):
+            PG.check_shape(bad, 8)
+
+
+@pytest.mark.parametrize("n_sm", [132, 12, 7, 8])
+@pytest.mark.parametrize("H_", [64, 1024])
+def test_every_unit_written_by_one_block(H_, n_sm):
+    """The blocks' units cover h once each, the last block ragged where
+    the units do not divide H."""
+    units = PG.plan(H_, n_sm).units
+    owned = PG.block_units(H_, units)
+    assert len(owned) == PG.plan(H_, n_sm).blocks
+    counts = np.bincount(np.concatenate([list(r) for r in owned]), minlength=H_)
+    assert counts.shape == (H_,) and (counts == 1).all()
+    assert all(len(r) == units for r in owned[:-1]) and 1 <= len(owned[-1]) <= units
+
+
+@pytest.mark.parametrize("units", [8, 6, 3, 1], ids=["U8", "U6-ragged", "U3-ragged", "U1"])
+@pytest.mark.parametrize("steps", STEPS)
+@pytest.mark.parametrize("dequant", [False, True], ids=["bf16", "int8"])
+def test_tiled_matches_plain(inputs, dequant, steps, units):
+    """The kernel's schedule against the plain steps: only the order of
+    the float32 sums differs."""
+    _, (wi, wh) = _weights(inputs, dequant)
+    rest = _rest(inputs)
+    got = PG.persistent_gru_tiled(wi, wh, *rest, steps, units, dequant=dequant)
+    assert torch.isfinite(got).all()
+    ref = PG.persistent_gru_plain(wi, wh, *rest, steps, dequant=dequant)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=tol(steps))
+
+
+def test_tiled_row_tiles_hold_the_gates():
+    """Row tile layout over the stacked contraction: [r | z] in rows 0-15,
+    [n | 0] in rows 16-31, and zero rows past the block's units."""
+    Hs = 32
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((3 * Hs, 3 * Hs)).astype(np.float32))
+    j = torch.tensor([5, 6, 7])
+    a = PG._row_tiles(w, Hs, j)
+    assert a.shape == (4 * PG.MAX_UNITS, 3 * Hs)
+    assert torch.equal(a[1], w[:, 6]) and torch.equal(a[9], w[:, Hs + 6])
+    assert torch.equal(a[17], w[:, 2 * Hs + 6])
+    for lo in (3, 11, 19):
+        assert not a[lo:lo + 5].any()
+    assert not a[24:].any()
+
+
+def test_tiled_refuses_what_the_kernel_refuses(inputs):
+    _, (wi, wh) = _weights(inputs, False)
+    with pytest.raises(ValueError, match="units"):
+        PG.persistent_gru_tiled(wi, wh, *_rest(inputs), 1, PG.MAX_UNITS + 1)
+    with pytest.raises(ValueError, match="H % 64"):
+        PG.persistent_gru_tiled(wi[:96, :144], wh[:48, :144], *(t[..., :144] for t in _rest(inputs)[:2]),
+                                *(t[..., :48] for t in _rest(inputs)[2:]), 1, 8)
 
 
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing(inputs, pallas_out):
