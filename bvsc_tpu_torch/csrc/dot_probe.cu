@@ -1,23 +1,51 @@
 // The two matrix-unit probes of benchmarks/probe_roofline.py on the H100's
-// tensor cores, for sm_90a, with mma.sync.aligned.m16n8k16 (bf16 operands,
-// f32 accumulation).  No library GEMM is called.
+// tensor cores, for sm_90a: bf16 operands, f32 accumulation, the chain on
+// wgmma and the gridded product on mma.sync.  No library GEMM is called.
 //
 // dot_chain_bf16 replaces the Pallas kernel `k` built by mk_kernel(M)
 // (probe_roofline.py:20-32): out = sum over `reps` of w @ x, w (M, 128) and
-// x (128, N) bf16, out f32, as a serial chain into one accumulator.  The
-// Pallas kernel multiplies w by s = bf16(acc[0, 0] * 0 + 1) before each
-// product only to make each product depend on the last accumulator; s is
-// exactly 1 for finite input, so it is dropped here.  What stays is
-// `acc += dot(w, x)`: each product is formed on the tensor cores from a
-// zero accumulator over its 8 k-steps, then added into the running f32
-// accumulator, 64 dependent additions in order.  (Running all 512 k-steps
-// straight into one tensor-core accumulator instead drifts further from the
-// plain version: the tensor cores' f32 accumulation does not round to
-// nearest.)
-// Each warp owns a 16 x 16 output tile and loads its operands once from
-// device memory into registers (w's 16 x 128 rows as A fragments, x's
-// 128 x 16 columns as B fragments).  What bounds it: the operations,
-// 2 M 128 N reps FLOP.
+// x (128, N) bf16, out f32.  The Pallas kernel multiplies w by
+// s = bf16(acc[0, 0] * 0 + 1) before each product only to make each product
+// depend on the last accumulator; s is exactly 1 for finite input, so it is
+// dropped here.  What stays is `acc += dot(w, x)`: each product is formed on
+// the tensor cores from a zero accumulator over its 8 k-steps, in k order,
+// then added into one f32 accumulator per output, in rep order.  (Running
+// all the k-steps straight into one tensor-core accumulator instead drifts
+// further from the plain version: the tensor cores' f32 accumulation does
+// not round to nearest.)  What bounds it: the operations, 2 M 128 N reps
+// FLOP (8.7 us at M = 512, N = 1024, 64 reps); its operands are 0.4 MB at
+// most, loaded once.  The first design (a warp a 16 x 16 tile, mma.sync, one
+// product at a time) waited on each product's 8 dependent k-steps: 0.12 us a
+// product at M = 128 against a bound of 0.034 (PERF.md §6).  mma.sync
+// cannot simply keep several of these products in flight: they are the same
+// instruction on the same registers, and the compiler merges them (4 in
+// flight ran 1 in 4, above the bound).  wgmma's products are asynchronous
+// and each is kept.  So:
+// - a block is one warpgroup and owns a 64 x TN output tile; it holds its
+//   64 rows of w as wgmma A fragments in registers (a warp's 16 rows each,
+//   laid out as mma.sync's) and stages x's 128 x TN tile once in shared
+//   memory as it lies in x, N-major (16-byte copies, 8 x 8 core matrices
+//   without swizzle; wgmma transposes B);
+// - a product is 8 `wgmma.mma_async` m64nTNk16 steps from a zero
+//   accumulator (scale-d = 0 on the first) in one commit group.  The
+//   products do not depend on each other, only their sum does, so
+//   kChainInFlight of them run at once, each in its own registers; the
+//   oldest is waited for (`wgmma.wait_group`) and added into the
+//   accumulator, and its registers take the next one.  Every rounding
+//   happens in the first design's order.  The loop runs passes of
+//   kChainUnroll products that end with none in flight: with products in
+//   flight across its back edge the compiler cannot tell which registers a
+//   wait frees and serialises every wgmma (ptxas C7514, C7515);
+// - TN is 8, 16, 32 or 64: the one with the least waves x TN (a block's
+//   time grows with TN, a launch takes ceil(grid / SMs) waves), the widest
+//   of equals.  At the probe's N = 1024 that is TN = 16 M / 128 for M = 128,
+//   256 and 512: 128 blocks, one on each of 128 of the H100's 132 SMs.
+// What is left (PERF.md §6): at TN = 32 and 64 a product takes ~1.1x its
+// share of the bound; at TN = 16 ~1.8x, as an m64n16k16 step takes ~15
+// cycles for 8 cycles of work (A from shared memory, or two 64 x 8 blocks an
+// SM, were slower); and ~3 us a launch of start, staging and tail.
+// Edges: rows of w past M read 0 and columns of x past N stage as 0; only
+// the part of a tile inside (M, N) is written.
 //
 // gridded_dot_bf16 replaces the Pallas kernel `k2` (probe_roofline.py:45-57):
 // out = w @ x with w (M, 128) and x (128, N) bf16, out f32.  What bounds it:
@@ -52,9 +80,14 @@
 namespace {
 
 constexpr int kK = 128;              // contraction depth of both probes
-constexpr int kKSteps = kK / 16;     // mma.sync k16 steps
-constexpr int kChainWarps = 4;       // warps per block of the chain kernel
-constexpr int kChainTilesN = 2;      // n8 tiles per warp: a 16 x 16 tile
+constexpr int kKSteps = kK / 16;     // k16 steps of one product
+constexpr int kChainTM = 64;         // chain: output tile rows, one wgmma's M
+constexpr int kChainMaxTN = 64;      // chain: widest output tile (TN = 8 .. 64)
+constexpr int kChainThreads = 128;   // chain: one warpgroup a block
+constexpr int kChainInFlight = 4;    // chain: products in flight a warpgroup
+constexpr int kChainUnroll = 16;     // chain: products a pass of the loop
+constexpr int kChainLBO = 128;       // chain: x's core matrices, bytes apart along K
+constexpr int kChainSBO = (kK / 8) * kChainLBO;  // and along N
 constexpr int kGridTM = 128;         // gridded: output tile rows (one w slab)
 constexpr int kGridTN = 64;          // gridded: output tile columns
 constexpr int kGridStages = 6;       // gridded: x stages in the ring
@@ -71,6 +104,8 @@ constexpr int kBars = 2 * kGridStages + 2;  // full and empty per stage; w full,
 constexpr int kGridSmem = 1024 + kBarOffset + 8 * kBars;
 static_assert(kGridTN % 64 == 0 && kGridTN <= 256, "x boxes are 64 columns wide");
 static_assert(kGridStages >= 2 && kGridOutBufs >= 1, "a ring needs two stages");
+static_assert(kChainInFlight <= 8 && kChainUnroll % kChainInFlight == 0,
+              "a pass fills every slot the same number of times");
 
 // d += a . b on the tensor cores: A 16 x 16 row-major, B 16 x 8
 // column-major, bf16 pairs packed low element first; D 16 x 8 f32.
@@ -81,10 +116,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
 // A fragment of rows [r0, r0 + 16) and k-step ks of the row-major (M, 128)
@@ -103,70 +134,6 @@ __device__ __forceinline__ void load_a(const uint16_t* w, int M, int r0, int ks,
   a[1] = ld(rb, c);
   a[2] = ld(ra, c + 8);
   a[3] = ld(rb, c + 8);
-}
-
-// B fragment of columns [n0, n0 + 8) and k-step ks of the row-major
-// (128, N) bf16 matrix x; lane (g, t) holds column g, rows 2t, 2t + 1 and
-// 2t + 8, 2t + 9.  Columns past N read 0.
-__device__ __forceinline__ void load_b(const uint16_t* x, int N, int n0, int ks, int lane,
-                                       uint32_t (&b)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int n = n0 + g;
-  const uint16_t* p = x + static_cast<size_t>(ks * 16 + 2 * t) * N + n;
-  if (n < N) {
-    b[0] = pack(p[0], p[N]);
-    b[1] = pack(p[8 * N], p[9 * N]);
-  } else {
-    b[0] = b[1] = 0u;
-  }
-}
-
-// Writes a 16 x 8 f32 fragment at (r0, n0) of the row-major (M, N) out.
-__device__ __forceinline__ void store_c(float* out, int M, int N, int r0, int n0, int lane,
-                                        const float (&d)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int n = n0 + 2 * t;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    if (r >= M) continue;
-    float* o = out + static_cast<size_t>(r) * N + n;
-    if (n < N) o[0] = d[2 * h];
-    if (n + 1 < N) o[1] = d[2 * h + 1];
-  }
-}
-
-__global__ void __launch_bounds__(32 * kChainWarps)
-    dot_chain_kernel(const uint16_t* w, const uint16_t* x, float* out, int M, int N, int reps) {
-  const int lane = threadIdx.x & 31;
-  const int warp = blockIdx.x * kChainWarps + threadIdx.x / 32;
-  const int tiles_n = (N + 8 * kChainTilesN - 1) / (8 * kChainTilesN);
-  const int r0 = (warp / tiles_n) * 16;
-  const int n0 = (warp % tiles_n) * 8 * kChainTilesN;
-  if (r0 >= M) return;  // warp-uniform
-
-  uint32_t a[kKSteps][4], b[kKSteps][kChainTilesN][2];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    load_a(w, M, r0, ks, lane, a[ks]);
-#pragma unroll
-    for (int nt = 0; nt < kChainTilesN; ++nt) load_b(x, N, n0 + 8 * nt, ks, lane, b[ks][nt]);
-  }
-  float acc[kChainTilesN][4] = {};
-#pragma unroll 1
-  for (int rep = 0; rep < reps; ++rep) {
-    float prod[kChainTilesN][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < kChainTilesN; ++nt) mma_bf16(prod[nt], a[ks], b[ks][nt]);
-#pragma unroll
-    for (int nt = 0; nt < kChainTilesN; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] += prod[nt][i];
-  }
-#pragma unroll
-  for (int nt = 0; nt < kChainTilesN; ++nt) store_c(out, M, N, r0, n0 + 8 * nt, lane, acc[nt]);
 }
 
 // Byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a box of
@@ -377,18 +344,294 @@ __global__ void __launch_bounds__(kGridThreads, 1)
   if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// ---- K3, the dot chain ----
+
+// One wgmma step of a warpgroup: d (64 x N f32) = a . B + (scale_d ? d : 0),
+// a 64 x 16 bf16 in registers (a warp's 16 rows, as mma.sync's A fragment),
+// B 16 x N bf16 in shared memory as the descriptor `desc` describes it; d
+// as mma.sync's C fragments, n8 tile after n8 tile.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Returns once at most `kPending` of the warpgroup's commit groups run.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+
+// wgmma_wait<pending>() for a `pending` the compiler knows (0 to 7).
+__device__ __forceinline__ void wgmma_wait_at_most(int pending) {
+  switch (pending) {
+    case 0: wgmma_wait<0>(); break;
+    case 1: wgmma_wait<1>(); break;
+    case 2: wgmma_wait<2>(); break;
+    case 3: wgmma_wait<3>(); break;
+    case 4: wgmma_wait<4>(); break;
+    case 5: wgmma_wait<5>(); break;
+    case 6: wgmma_wait<6>(); break;
+    default: wgmma_wait<7>();
+  }
+}
+
+// Pins the registers of `d` here: the compiler moves no read or write of
+// them across the wgmma issue or wait beside this point.
+template <int n>
+__device__ __forceinline__ void fence_operands(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor without swizzle: 8 x 8 core matrices of
+// 128 contiguous bytes, `lbo` bytes apart along K and `sbo` along N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// Block b owns the 64 x TN output tile (b / tiles_n, b % tiles_n); warp q
+// of its warpgroup holds rows 16 q .. 16 q + 15 of it.  Shared memory holds
+// x's tile N-major, as it lies in x: the 16 bytes x[k][n0 + 8 n8 ..
+// n0 + 8 n8 + 7] at n8 kChainSBO + (k / 8) kChainLBO + (k % 8) 16, so each
+// 8 x 8 core matrix is 8 rows of k, 128 contiguous bytes.
+template <int TN>
+__global__ void __launch_bounds__(kChainThreads, 1)
+    dot_chain_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ x,
+                     float* __restrict__ out, int M, int N, int reps, int tiles_n) {
+  constexpr int kAcc = TN / 2;  // f32 values a thread holds of a 64 x TN tile
+  __shared__ __align__(128) uint8_t xs[TN * kK * 2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = (blockIdx.x / tiles_n) * kChainTM, n0 = (blockIdx.x % tiles_n) * TN;
+
+  uint32_t a[kKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) load_a(w, M, m0 + 16 * warp, ks, lane, a[ks]);
+  for (int c = tid; c < TN * (kK / 8); c += kChainThreads) {
+    const int k = c % kK, n8 = c / kK;  // consecutive threads fill a core matrix
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n0 + 8 * n8 < N)
+      v = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(k) * N + n0 + 8 * n8));
+    *reinterpret_cast<uint4*>(xs + n8 * kChainSBO + (k >> 3) * kChainLBO + (k & 7) * 16) = v;
+  }
+  // The stores above go through the generic proxy, wgmma reads through the
+  // async one.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const uint64_t desc = smem_desc(smem_addr(xs), kChainLBO, kChainSBO);
+  // The slots' first values are never read (scale-d = 0); set here, before
+  // any wgmma, so that none of their registers is defined in flight.
+  float acc[kAcc], prod[kChainInFlight][kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    acc[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kChainInFlight; ++j) prod[j][i] = 0.f;
+  }
+  // One product into d: 8 k-steps from zero, in k order, one commit group.
+  auto issue = [&](float (&d)[kAcc]) {
+    fence_operands(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks)
+      Wgmma<TN>::run(d, a[ks], desc + ((2 * kChainLBO * ks) >> 4), ks > 0);
+    wgmma_commit();
+  };
+  // Waits until at most `pending` products run, so that the one in slot d
+  // is done, and adds it.
+  auto fold = [&](float (&d)[kAcc], int pending) {
+    wgmma_wait_at_most(pending);
+    fence_operands(d);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] += d[i];
+  };
+  // kChainUnroll products a pass, through kChainInFlight slots: product q
+  // of the pass goes to slot q % kChainInFlight once the product before it
+  // there is added.  A pass ends with nothing in flight, so the compiler can
+  // see which registers each wait frees (C7514/C7515 otherwise: it
+  // serialises every wgmma).
+  int rep = 0;
+  for (; rep + kChainUnroll <= reps; rep += kChainUnroll) {
+#pragma unroll
+    for (int q = 0; q < kChainInFlight; ++q) issue(prod[q]);
+#pragma unroll
+    for (int q = kChainInFlight; q < kChainUnroll; ++q) {
+      fold(prod[q % kChainInFlight], kChainInFlight - 1);
+      issue(prod[q % kChainInFlight]);
+    }
+#pragma unroll
+    for (int q = 0; q < kChainInFlight; ++q) fold(prod[q], kChainInFlight - 1 - q);
+  }
+  for (; rep < reps; ++rep) {  // the rest, one at a time
+    issue(prod[0]);
+    fold(prod[0], 0);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c < TN / 8; ++c) {
+    const int col = n0 + 8 * c + 2 * t;
+    if (col >= N) continue;  // N % 8 == 0: an n8 tile is all in or all out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + 16 * warp + g + 8 * h;
+      if (r < M)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + col) =
+            make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
 }  // namespace
 
-// out (M, N) f32 = reps * (w @ x) as one chain; w (M, 128), x (128, N) bf16,
-// all row-major on the device, 16-byte aligned.  Launches on `stream` (a
-// cudaStream_t) and returns the CUDA error code (0 on success).
+struct ChainPlan {
+  int tile_n, sms, tiles_n, grid;
+};
+
+// K3's launch for (M, N) on the current device: TN of 8, 16, 32 or 64 with
+// the least ceil(grid / SMs) x TN, the widest of equals (file header).
+static int chain_plan(int M, int N, ChainPlan* p) {
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices];  // 0: not asked yet
+  if (M <= 0 || N <= 0 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long tiles_m = (M + kChainTM - 1) / kChainTM;
+  long long best = -1, grid = 0;
+  for (int tn = 8; tn <= kChainMaxTN; tn *= 2) {
+    const long long tiles_n = (N + tn - 1) / tn, blocks = tiles_m * tiles_n;
+    const long long cost = (blocks + sms[dev] - 1) / sms[dev] * tn;
+    if (best < 0 || cost <= best) {
+      best = cost;
+      grid = blocks;
+      *p = {tn, sms[dev], static_cast<int>(tiles_n), 0};
+    }
+  }
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p->grid = static_cast<int>(grid);
+  return 0;
+}
+
+// K3's launch for (M, N) on the current device, as 7 ints: tile rows, tile
+// columns, warps, products in flight, shared-memory bytes, SMs and the grid.
+// Returns the CUDA error code.
+extern "C" int dot_chain_plan(int M, int N, int* out) {
+  ChainPlan c;
+  const int err = chain_plan(M, N, &c);
+  if (err != 0) return err;
+  const int plan[7] = {kChainTM, c.tile_n, kChainThreads / 32, kChainInFlight, c.tile_n * kK * 2,
+                       c.sms, c.grid};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
+  return 0;
+}
+
+// out (M, N) f32 = reps * (w @ x) as one chain; w (M, 128), x (128, N) bf16
+// with N % 8 == 0, all row-major on the device, 16-byte aligned; reps >= 1.
+// Launches on `stream` (a cudaStream_t) and returns the CUDA error code (0
+// on success).
 extern "C" int dot_chain_bf16(const void* w, const void* x, float* out, int M, int N, int reps,
                               void* stream) {
-  const long long tiles_n = (N + 8 * kChainTilesN - 1) / (8 * kChainTilesN);
-  const long long warps = ((M + 15) / 16) * tiles_n;
-  const unsigned blocks = static_cast<unsigned>((warps + kChainWarps - 1) / kChainWarps);
-  dot_chain_kernel<<<blocks, 32 * kChainWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(w), static_cast<const uint16_t*>(x), out, M, N, reps);
+  if (reps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ChainPlan c;
+  const int err = chain_plan(M, N, &c);
+  if (err != 0) return err;
+  const auto* wp = static_cast<const uint16_t*>(w);
+  const auto* xp = static_cast<const uint16_t*>(x);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (c.tile_n) {
+    case 8:
+      dot_chain_kernel<8><<<c.grid, kChainThreads, 0, s>>>(wp, xp, out, M, N, reps, c.tiles_n);
+      break;
+    case 16:
+      dot_chain_kernel<16><<<c.grid, kChainThreads, 0, s>>>(wp, xp, out, M, N, reps, c.tiles_n);
+      break;
+    case 32:
+      dot_chain_kernel<32><<<c.grid, kChainThreads, 0, s>>>(wp, xp, out, M, N, reps, c.tiles_n);
+      break;
+    default:
+      dot_chain_kernel<64><<<c.grid, kChainThreads, 0, s>>>(wp, xp, out, M, N, reps, c.tiles_n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

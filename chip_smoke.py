@@ -52,7 +52,10 @@ Phases, each printing one JSON line with its seconds:
    (128 x 128 x 32 768, and three shapes that cut its tiles) against their
    plain versions on the probes' own inputs, and timed beside their bounds;
    the persistent GRU also at T = 64 (``us_per_step``: the slope from 64
-   to 512 steps) with its plan as its build reports it; the gridded dot
+   to 512 steps) with its plan as its build reports it; the dot chain also
+   at three shapes that cut its tiles and with 1 and 3 products, with its
+   plan as its build reports it, each M's share of its bound, and
+   ``torch.mm`` over the stacked contraction as its yardstick; the gridded dot
    also beside ``torch.mm``, with the L2 warm (replayed
    back-to-back calls) and cold (flushed before each call), and its plan
    as its build reports it: one block on each of the card's SMs.
@@ -74,7 +77,8 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
-from bvsc_tpu_torch.benchmarks import cold_ms, cuda_ms, graph_ms, gru_steps, k1_tiles, seeded_vocoder
+from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, gru_steps, k1_tiles,
+                                        seeded_vocoder)
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
@@ -120,6 +124,10 @@ GRU_STEP_TOL = 1e-5
 # rounding (~1e-3) moves the gates that are not saturated.
 GRU_TOL = 2e-2
 CHAIN_RTOL = 1e-5  # of max |out|: 64 float32 additions in another order
+# Shapes that cut K3's 64-row tiles and its column tiles, by one row and 8
+# columns, and fit inside one tile; products that fill no pass of its loop.
+CHAIN_RAGGED = ((40, 200), (65, 1032), (1, 8))
+CHAIN_REPS = (1, 3)
 GRIDDED_TOL = 1e-4  # one product, K = 128 in float32
 # Shapes that cut K4's 128-row tiles and its column tiles at both edges, by
 # one row and 8 columns, and fit inside one tile.
@@ -613,34 +621,53 @@ def ragged_bf16(M: int, N: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def chain_kernel(launches: int, chain: dict) -> dict:
-    """K3 at M = 128, 256, 512 (and a ragged shape for the masks) against
-    its plain version, timed on the device; returns its kernels entry."""
+    """K3 at M = 128, 256, 512 and at shapes that cut its tiles, with the
+    probe's 64 products and with 1 and 3, against its plain version; its
+    plan, as its build reports it, equal to ``DP.chain_plan``; timed on the
+    device beside ``torch.mm`` over the stacked contraction (K = 128 x 64,
+    the same sum in one call).  Returns its kernels entry."""
     t0 = time.time()
-    per_m, tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
-    for M, (w, x) in [*chain.items(), ("ragged", ragged_bf16(40, 200, SEED))]:
-        ref = DP.dot_chain_plain(w, x)
-        rel = max_err(DP.dot_chain(w, x), ref) / ref.abs().max().item()
-        check(f"dot_chain M={M}", rel, CHAIN_RTOL)
-        if M == "ragged":
-            per_m[M] = {"shape": [w.shape[0], x.shape[1]], "rel_err": rel}
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    per_m = {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0}
+    ragged = {f"{M}x{N}": ragged_bf16(M, N, SEED + i) for i, (M, N) in enumerate(CHAIN_RAGGED)}
+    for M, (w, x) in [*chain.items(), *ragged.items()]:
+        rel = {}
+        for reps in (DP.REPS, *CHAIN_REPS):
+            ref = DP.dot_chain_plain(w, x, reps)
+            rel[reps] = check(f"dot_chain M={M} reps={reps}",
+                              max_err(DP.dot_chain(w, x, reps), ref) / ref.abs().max().item(),
+                              CHAIN_RTOL)
+        if isinstance(M, str):
+            per_m[M] = {"rel_err": rel}
             continue
-        nbytes = 2 * (w.numel() + x.numel()) + 4 * M * x.shape[1]
-        b = bound(probe_roof.chain_flops(M, x.shape[1]), nbytes, PEAK_BF16_FLOPS)
-        per_m[M] = {"rel_err": rel, "abs_err": rel * ref.abs().max().item(),
+        N = x.shape[1]
+        plan = DP.dot_chain_plan(M, N)
+        if plan != DP.chain_plan(M, N, sms):
+            raise AssertionError(f"dot_chain plan {plan} != {DP.chain_plan(M, N, sms)} "
+                                 f"for {sms} SMs")
+        ref = DP.dot_chain_plain(w, x)
+        library = chain_steps.library(w, x)
+        nbytes = 2 * (w.numel() + x.numel()) + 4 * M * N
+        b = bound(probe_roof.chain_flops(M, N), nbytes, PEAK_BF16_FLOPS)
+        per_m[M] = {"rel_err": rel, "abs_err": rel[DP.REPS] * ref.abs().max().item(), "plan": plan,
                     "ms": graph_ms(lambda: DP.dot_chain(w, x)),
                     "call_ms": cuda_ms(lambda: DP.dot_chain(w, x)),
                     "plain_ms": graph_ms(lambda: DP.dot_chain_plain(w, x)),
                     "plain_call_ms": cuda_ms(lambda: DP.dot_chain_plain(w, x)),
+                    "library_ms": graph_ms(library),
+                    "library_rel_err": max_err(library(), ref) / ref.abs().max().item(),
                     "bound_ms": b[0], "bound_by": b[1]}
-        tot["ms"] += per_m[M]["ms"]
-        tot["plain_ms"] += per_m[M]["plain_ms"]
-        tot["bound_ms"] += b[0]
+        per_m[M]["share_of_bound"] = b[0] / per_m[M]["ms"]
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            tot[key] += per_m[M][key]
         tot["err"] = max(tot["err"], per_m[M]["abs_err"])
-    emit("probe_kernel", t0, kernel="dot_chain", rtol=CHAIN_RTOL, **{str(k): v for k, v in per_m.items()})
+    emit("probe_kernel", t0, kernel="dot_chain", rtol=CHAIN_RTOL, sms=sms,
+         share_of_bound=tot["bound_ms"] / tot["ms"], **{str(k): v for k, v in per_m.items()})
     return {"name": "dot_chain", "route": "cuda", "source": "bvsc_tpu_torch/csrc/dot_probe.cu",
             "replaces": "benchmarks/probe_roofline.py:20", "launches": launches,
             "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": "operations", "library_ms": None}
+            "bound_ms": tot["bound_ms"], "bound_by": "operations", "library_ms": tot["library_ms"]}
 
 
 def gridded_kernel(launches: int, operands) -> dict:

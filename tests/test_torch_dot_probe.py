@@ -40,6 +40,13 @@ SCHEDULE_GRIDS = (1, 7, 132)
 SCHEDULE_SHAPES = ((128, 4 * 512), (200, 1000), (129, 4104), (40, 8))
 TILE_M = 128  # output tile rows: one slab of w
 TILE_NS = (64, 128)  # output tile columns the kernel's build may take
+# The chain kernel's schedule: the probe's three shapes, and shapes that cut
+# its 64-row tiles and its column tiles, by one row and 8 columns, or fit
+# inside one tile; products that are and are not multiples of those in
+# flight.
+H100_SMS = 132
+CHAIN_SHAPES = ((128, 1024), (256, 1024), (512, 1024), (40, 200), (65, 1032), (1, 8))
+CHAIN_RAGGED_REPS = (1, 3, 5, 19)  # 19: a pass of the kernel's loop and 3 more
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +93,66 @@ def test_dot_chain_plain_matches_pallas(probe, M):
         interpret=True)(wj, xj))
     got = DP.dot_chain_plain(w, x).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=CHAIN_RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("M", [16, 48])
+def test_dot_chain_tiled_matches_pallas(probe, M):
+    rng = np.random.default_rng(M)
+    (w, wj), (x, xj) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N_CHAIN))
+    ref = np.asarray(pl.pallas_call(
+        probe["mk_kernel"](M), out_shape=jax.ShapeDtypeStruct((M, N_CHAIN), jnp.float32),
+        interpret=True)(wj, xj))
+    got = DP.dot_chain_tiled(w, x, DP.chain_plan(M, N_CHAIN, H100_SMS)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=CHAIN_RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("tile_n", DP.CHAIN_TILE_NS)
+@pytest.mark.parametrize("M", [16, 48])
+def test_dot_chain_tiled_matches_plain(M, tile_n):
+    rng = np.random.default_rng(M + tile_n)
+    (w, _), (x, _) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N_CHAIN))
+    plan = {**DP.chain_plan(M, N_CHAIN, H100_SMS), "tile_n": tile_n}
+    plan["grid"] = -(-M // plan["tile_m"]) * -(-N_CHAIN // tile_n)
+    ref = DP.dot_chain_plain(w, x)
+    got = DP.dot_chain_tiled(w, x, plan)
+    assert (got - ref).abs().max().item() <= CHAIN_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("M,N", CHAIN_SHAPES)
+def test_dot_chain_tiled_writes_every_element_once(M, N):
+    rng = np.random.default_rng(M + N)
+    (w, _), (x, _) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N))
+    writes = torch.zeros(M, N, dtype=torch.int32)
+    out = DP.dot_chain_tiled(w, x, DP.chain_plan(M, N, H100_SMS), reps=2, writes=writes)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert not out.isnan().any()
+
+
+@pytest.mark.parametrize("reps", CHAIN_RAGGED_REPS)
+@pytest.mark.parametrize("M,N", [(40, 200), (65, 1032), (1, 8)])
+def test_dot_chain_tiled_products_not_a_multiple_in_flight(M, N, reps):
+    plan = DP.chain_plan(M, N, H100_SMS)
+    assert reps % plan["in_flight"]
+    rng = np.random.default_rng(reps)
+    (w, _), (x, _) = _bf16(rng, (M, DP.K)), _bf16(rng, (DP.K, N))
+    ref = DP.dot_chain_plain(w, x, reps)
+    got = DP.dot_chain_tiled(w, x, plan, reps)
+    assert (got - ref).abs().max().item() <= CHAIN_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("M", [128, 256, 512])
+def test_chain_plan_fills_the_card(M):
+    """128 blocks of 64 x (16 M / 128), one on each of 128 of 132 SMs."""
+    plan = DP.chain_plan(M, 1024, H100_SMS)
+    assert plan["tile_n"] == 16 * M // 128 and plan["tile_m"] == 64
+    assert 128 <= plan["grid"] <= H100_SMS
+    assert plan["smem_bytes"] == plan["tile_n"] * DP.K * 2
+
+
+@pytest.mark.parametrize("M,N", [(0, 1024), (128, 0), (128, 12), (-1, 8)])
+def test_chain_plan_refuses_what_the_kernel_refuses(M, N):
+    with pytest.raises(ValueError, match="N % 8"):
+        DP.chain_plan(M, N, H100_SMS)
 
 
 def test_gridded_dot_plain_matches_pallas(probe):
@@ -168,12 +235,15 @@ def _on_card(M, N, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N", [(128, 1024), (40, 200)])
-def test_dot_chain_on_card(M, N):
+@pytest.mark.parametrize("reps", [*CHAIN_RAGGED_REPS, DP.REPS])
+@pytest.mark.parametrize("M,N", CHAIN_SHAPES)
+def test_dot_chain_on_card(M, N, reps):
     w, x = _on_card(M, N)
-    got = DP.dot_chain(w, x)
-    ref = DP.dot_chain_plain(w, x)
+    got = DP.dot_chain(w, x, reps)
+    ref = DP.dot_chain_plain(w, x, reps)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert DP.dot_chain_plan(M, N) == DP.chain_plan(M, N, sms)
 
 
 @pytest.mark.gpu
