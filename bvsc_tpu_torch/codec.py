@@ -15,8 +15,10 @@ that does:
 
 Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
 package, so both packages see the same padded input; the padded frames
-carry 0.5 codes.  PLC, streaming and the serving engines are later slices
-(``ROADMAP.md``).
+carry 0.5 codes.  ``decode(lost=)`` conceals lost packets from the BVRNN's
+prior (``models.bvrnn.decode_plc``).  A trained vocoder loads from the flat
+``.npz`` that ``tools/export_vocoder_npz.py`` writes.  Streaming and the
+serving engines are later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch.config import CodecConfig, load_config
-from bvsc_tpu_torch.convert import load_bvrnn_npz, to_torch
+from bvsc_tpu_torch.convert import load_bvrnn_npz, load_vocoder_npz, to_torch
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
@@ -41,7 +43,9 @@ SCALING = 10 ** (-10 / 20)
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
 
-_VOCODER_ARTIFACT = "the trained vocoder as a JAX-free artifact (ROADMAP.md)"
+_VOCODER_NPZ = ("a flat .npz written by tools/export_vocoder_npz.py on a host with JAX "
+                "(ROADMAP.md, queue 1, item 3a)")
+_BVRNN_CHECKPOINTS = "BVRNN checkpoints other than the flat .npz (ROADMAP.md, queue 1, item 3)"
 _XLA_VOCODER = ("the direct-conv vocoder without the kernels (ROADMAP.md, "
                 "'approx_snake and the bf16 vocoder segment')")
 _BF16_STORAGE = "the bf16 storage dtype (ROADMAP.md, 'The bf16 storage dtype')"
@@ -60,6 +64,13 @@ def _is_float32(dtype) -> bool:
         return np.dtype(dtype) == np.float32
     except TypeError:
         return False
+
+
+def _host_array(x) -> np.ndarray:
+    """A tensor or array-like as a float32 numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float32)
 
 
 class BVRNNCodecModel:
@@ -87,8 +98,10 @@ class BVRNNCodecModel:
         scan_unroll: int = 1,
     ):
         """``bvrnn_params`` / ``vocoder_params`` are port trees (see
-        ``convert``); ``bvrnn_chkpt_path`` is a flat ``.npz``.  With neither
-        the weights are random, from ``seed``.  ``device`` defaults to CUDA
+        ``convert``); ``bvrnn_chkpt_path`` and ``vocoder_chkpt_path`` are flat
+        ``.npz`` files (the vocoder's from ``tools/export_vocoder_npz.py``;
+        other checkpoints raise NotImplementedError).  With neither the
+        weights are random, from ``seed``.  ``device`` defaults to CUDA
         and raises without a card; pass ``device='cpu'`` for the CPU.
 
         precision: ``'highest'`` (parity) or anything else, which is the
@@ -126,8 +139,9 @@ class BVRNNCodecModel:
                 "fused_cell is not supported with quantize= (int8 dict weights "
                 "cannot be re-concatenated); drop one")
         self.fused_cell = fused_cell
-        if vocoder_chkpt_path is not None:
-            raise _not_ported("loading a vocoder checkpoint", _VOCODER_ARTIFACT)
+        if vocoder_chkpt_path is not None and not str(vocoder_chkpt_path).endswith(".npz"):
+            raise NotImplementedError(
+                f"vocoder checkpoint {vocoder_chkpt_path!r}: the port reads only {_VOCODER_NPZ}")
         self.device = resolve_device(device)
         if not fast:
             set_parity_mode()
@@ -157,9 +171,12 @@ class BVRNNCodecModel:
             elif bvrnn_chkpt_path.endswith(".npz"):
                 bvrnn_params = load_bvrnn_npz(bvrnn_chkpt_path)
             else:
-                raise _not_ported("loading a non-npz BVRNN checkpoint", _VOCODER_ARTIFACT)
+                raise _not_ported("loading a non-npz BVRNN checkpoint", _BVRNN_CHECKPOINTS)
         if vocoder_params is None:
-            vocoder_params = voc_mod.init_generator_params(seed_voc, conf.vocoder_config)
+            if vocoder_chkpt_path is None:
+                vocoder_params = voc_mod.init_generator_params(seed_voc, conf.vocoder_config)
+            else:
+                vocoder_params = load_vocoder_npz(vocoder_chkpt_path)
         self.bvrnn_params = to_torch(bvrnn_params, self.device)
         if quantize == "int8":
             self.bvrnn_params = quant.quantize_bvrnn_params(self.bvrnn_params)
@@ -269,16 +286,43 @@ class BVRNNCodecModel:
         return codes[0] if squeeze else codes
 
     @torch.no_grad()
-    def decode(self, codes, length: int) -> torch.Tensor:
+    def decode(self, codes, length: int, *, lost=None, conceal_bitrate=None,
+               conceal_mode: str = "expect") -> torch.Tensor:
         """(batch, frames, z_dim) or (frames, z_dim) codes -> waveform
-        (batch, length)."""
+        (batch, length).
+
+        Packet-loss concealment: ``lost``, (frames,) or (batch, frames) of
+        0/1, flags frames whose codes were not received; they are decoded
+        from the BVRNN's prior (``models.bvrnn.decode_plc``).
+        ``conceal_mode`` is ``'expect'`` (the prior's probabilities) or
+        ``'map'`` (rounded).  ``conceal_bitrate``, bps as a scalar or per
+        frame like ``encode``'s, masks concealed frames to the stream's
+        allocation; None uses all ``z_dim`` bits.  With ``lost=None`` the
+        other two are ignored."""
         codes, squeeze = self._as_input(codes, 3, "codes")
+        B, T = codes.shape[:2]
         hop = self.conf.hopsize
-        padded_len = self._pad_length(max(codes.shape[1] * hop, length))
-        codes = self._pad_codes(codes, padded_len // hop)
-        mel, _ = bvrnn_mod.decode(
-            self.scan_params, self.bvrnn_cfg, codes, self._h0(codes.shape[0])
-        )
+        padded_len = self._pad_length(max(T * hop, length))
+        Tp = padded_len // hop
+        codes = self._pad_codes(codes, Tp)
+        if lost is None:
+            mel, _ = bvrnn_mod.decode(self.scan_params, self.bvrnn_cfg, codes, self._h0(B))
+        else:
+            lost = _host_array(lost)
+            if lost.ndim == 1:
+                lost = lost[None, :]
+            if lost.shape != (B, T):
+                raise ValueError(f"lost mask shape {lost.shape} != ({B}, {T})")
+            lost = np.pad(lost, ((0, 0), (0, Tp - T)))  # padding frames: received
+            cbits = None
+            if conceal_bitrate is not None:
+                cb = np.broadcast_to(np.asarray(self.bits_per_frame(conceal_bitrate), np.float32),
+                                     (B, T))
+                cbits = torch.as_tensor(np.pad(cb, ((0, 0), (0, Tp - T))), device=self.device)
+            mel, _ = bvrnn_mod.decode_plc(
+                self.scan_params, self.bvrnn_cfg, codes, torch.as_tensor(lost, device=self.device),
+                self._h0(B), cbits, mode=conceal_mode,
+            )
         y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
         return y[0] if squeeze else y
 

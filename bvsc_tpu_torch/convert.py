@@ -8,6 +8,8 @@
 * :func:`load_bvrnn_npz` reads the flat ``a/0/b``-keyed ``.npz`` BVRNN
   checkpoints of ``chkpts/`` with numpy alone (the counterpart of
   ``bvsc_tpu/codec.py:_unflatten_npz``); float16 values widen to float32.
+* :func:`load_vocoder_npz` reads a vocoder written in the same layout by
+  ``tools/export_vocoder_npz.py`` (weight norm already folded).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def vocoder_params_from_jax(tree) -> dict:
     return _fold_weight_norm(to_torch(tree))
 
 
-def load_bvrnn_npz(path: str) -> dict:
+def _load_flat_npz(path: str) -> dict:
     """Flat ``a/0/b``-keyed npz -> nested tree of float32 tensors; key levels
     that are all integers become lists."""
     tree: dict = {}
@@ -71,3 +73,14 @@ def load_bvrnn_npz(path: str) -> dict:
         return {k: listify(v) for k, v in node.items()}
 
     return to_torch(listify(tree))
+
+
+def load_bvrnn_npz(path: str) -> dict:
+    """A flat BVRNN ``.npz`` -> the port's BVRNN tree."""
+    return _load_flat_npz(path)
+
+
+def load_vocoder_npz(path: str) -> dict:
+    """A flat vocoder ``.npz`` (``tools/export_vocoder_npz.py``) -> the
+    port's generator tree, the one :func:`vocoder_params_from_jax` returns."""
+    return vocoder_params_from_jax(_load_flat_npz(path))

@@ -2,7 +2,8 @@
 
 Port of the inference half of ``bvsc_tpu/models/bvrnn.py``: init, the MLP
 nets, the GRU step, the bit mask, the standard and the fused cell, and
-``encode``, ``encode_with_state``, ``encode_decode`` and ``decode``.
+``encode``, ``encode_with_state``, ``encode_decode``, ``decode`` and
+``decode_plc`` (packet-loss concealment from the prior).
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts: linear weights are stored (in, out) and applied as ``x @ w``; the
 GRU gates are packed [r|z|n].  Weights may also be weight-only int8 dicts
@@ -135,6 +136,11 @@ def phi_z_apply(params, z, precision="highest"):
 
 def enc_apply(params, x, precision="highest"):
     return _mlp_elu(params["enc"], x, precision, torch.sigmoid)
+
+
+def prior_apply(params, h, precision="highest"):
+    """The prior P(z_t | h_t): the concealment model of :func:`decode_plc`."""
+    return _mlp_elu(params["prior"], h, precision, torch.sigmoid)
 
 
 def dec_apply(params, x, precision="highest"):
@@ -455,5 +461,53 @@ def decode(params, cfg, z, h):
         return _fused_dec_seq(fp, torch.stack(outs, 1), prec), h
     for t in range(z.shape[1]):
         dec_t, h = _advance(sp.std, z[:, t], h, prec)
+        outs.append(dec_t)
+    return torch.stack(outs, 1), h
+
+
+def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect"):
+    """:func:`decode` with packet-loss concealment from the BVRNN's prior.
+
+    Frames flagged in ``lost`` (B, T) ignore their ``z`` entries and take
+    codes from ``P(z_t | h_t)``: the probabilities in ``'expect'`` mode, or
+    ``round(P)`` (half to even) in ``'map'`` mode, masked to
+    ``conceal_bits`` (B, T) bits/frame (None: all ``z_dim`` bits) with
+    masked bits at 0.5.  Received frames run exactly :func:`decode`'s
+    step, so with no loss the output is bitwise :func:`decode`'s, and
+    nothing before a stream's first lost frame changes.  The fused cell
+    shares :func:`_fused_h_combo` / :func:`_fused_tail` with fused
+    :func:`decode`; the prior stays the standard per-step MLP.  It runs
+    only on steps where some stream lost its frame (read from ``lost`` once,
+    before the loop).  Returns (mel (B, T, x_dim), final h)."""
+    if mode not in ("expect", "map"):
+        raise ValueError(f"unknown concealment mode {mode!r}")
+    sp = prepare(params, cfg)
+    prec = cfg.precision
+    B, T = z.shape[:2]
+    lost = lost > 0
+    if conceal_bits is not None:
+        cmask = bit_mask_from_bitrate(conceal_bits, cfg.z_dim)
+    else:
+        cmask = torch.ones(B, T, cfg.z_dim, device=z.device)
+    any_lost = lost.any(0).tolist()
+
+    def codes_at(t, h):
+        if not any_lost[t]:
+            return z[:, t]
+        prior_t = prior_apply(sp.std, h, prec)
+        z_hat = torch.round(prior_t) if mode == "map" else prior_t
+        return torch.where(lost[:, t, None], _apply_bit_mask(z_hat, cmask[:, t]), z[:, t])
+
+    outs = []
+    if _use_fused(cfg, B):
+        fp = _fused_params(sp)
+        for t in range(T):
+            z_t = codes_at(t, h)
+            _, d1h, gh = _fused_h_combo(fp, h, prec)
+            h, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
+            outs.append(a3)
+        return _fused_dec_seq(fp, torch.stack(outs, 1), prec), h
+    for t in range(T):
+        dec_t, h = _advance(sp.std, codes_at(t, h), h, prec)
         outs.append(dec_t)
     return torch.stack(outs, 1), h

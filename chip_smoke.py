@@ -13,14 +13,14 @@ Phases, each printing one JSON line with its seconds:
    float32-pipe instructions of one snake on its fast path in the bf16
    build's SASS (``k1_tiles.snake_instructions``).
 3. ``main_path``: ``BVRNNCodecModel`` at full width (the shipped BVRNN
-   checkpoint, a seeded full-width vocoder) resynthesises a batch of 4
-   waveforms at 3 kbps; the kernels' launch counts are read around that
+   checkpoint and the trained vocoder, both from their flat ``.npz``
+   files) resynthesises a batch of 4 waveforms at 3 kbps; the kernels' launch counts are read around that
    one call, which also keeps every vocoder stage's input and kernel
    output.  Checks shape, finiteness, codes in {0, 0.5, 1}, each stage's
    kernel output against the plain version on the same input, and the
    kernel vocoder against the plain generator on the same decoded mel.
-4. ``fast_path``: the same batch, checkpoint and vocoder at
-   ``precision='default'`` (fast serving) in four forms: ``fused_cell``
+4. ``fast_path``: the same batch and checkpoint with a seeded full-width
+   vocoder, at ``precision='default'`` (fast serving) in four forms: ``fused_cell``
    ``'auto'`` (fused at B=4), ``fused_cell=False``, ``quantize='int8'`` and
    ``quantize='int8_mixed'``.  The launch counts are read around the
    ``'auto'`` call (12 bf16-kernel launches, 0 float32), which keeps each
@@ -33,7 +33,9 @@ Phases, each printing one JSON line with its seconds:
    state), and free-running on a seeded random-init BVRNN, whose dynamics
    do not amplify a flip (the reference's documented figures come from
    these two measurements).  The free-running agreement on the trained
-   checkpoint is printed too.
+   checkpoint is printed too, and the fast ``decode``'s gap from the parity
+   one with the trained vocoder (no gate: the 2e-2 contract was set on the
+   seeded one).
 5. ``kernel``: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gave it (float32 with TF32 off,
    and bf16 mode), on seeded inputs, timed with CUDA events (``ms``, host
@@ -59,6 +61,20 @@ Phases, each printing one JSON line with its seconds:
    also beside ``torch.mm``, with the L2 warm (replayed
    back-to-back calls) and cold (flushed before each call), and its plan
    as its build reports it: one block on each of the card's SMs.
+7. ``plc``: packet-loss concealment, ``decode(lost=, conceal_bitrate=)``,
+   on the main path's batch, codes and trained pair, at parity and in fast
+   ``'auto'`` mode (the fused cell at B=4).  Each stream loses ~10 % of its
+   frames (seeded Bernoulli) and one 5-frame burst; stream 0 conceals at
+   3 kbps, the others with all 64 bits.  The K1 launch counts are read
+   around each lossy call (12 float32 at parity, 12 bf16 in fast mode).
+   Checks: no loss is bitwise ``decode``; the mel and the waveform are
+   bitwise the clean decode's before each stream's first lost frame; at
+   parity one concealed frame equals the prior at the state before it,
+   masked and substituted by hand, to 1e-4; the TF32 flags are unchanged.
+   Prints, with no gate, the mel-L1 against the clean decode of
+   ``'expect'``, ``'map'`` and 0.5-fill concealment, and the milliseconds
+   of ``decode`` and of ``decode(lost=)`` in each mode (CUDA events around
+   single calls taken in turns; median, least and most of 5).
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -92,6 +108,7 @@ from bvsc_tpu_torch.ops import persistent_gru as PG
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
+VOC_NPZ = os.path.join(REPO, "chkpts_npz", "bvsc_vocoder_demo_cl_ft_g_step600_f16.npz")
 WAV = os.path.join(REPO, "docs", "artifacts", "demo_stim15_3kbps.wav")
 DEV = torch.device("cuda")
 BATCH = 4
@@ -132,6 +149,10 @@ GRIDDED_TOL = 1e-4  # one product, K = 128 in float32
 # Shapes that cut K4's 128-row tiles and its column tiles at both edges, by
 # one row and 8 columns, and fit inside one tile.
 GRIDDED_RAGGED = ((200, 1000), (129, 4104), (40, 8))
+PLC_LOSS = 0.10  # Bernoulli loss rate of each frame
+PLC_BURST = 5  # frames of each stream's one burst
+PLC_CONCEAL_BITRATE = 3000  # stream 0's concealment allocation; the others use every bit
+PLC_MANUAL_TOL = 1e-4  # a concealed frame against the hand-made substitution
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -171,7 +192,7 @@ def stage_bound_ms(stage_blocks, B: int, T: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def device_phase() -> tuple[str, float]:
+def device_phase() -> tuple[str, float, str]:
     t0 = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -188,7 +209,7 @@ def device_phase() -> tuple[str, float]:
     ).stdout.strip().splitlines()[0]
     emit("device", t0, name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
          sm_clock_max_mhz=float(clock), torch=torch.__version__, cuda=torch.version.cuda)
-    return name, float(clock)
+    return name, float(clock), smi
 
 
 def build_phase(clock_mhz: float) -> dict:
@@ -420,10 +441,13 @@ def agreement(codes: torch.Tensor, ref: torch.Tensor, bits_per_frame: int) -> di
     return {"all": eq.float().mean().item(), "sent": eq[..., :bits_per_frame].float().mean().item()}
 
 
-def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict):
-    """The fast-serving forms on the main path's batch, checkpoint and
-    vocoder; returns the bf16 kernel's launches in the 'auto' call and the
-    (B, C, T) it gave each stage."""
+def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict,
+                    trained: tuple[BVRNNCodecModel, BVRNNCodecModel]):
+    """The fast-serving forms on the main path's batch and checkpoint with
+    ``parity``'s (seeded) vocoder; returns the bf16 kernel's launches in the
+    'auto' call and the (B, C, T) it gave each stage.  ``trained`` is the
+    (parity, fast 'auto') pair with the trained vocoder, whose decode gap is
+    printed."""
     t0 = time.time()
     B, L = wav.shape
     x = torch.from_numpy(wav).to(DEV)
@@ -458,6 +482,7 @@ def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict
     decode_err = (auto.decode(ref_codes, L) - ref_wav).abs().max().item()
     if not decode_err <= FAST_WAVE_TOL:
         raise AssertionError(f"fast decode vs parity decode {decode_err} > {FAST_WAVE_TOL}")
+    trained_err = max_err(trained[1].decode(ref_codes, L), trained[0].decode(ref_codes, L))
 
     for name, codec in forms.items():
         yw, call_ms = timed(lambda: codec(x, BITRATE))
@@ -488,9 +513,148 @@ def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict
                 raise AssertionError(f"{name}: {measure} code agreement {r[measure]} < {AGREE_MIN}")
     emit("fast_path", t0, batch=B, samples=L, bitrate=BITRATE, bits_per_frame=bits_per_frame,
          launches=launches, stage_shapes=shapes, stage_kernel_vs_plain=stage_errs,
-         first_call_ms=first_ms, decode_vs_parity=decode_err, parity=parity_times,
+         first_call_ms=first_ms, decode_vs_parity=decode_err,
+         trained_vocoder_decode_vs_parity=trained_err, parity=parity_times,
          forms=report, agree_min=AGREE_MIN, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches["bf16"], shapes
+
+
+def turns_ms(fns: dict, rounds: int = 5) -> dict:
+    """Milliseconds of each function by CUDA events around one call, the
+    functions called in turns for ``rounds`` rounds after a warm-up round:
+    the median, least and most of each."""
+    times = {key: [] for key in fns}
+    for r in range(rounds + 1):
+        for key, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if r:
+                times[key].append(start.elapsed_time(end))
+    return {key: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+            for key, v in times.items()}
+
+
+def loss_pattern(B: int, n: int) -> np.ndarray:
+    """(B, n) 0/1: each stream, seeded on its own, loses ~``PLC_LOSS`` of its
+    frames and one ``PLC_BURST``-frame burst; frame 0 is received."""
+    lost = np.zeros((B, n), np.float32)
+    for b in range(B):
+        rng = np.random.default_rng([SEED, b])
+        lost[b] = rng.random(n) < PLC_LOSS
+        start = int(rng.integers(1, n - PLC_BURST))
+        lost[b, start:start + PLC_BURST] = 1.0
+    lost[:, 0] = 0.0
+    return lost
+
+
+def plc_mel(codec: BVRNNCodecModel, codes: torch.Tensor, lost: np.ndarray | None,
+            conceal_bitrate=None, mode: str = "expect") -> torch.Tensor:
+    """The decoded mel (B, n, M) that ``codec.decode(codes, lost=...)``
+    hands its vocoder, padded as it pads (``lost=None``: the clean decode)."""
+    B, n = codes.shape[:2]
+    Tp = codec._pad_length(n * codec.conf.hopsize) // codec.conf.hopsize
+    padded = codec._pad_codes(codes, Tp)
+    with torch.no_grad():
+        if lost is None:
+            mel, _ = bvrnn_mod.decode(codec.scan_params, codec.bvrnn_cfg, padded, codec._h0(B))
+            return mel[:, :n]
+        bits = None
+        if conceal_bitrate is not None:
+            bits = np.broadcast_to(codec.bits_per_frame(conceal_bitrate), (B, n))
+            bits = torch.as_tensor(np.pad(bits, ((0, 0), (0, Tp - n))), device=DEV)
+        mel, _ = bvrnn_mod.decode_plc(
+            codec.scan_params, codec.bvrnn_cfg, padded,
+            torch.as_tensor(np.pad(lost, ((0, 0), (0, Tp - n))), device=DEV), codec._h0(B), bits,
+            mode=mode)
+    return mel[:, :n]
+
+
+def manual_substitution(codec: BVRNNCodecModel, codes: torch.Tensor, t: int, bps: np.ndarray,
+                        L: int) -> dict:
+    """Frame ``t`` of every stream lost, concealed by ``decode(lost=,
+    conceal_bitrate=bps)`` in 'expect' mode, against the prior at the state
+    before it (``prior_apply`` after a clean decode of the frames before
+    it), masked to each stream's bits and substituted into the codes by
+    hand, through the plain ``decode``."""
+    B, n = codes.shape[:2]
+    lost = np.zeros((B, n), np.float32)
+    lost[:, t] = 1.0
+    bits = codec.bits_per_frame(bps[:, t])
+    with torch.no_grad():
+        _, h_t = bvrnn_mod.decode(codec.scan_params, codec.bvrnn_cfg, codes[:, :t], codec._h0(B))
+        prior = bvrnn_mod.prior_apply(codec.scan_params.std, h_t, codec.bvrnn_cfg.precision)
+    keep = torch.arange(codes.shape[2], device=DEV)[None] < torch.as_tensor(bits, device=DEV)[:, None]
+    manual = codes.clone()
+    manual[:, t] = torch.where(keep, prior, torch.full_like(prior, 0.5))
+    mel_err = max_err(plc_mel(codec, codes, lost, bps), plc_mel(codec, manual, None))
+    wav_err = max_err(codec.decode(codes, L, lost=lost, conceal_bitrate=bps), codec.decode(manual, L))
+    check("manual substitution, mel", mel_err, PLC_MANUAL_TOL)
+    check("manual substitution, waveform", wav_err, PLC_MANUAL_TOL)
+    return {"frame": t, "mel_err": mel_err, "wav_err": wav_err}
+
+
+def plc_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
+    """Packet-loss concealment through ``decode(lost=)`` at parity and in
+    fast 'auto' mode on the trained pair; see the module docstring."""
+    t0 = time.time()
+    B, L = wav.shape
+    x = torch.from_numpy(wav).to(DEV)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if not bvrnn_mod._use_fused(fast.bvrnn_cfg, B) or bvrnn_mod._use_fused(parity.bvrnn_cfg, B):
+        raise AssertionError(f"the fast codec should run the fused cell at B={B}, parity the standard")
+    codes = parity.encode(x, BITRATE)
+    n, hop, z_dim = codes.shape[1], parity.conf.hopsize, codes.shape[2]
+    lost = loss_pattern(B, n)
+    first = [int(np.argmax(lost[b] > 0)) for b in range(B)]
+    full_bps = z_dim * parity.conf.fs / hop  # every bit: the mask of conceal_bitrate=None
+    cbps = np.full((B, n), full_bps)
+    cbps[0] = PLC_CONCEAL_BITRATE
+    n_blocks = sum(len(blocks) for blocks in parity.kernel_blocks)
+    report = {}
+    for name, codec, kernel in (("parity", parity, "f32"), ("fast", fast, "bf16")):
+        clean = codec.decode(codes, L)
+        zero = codec.decode(codes, L, lost=np.zeros_like(lost))
+        if not torch.equal(zero, clean):
+            raise AssertionError(f"{name}: decode with no loss differs from decode by "
+                                 f"{max_err(zero, clean)}")
+        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        y = codec.decode(codes, L, lost=lost, conceal_bitrate=cbps)
+        torch.cuda.synchronize()
+        launches = {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+        want = {"f32": 0, "bf16": 0, kernel: n_blocks}
+        if launches != want:
+            raise AssertionError(f"{name}: decode(lost=) launched {launches}, expected {want}")
+        if tuple(y.shape) != (B, L) or not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: output shape {tuple(y.shape)}, finite {torch.isfinite(y).all()}")
+        clean_mel = plc_mel(codec, codes, None)
+        mels = {mode: plc_mel(codec, codes, lost, cbps, mode) for mode in ("expect", "map")}
+        prefix = []
+        for b, f in enumerate(first):
+            mel_gap = max_err(mels["expect"][b, :f], clean_mel[b, :f])
+            wav_gap = max_err(y[b, :f * hop], clean[b, :f * hop])
+            if mel_gap or wav_gap:
+                raise AssertionError(f"{name} stream {b}: before its first lost frame {f} the mel "
+                                     f"differs by {mel_gap}, the waveform by {wav_gap}")
+            prefix.append({"first_lost": f, "mel_gap": mel_gap, "wav_gap": wav_gap})
+        filled = torch.where(torch.as_tensor(lost, device=DEV)[..., None] > 0,
+                             torch.full_like(codes, 0.5), codes)
+        mels["fill_0.5"] = plc_mel(codec, filled, None)
+        mel_l1 = {mode: (m - clean_mel).abs().mean().item() for mode, m in mels.items()}
+        report[name] = {"launches": launches, "prefix": prefix, "mel_l1_vs_clean": mel_l1,
+                        "ms": turns_ms({
+                            "decode": lambda: codec.decode(codes, L),
+                            "expect": lambda: codec.decode(codes, L, lost=lost, conceal_bitrate=cbps),
+                            "map": lambda: codec.decode(codes, L, lost=lost, conceal_bitrate=cbps,
+                                                        conceal_mode="map")})}
+    report["parity"]["manual"] = manual_substitution(parity, codes, n // 2, cbps, L)
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+        raise AssertionError(f"the TF32 flags changed from {tf32}")
+    emit("plc", t0, batch=B, samples=L, frames=n, bitrate=BITRATE, loss_rate=PLC_LOSS,
+         burst=PLC_BURST, lost_frames=int(lost.sum()), conceal_bitrate_stream0=PLC_CONCEAL_BITRATE,
+         manual_tol=PLC_MANUAL_TOL, nvidia_smi=smi, **report)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -709,7 +873,7 @@ def gridded_kernel(launches: int, operands) -> dict:
 
 
 def main() -> None:
-    name, clock_mhz = device_phase()
+    name, clock_mhz, smi = device_phase()
     snake = build_phase(clock_mhz)
     set_parity_mode()
     torch.matmul(torch.ones(8, 8, device=DEV), torch.ones(8, 8, device=DEV))  # cuBLAS set-up
@@ -717,18 +881,24 @@ def main() -> None:
 
     t0 = time.time()
     conf = load_config(DEFAULT_CONFIG)
-    codec = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ,
-                            vocoder_params=seeded_vocoder(conf.vocoder_config, SEED), device=DEV)
+    codec = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ, vocoder_chkpt_path=VOC_NPZ,
+                            device=DEV)
+    fast = BVRNNCodecModel(config=conf, bvrnn_params=codec.bvrnn_params,
+                           vocoder_params=codec.vocoder_params, precision="default", device=DEV)
+    seeded = BVRNNCodecModel(config=conf, bvrnn_params=codec.bvrnn_params,
+                             vocoder_params=seeded_vocoder(conf.vocoder_config, SEED), device=DEV)
     emit("model", t0, h_dim=codec.conf.h_dim, z_dim=codec.conf.z_dim,
-         vocoder_channels=codec.conf.vocoder_config.upsample_initial_channel)
+         vocoder_channels=codec.conf.vocoder_config.upsample_initial_channel,
+         bvrnn=os.path.relpath(NPZ, REPO), vocoder=os.path.relpath(VOC_NPZ, REPO))
 
     launches, shapes, parity_times = main_path_phase(codec, wav)
-    launches_bf16, shapes_bf16 = fast_path_phase(codec, wav, parity_times)
+    launches_bf16, shapes_bf16 = fast_path_phase(seeded, wav, parity_times, (codec, fast))
     totals = kernel_phase(codec, shapes)
     totals_bf16 = kernel_phase(codec, shapes_bf16, torch.bfloat16, snake)
     for kernel, tot in (("amp_resblock", totals), ("amp_resblock_bf16", totals_bf16)):
         emit("kernel_total", time.time(), kernel=kernel,
              **{key: v for key, v in tot.items() if key != "bound_by"})
+    plc_phase(codec, fast, wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):
