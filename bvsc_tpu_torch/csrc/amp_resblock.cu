@@ -26,6 +26,16 @@
 // the positions with global t < 0 are set to 0; without this the bias would
 // leak into the pre-history and change the first H samples of every stage.
 //
+// Streaming (a carried context and a per-row stream start): the input row
+// may hold `ctx` samples of left context before the T it is asked for, so x
+// is (B, C, ctx + T) and output column t is input column ctx + t; a tile's
+// halo is read from the input wherever it lies at or after input column 0.
+// start[b] (an int32 device array, or null for all 0) is how many samples
+// row b's stream fed the stage before output column 0, so output column t
+// is stream time start[b] + t, and "global t < 0" above is that stream time:
+// positions before their stream began are zero on load and after every
+// conv.  ctx = 0 with a null start is the offline launch, unchanged.
+//
 // What bounds it: float32 FMAs on the CUDA cores, 6 * 2 * C^2 * k FLOP per
 // output sample against one read and one write of C floats.  What the
 // design does about it:
@@ -128,7 +138,7 @@ __device__ __forceinline__ void stage_weights(float* ws, const float* w) {
 
 // Causal dilated conv over the window [lo, L): for each output time t,
 //   v = b[co] + sum_ci sum_tap w[ci, tap, co] * src[ci, t - (K - 1 - tap) * D]
-// which reads src only at [lo - (K - 1) * D, L).  v is 0 where the global
+// which reads src only at [lo - (K - 1) * D, L).  v is 0 where the stream
 // time t + g0 is negative.  kResidual: dst += v, else dst = v.  A warp's
 // item is R_co channels x `span` times; consecutive items share their
 // channels, so the warps in flight read the same weights.
@@ -199,7 +209,8 @@ struct Args {
   const float* b2;     // (3, C)
   const float* alpha;  // (6, C), exp(log alpha)
   const float* inv_b;  // (6, C), 1 / (exp(log beta) + 1e-9)
-  int T, tile, halo;
+  const int* start;    // (B,) samples each row's stream fed before output 0, or null
+  int T, ctx, tile, halo;  // x rows hold ctx + T samples, y rows T
   int d[kUnits];
 };
 
@@ -214,13 +225,15 @@ __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args
   float* ws = bs + C * L + kSlack;       // one conv's weights (C <= 32)
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * p.tile;
-  const int g0 = t0 - p.halo;  // global time of buffer column 0
-  const float* xb = p.x + static_cast<size_t>(b) * C * p.T;
-  const int T = p.T;
+  const int g0 = t0 - p.halo;                         // output column of buffer column 0
+  const int s0 = g0 + (p.start ? __ldg(p.start + b) : 0);  // its stream time
+  const int T = p.T, Tin = p.ctx + p.T;
+  const float* xb = p.x + static_cast<size_t>(b) * C * Tin;
 
   for_window<C, G::warps>(0, L, [&](int c, int i) {
-    const int g = g0 + i;
-    xs[c * L + i] = (g >= 0 && g < T) ? xb[static_cast<size_t>(c) * T + g] : 0.0f;
+    const int g = p.ctx + g0 + i;  // input column
+    xs[c * L + i] =
+        (g >= 0 && g < Tin && s0 + i >= 0) ? xb[static_cast<size_t>(c) * Tin + g] : 0.0f;
   });
   __syncthreads();
 
@@ -239,9 +252,9 @@ __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args
     lo += (K - 1) * d;
     const float* w1 = G::smem_weights ? ws : p.w1 + wo;
     switch (d) {
-      case 1: conv_window<C, K, 1, false>(as, bs, w1, p.b1 + j * C, L, lo, g0); break;
-      case 3: conv_window<C, K, 3, false>(as, bs, w1, p.b1 + j * C, L, lo, g0); break;
-      default: conv_window<C, K, 5, false>(as, bs, w1, p.b1 + j * C, L, lo, g0); break;
+      case 1: conv_window<C, K, 1, false>(as, bs, w1, p.b1 + j * C, L, lo, s0); break;
+      case 3: conv_window<C, K, 3, false>(as, bs, w1, p.b1 + j * C, L, lo, s0); break;
+      default: conv_window<C, K, 5, false>(as, bs, w1, p.b1 + j * C, L, lo, s0); break;
     }
     __syncthreads();
     if constexpr (G::smem_weights) stage_weights<C, K>(ws, p.w2 + wo);
@@ -252,7 +265,7 @@ __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args
     __syncthreads();
     lo += K - 1;
     conv_window<C, K, 1, true>(bs, xs, G::smem_weights ? ws : p.w2 + wo, p.b2 + j * C, L, lo,
-                               g0);
+                               s0);
     __syncthreads();
   }
 
@@ -327,15 +340,17 @@ int dispatch(int C, int k, const F& f) {
 
 }  // namespace
 
-// Launches one resblock on `stream` (a cudaStream_t).  Returns the CUDA
+// Launches one resblock on `stream` (a cudaStream_t): x (B, C, ctx + T),
+// y (B, C, T), start null or (B,) int32 (see the header).  Returns the CUDA
 // error code of the launch (0 on success); it does not synchronise.  A
-// (C, k, d) outside the shipped configs gives cudaErrorInvalidValue.
+// (C, k, d) outside the shipped configs, or ctx < 0, gives
+// cudaErrorInvalidValue.
 extern "C" int amp_resblock_f32(const float* x, float* y, const float* w1, const float* b1,
                                 const float* w2, const float* b2, const float* alpha,
-                                const float* inv_beta, int B, int C, int T, int k, int d0,
-                                int d1, int d2, int tile, void* stream) {
-  Args p{x, y, w1, b1, w2, b2, alpha, inv_beta, T, tile, 0, {d0, d1, d2}};
-  if (!dilations_ok(p.d) || tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                const float* inv_beta, const int* start, int B, int C, int T,
+                                int ctx, int k, int d0, int d1, int d2, int tile, void* stream) {
+  Args p{x, y, w1, b1, w2, b2, alpha, inv_beta, start, T, ctx, tile, 0, {d0, d1, d2}};
+  if (!dilations_ok(p.d) || tile <= 0 || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
   p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
   return dispatch(C, k, Launch{p, B, static_cast<cudaStream_t>(stream)});
 }

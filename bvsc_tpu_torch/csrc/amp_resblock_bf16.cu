@@ -18,7 +18,13 @@
 // context H = (k - 1) * (d0 + d1 + d2 + 3) from a zero-filled window; each
 // conv moves the valid window's start right by its own context.  After each
 // conv (bias included) the positions with global t < 0 are set to 0, since
-// the reference zero-pads the input of every conv.  The wrapper picks the
+// the reference zero-pads the input of every conv.  Streaming, as in
+// amp_resblock.cu: x may carry `ctx` samples of left context per row (x is
+// (B, C, ctx + T), output column t is input column ctx + t, the halo read
+// from the input wherever it lies at or after column 0), and start[b] (an
+// int32 device array, or null for all 0) shifts row b's times to its
+// stream's, so "t < 0" is a stream time; ctx = 0 with a null start is the
+// offline launch, unchanged.  The wrapper picks the
 // tile (ops/amp_resblock.py, tile_for): 8192 / C samples, halved while the
 // halved grid still fits in one wave (the card's SMs times the blocks one
 // SM holds), so a B = 4 call's stage 0 (2 056 samples at C = 64) runs 132
@@ -205,7 +211,8 @@ struct Args {
   const float* b2;          // (3, C)
   const float* alpha;       // (6, C), exp(log alpha)
   const float* inv_b;       // (6, C), 1 / (exp(log beta) + 1e-9)
-  int T, tile, halo, L;
+  const int* start;         // (B,) samples each row's stream fed before output 0, or null
+  int T, ctx, tile, halo, L;  // x rows hold ctx + T samples, y rows T
   int d[kUnits];
   Layout lay;
 };
@@ -263,7 +270,7 @@ __device__ void snake_pass(const float* xs, int sx, __nv_bfloat16* dst, const fl
 
 // Causal conv over the window [lo, L) of the bf16 operand at `src`:
 //   v[t, co] = b[co] + sum_tap sum_ci w[co, ci, tap] * src[t - (K - 1 - tap) * d, ci]
-// (v = 0 where the global time t + g0 is negative), with the weights at
+// (v = 0 where the stream time t + g0 is negative), with the weights at
 // `ws`.  kSnakeOut: write bf16(snake_beta(v)) with activation (a, inv_b)
 // into the time-major `out`; else add v into the residual stream xs.  A
 // warp item is R_m m16 tiles x NT_w n8 tiles; rows past L are computed from
@@ -391,20 +398,22 @@ __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threa
   const bool two = s.weight_buffers == 2;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * p.tile;
-  const int g0 = t0 - p.halo;  // global time of buffer column 0
-  const int T = p.T;
-  const float* xb = p.x + static_cast<size_t>(b) * C * T;
+  const int g0 = t0 - p.halo;                              // output column of buffer column 0
+  const int s0 = g0 + (p.start ? __ldg(p.start + b) : 0);  // its stream time
+  const int T = p.T, Tin = p.ctx + p.T;
+  const float* xb = p.x + static_cast<size_t>(b) * C * Tin;
 
   for (int i = threadIdx.x; i < 6 * C; i += Blocking<C>::threads) {
     alpha[i] = p.alpha[i];
     inv_b[i] = p.inv_b[i];
   }
   if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(smem + s.zero)[threadIdx.x] = 0u;
-  // the window, zero outside [0, T), by cp.async: every load in flight at once
+  // the window, zero outside the input and before the stream's start, by
+  // cp.async: every load in flight at once
   for_window<C>(0, L, [&](int c, int i) {
-    const int gt = g0 + i;
-    const bool ok = gt >= 0 && gt < T;
-    cp_async4(smem_addr(xs + c * sx + i), ok ? xb + static_cast<size_t>(c) * T + gt : xb, ok);
+    const int gt = p.ctx + g0 + i;  // input column
+    const bool ok = gt >= 0 && gt < Tin && s0 + i >= 0;
+    cp_async4(smem_addr(xs + c * sx + i), ok ? xb + static_cast<size_t>(c) * Tin + gt : xb, ok);
   });
   cp_async_commit();
   cp_async_wait<0>();
@@ -421,7 +430,7 @@ __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threa
     if (two) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
     lo += (K - 1) * d;
-    conv_tc<C, K, true>(smem_addr(a1), w0, p.b1 + j * C, L, d, lo, g0, zero, a2,
+    conv_tc<C, K, true>(smem_addr(a1), w0, p.b1 + j * C, L, d, lo, s0, zero, a2,
                         alpha + (2 * j + 1) * C, inv_b + (2 * j + 1) * C, nullptr, sx);
     if (!two) {  // one buffer: refill it once every warp is done with conv 1
       __syncthreads();
@@ -430,7 +439,7 @@ __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threa
     cp_async_wait<0>();
     __syncthreads();
     lo += K - 1;
-    conv_tc<C, K, false>(smem_addr(a2), w1, p.b2 + j * C, L, 1, lo, g0, zero, nullptr, nullptr,
+    conv_tc<C, K, false>(smem_addr(a2), w1, p.b2 + j * C, L, 1, lo, s0, zero, nullptr, nullptr,
                          nullptr, xs, sx);
     __syncthreads();
   }
@@ -523,20 +532,21 @@ extern "C" __global__ void snake_sass_probe(const float* x, float* y, float a, f
   y[i] = snake_beta(x[i], a, inv_b);
 }
 
-// Launches one resblock on `stream` (a cudaStream_t).  w1 and w2 are the
-// packed bf16 weights (3, C, Kp), Kp = 16 * ceil(C k / 16), 16-byte
+// Launches one resblock on `stream` (a cudaStream_t): x (B, C, ctx + T),
+// y (B, C, T), start null or (B,) int32 (see the header).  w1 and w2 are
+// the packed bf16 weights (3, C, Kp), Kp = 16 * ceil(C k / 16), 16-byte
 // aligned.  Returns the CUDA error code of the launch (0 on success); it
 // does not synchronise.  A (C, k, d) outside C in {8, 16, 32, 64}, k in {3,
-// 7, 11}, d in {1, 3, 5}, a tile that is not a positive multiple of 16, or
-// a window whose shared memory exceeds one block's gives
+// 7, 11}, d in {1, 3, 5}, a tile that is not a positive multiple of 16, a
+// negative ctx, or a window whose shared memory exceeds one block's gives
 // cudaErrorInvalidValue.
 extern "C" int amp_resblock_bf16(const float* x, float* y, const void* w1, const float* b1,
                                  const void* w2, const float* b2, const float* alpha,
-                                 const float* inv_beta, int B, int C, int T, int k, int d0,
-                                 int d1, int d2, int tile, void* stream) {
+                                 const float* inv_beta, const int* start, int B, int C, int T,
+                                 int ctx, int k, int d0, int d1, int d2, int tile, void* stream) {
   Args p{x, y, static_cast<const __nv_bfloat16*>(w1), b1, static_cast<const __nv_bfloat16*>(w2),
-         b2, alpha, inv_beta, T, tile, 0, 0, {d0, d1, d2}, Layout{}};
-  if (!shape_ok(p.d, tile)) return static_cast<int>(cudaErrorInvalidValue);
+         b2, alpha, inv_beta, start, T, ctx, tile, 0, 0, {d0, d1, d2}, Layout{}};
+  if (!shape_ok(p.d, tile) || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
   p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
   p.L = p.halo + tile;
   return dispatch(C, k, Launch{p, B, static_cast<cudaStream_t>(stream)});

@@ -28,6 +28,13 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
   conv's bias; each conv reads the mode's packed weights as its kernel
   does), so the CPU tests prove the kernels' indexing and packing.
 
+All of them take a streaming stage's two arguments: ``ctx``, samples of
+left context before the T outputs asked for (the input is (B, C, ctx + T),
+the output (B, C, T)), and ``start``, a (B,) int32 tensor (or None for all
+0) of the samples each row's stream fed the stage before output column 0.
+Time t < 0 is then a row's stream time: zero on load and after every conv.
+``ctx=0, start=None`` is the offline call, bit for bit.
+
 Both kernels keep every intermediate of a block in shared memory, so device
 memory sees one read and one write of the activations per block; see the
 sources for what they do not do yet.
@@ -178,21 +185,41 @@ def _precision(compute_dtype: torch.dtype) -> str:
     return "highest" if compute_dtype == torch.float32 else "default"
 
 
+def _stream_times(x: torch.Tensor, ctx: int, start: torch.Tensor | None, lo: int = 0,
+                  n: int | None = None) -> torch.Tensor:
+    """(B, 1, n) stream times of input columns ``lo`` to ``lo + n``
+    (default: all of them): column ``ctx`` is row b's time ``start[b]``."""
+    n = x.shape[-1] - lo if n is None else n
+    cols = torch.arange(lo - ctx, lo - ctx + n, device=x.device)
+    if start is None:
+        return cols.expand(x.shape[0], 1, n)
+    return start.to(torch.int64)[:, None, None] + cols
+
+
 def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
     """Causal AMP residual block (reference ``_amp_block``, causal branch);
     in bf16 mode each conv takes bf16-rounded operands (``conv1d`` at
-    precision ``'default'``)."""
+    precision ``'default'``).  With ``ctx`` or ``start`` (module docstring)
+    the positions before each row's stream began are zeroed on load and
+    after every conv's bias, and the last T columns returned."""
     prec = _precision(compute_dtype)
     p2 = kernel_size - 1
+    keep = None if ctx == 0 and start is None else _stream_times(x, ctx, start) >= 0
+
+    def mask(v):
+        return v if keep is None else torch.where(keep, v, 0.0)
+
+    x = mask(x)
     for j, d in enumerate(dilations):
         xt = snake_beta(x, block["acts"][2 * j], logscale=True)
-        xt = conv1d(pad1d(xt, (kernel_size - 1) * d), block["convs1"][j], dilation=d,
-                    precision=prec)
+        xt = mask(conv1d(pad1d(xt, (kernel_size - 1) * d), block["convs1"][j], dilation=d,
+                         precision=prec))
         xt = snake_beta(xt, block["acts"][2 * j + 1], logscale=True)
-        xt = conv1d(pad1d(xt, p2), block["convs2"][j], precision=prec)
+        xt = mask(conv1d(pad1d(xt, p2), block["convs2"][j], precision=prec))
         x = xt + x
-    return x
+    return x[..., ctx:]
 
 
 def _conv_gemm(xt: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, k: int, d: int) -> torch.Tensor:
@@ -217,18 +244,21 @@ def _conv_packed(xt: torch.Tensor, wf: torch.Tensor, b: torch.Tensor, k: int, d:
 
 def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
                     compute_dtype: torch.dtype = torch.float32,
-                    tile: int | None = None) -> torch.Tensor:
+                    tile: int | None = None, ctx: int = 0,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
     """A kernel's algorithm in torch: tiles of ``tile`` outputs
     (``tile_for(C, compute_dtype)``'s by default), each recomputing its left
-    halo from a zero-filled window; each conv reads the mode's packed
-    weights (:func:`_conv_packed`, or the bf16 GEMM :func:`_conv_gemm`)."""
+    halo from a window read from the input where it lies at or after input
+    column 0, zeros elsewhere and before each row's stream began; each conv
+    reads the mode's packed weights (:func:`_conv_packed`, or the bf16 GEMM
+    :func:`_conv_gemm`)."""
     bf16 = _precision(compute_dtype) == "default"
-    B, C, T = x.shape
+    B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     k, dils = rb.kernel_size, rb.dilations
     H, tile = halo(k, dils), tile or tile_for(C, compute_dtype)
-    xpad = F.pad(x, (H, tile))  # column i holds global time i - H
+    xpad = F.pad(x, (H, tile))  # column i holds input column i - H
     acts = rb.block["acts"]
-    out = torch.empty_like(x)
+    out = x.new_empty(B, C, T)
 
     def conv(xt, n, j, d):
         wf, b, wk = (rb.wf1, rb.b1, rb.wk1) if n == 1 else (rb.wf2, rb.b2, rb.wk2)
@@ -237,16 +267,16 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
         return _conv_packed(xt, wf[j], b[j], k, d)
 
     for t0 in range(0, T, tile):
-        xw = xpad[..., t0 : t0 + H + tile]
-        g = torch.arange(t0 - H, t0 + tile, device=x.device)  # global times
+        g = _stream_times(x, ctx, start, ctx + t0 - H, H + tile)
+        xw = xpad[..., ctx + t0 : ctx + t0 + H + tile] * (g >= 0).to(x.dtype)
         for j, d in enumerate(dils):
             xt = snake_beta(xw, acts[2 * j], logscale=True)
             xt = conv(xt, 1, j, d)
-            g = g[(k - 1) * d :]
+            g = g[..., (k - 1) * d :]
             xt = xt * (g >= 0).to(xt.dtype)
             xt = snake_beta(xt, acts[2 * j + 1], logscale=True)
             xt = conv(xt, 2, j, 1)
-            g = g[k - 1 :]
+            g = g[..., k - 1 :]
             xt = xt * (g >= 0).to(xt.dtype)
             xw = xt + xw[..., -xt.shape[-1] :]
         n = min(tile, T - t0)
@@ -263,16 +293,18 @@ def average(outs: list[torch.Tensor]) -> torch.Tensor:
 
 
 def amp_stack_plain(x: torch.Tensor, stage: list[ResblockParams],
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
     """A vocoder stage: the plain blocks, averaged."""
-    return average([amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype)
-                    for rb in stage])
+    return average([amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype,
+                                    ctx, start) for rb in stage])
 
 
 def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams],
                     compute_dtype: torch.dtype = torch.float32,
-                    tile: int | None = None) -> torch.Tensor:
-    return average([amp_block_tiled(x, rb, compute_dtype, tile) for rb in stage])
+                    tile: int | None = None, ctx: int = 0,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
+    return average([amp_block_tiled(x, rb, compute_dtype, tile, ctx, start) for rb in stage])
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +318,7 @@ def _kernel(compute_dtype: torch.dtype):
         fn = _build.load("amp_resblock_bf16").amp_resblock_bf16
     else:
         fn = _build.load("amp_resblock").amp_resblock_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -296,11 +328,12 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_tile(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> int:
-    """The tile :func:`amp_resblock` launches with for a CUDA tensor ``x``:
-    ``tile_for`` at its (B, C, T) on its card's SMs."""
+def launch_tile(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, ctx: int = 0) -> int:
+    """The tile :func:`amp_resblock` launches with for a CUDA tensor ``x``
+    of ``ctx`` context columns: ``tile_for`` at its (B, C) and its T outputs
+    on its card's SMs."""
     B, C, T = x.shape
-    return tile_for(C, compute_dtype, B, T, _sm_count(x.device))
+    return tile_for(C, compute_dtype, B, T - ctx, _sm_count(x.device))
 
 
 @functools.cache
@@ -352,14 +385,19 @@ def bf16_plan(rb: ResblockParams, tile: int | None = None) -> dict:
 
 
 def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
-           tile: int | None = None) -> None:
+           tile: int | None = None, ctx: int = 0, start: torch.Tensor | None = None) -> None:
     """Refuses what the mode's kernel cannot take; with a ``tile``, also a
     window whose shared memory, as the kernel's build reports it, exceeds
     :data:`SMEM_LIMIT`."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"expected contiguous float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
-    if not 0 < x.shape[0] <= 65535 or x.shape[2] == 0:
-        raise ValueError(f"batch must be 1..65535 (a grid dimension) and T > 0, got {tuple(x.shape)}")
+    if not 0 < x.shape[0] <= 65535 or not 0 <= ctx < x.shape[2]:
+        raise ValueError(f"batch must be 1..65535 (a grid dimension) and 0 <= ctx < ctx + T, "
+                         f"got {tuple(x.shape)}, ctx={ctx}")
+    if start is not None and (start.dtype != torch.int32 or start.shape != x.shape[:1]
+                              or start.device != x.device or not start.is_contiguous()):
+        raise ValueError(f"start must be a contiguous int32 ({x.shape[0]},) tensor on the "
+                         f"input's device, got {start.dtype} {tuple(start.shape)} on {start.device}")
     if x.shape[1] != rb.channels:
         raise ValueError(f"{x.shape[1]} channels, resblock has {rb.channels}")
     bf16 = compute_dtype == torch.bfloat16
@@ -382,27 +420,31 @@ def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
 
 def amp_resblock(x: torch.Tensor, rb: ResblockParams,
                  compute_dtype: torch.dtype = torch.float32,
-                 tile: int | None = None) -> torch.Tensor:
-    """One AMP residual block in ``compute_dtype``'s mode.  CUDA tensors
-    launch that mode's kernel with ``tile`` outputs per thread block
+                 tile: int | None = None, ctx: int = 0,
+                 start: torch.Tensor | None = None) -> torch.Tensor:
+    """One AMP residual block in ``compute_dtype``'s mode, on (B, C, ctx +
+    T) with ``start`` (module docstring) to (B, C, T).  CUDA tensors launch
+    that mode's kernel with ``tile`` outputs per thread block
     (:func:`launch_tile`'s by default); CPU tensors take
     :func:`amp_block_plain`; anything else raises."""
     _precision(compute_dtype)
     if x.device.type == "cpu":
-        return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype)
+        return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype, ctx,
+                               start)
     if x.device.type != "cuda":
         raise ValueError(f"amp_resblock runs on cuda or cpu, not {x.device}")
-    tile = tile or launch_tile(x, compute_dtype)
-    _check(x, rb, compute_dtype, tile)
+    tile = tile or launch_tile(x, compute_dtype, ctx)
+    _check(x, rb, compute_dtype, tile, ctx, start)
     bf16 = compute_dtype == torch.bfloat16
-    B, C, T = x.shape
+    B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     w1, w2 = (rb.wk1, rb.wk2) if bf16 else (rb.wf1, rb.wf2)
-    y = torch.empty_like(x)
+    y = x.new_empty(B, C, T)
     with torch.cuda.device(x.device):
         err = _kernel(compute_dtype)(
             x.data_ptr(), y.data_ptr(), w1.data_ptr(), rb.b1.data_ptr(),
             w2.data_ptr(), rb.b2.data_ptr(), rb.alpha.data_ptr(), rb.inv_beta.data_ptr(),
-            B, C, T, rb.kernel_size, *rb.dilations, tile,
+            None if start is None else start.data_ptr(),
+            B, C, T, ctx, rb.kernel_size, *rb.dilations, tile,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
@@ -419,9 +461,10 @@ amp_resblock.launches_bf16 = 0  # bf16 kernel
 
 
 def amp_stack(x: torch.Tensor, stage: list[ResblockParams],
-              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
+              start: torch.Tensor | None = None) -> torch.Tensor:
     """A vocoder stage through :func:`amp_resblock`: blocks averaged."""
-    return average([amp_resblock(x, rb, compute_dtype) for rb in stage])
+    return average([amp_resblock(x, rb, compute_dtype, ctx=ctx, start=start) for rb in stage])
 
 
 def supported(cfg) -> bool:

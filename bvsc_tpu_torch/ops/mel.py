@@ -113,10 +113,19 @@ class MelFrontend:
     def num_frames(self, length: int) -> int:
         return 1 + (length + self.pad_left + self.pad_right - self.n_fft) // self.hop_size
 
-    def __call__(self, y: torch.Tensor) -> torch.Tensor:
-        y = F.pad(y[:, None, :], (self.pad_left, self.pad_right), mode="reflect")[:, 0]
-        frames = y.unfold(-1, self.n_fft, self.hop_size) * self.window  # (B, F, n_fft)
+    def pad(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, L) -> (B, pad_left + L + pad_right), reflect-padded."""
+        return F.pad(y[:, None, :], (self.pad_left, self.pad_right), mode="reflect")[:, 0]
+
+    def log_mel(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, F, n_fft) unwindowed frames -> (B, num_mels, F) log-mel.  The
+        one-shot call and the streaming paths (``streaming.py``) share it, so
+        a frame's mel is the same arithmetic on both."""
+        frames = frames * self.window
         re = torch.matmul(frames, self.cos_basis)
         im = torch.matmul(frames, self.sin_basis)
         mag = torch.sqrt(re * re + im * im + 1e-9).transpose(-1, -2)  # (B, bins, F)
         return dynamic_range_compression(torch.matmul(self.mel_basis, mag))
+
+    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+        return self.log_mel(self.pad(y).unfold(-1, self.n_fft, self.hop_size))

@@ -76,6 +76,40 @@ Phases, each printing one JSON line with its seconds:
    of ``decode`` and of ``decode(lost=)`` in each mode (CUDA events around
    single calls taken in turns; median, least and most of 5).
 
+8. ``golden``: the parity codec (trained pair) at B = 1 on the demo
+   utterance (58 239 samples, 3 kbps) against the goldens ``bvsc_tpu``
+   wrote (``tools/write_goldens.py`` ->
+   ``chkpts_npz/golden_demo_stim15_3kbps.npz``, read with numpy):
+   ``decode_to_mel`` of the golden codes within 1e-4 of the golden mel
+   (the gap printed beside the CPU gate of 2e-5), ``decode`` of them at
+   SNR > 40 dB against the golden waveform, and ``encode``'s codes
+   bit-exact (the flipped bits counted, with the first one's frame and
+   |enc - 0.5|); resynthesis's SNR against the golden waveform printed.
+9. ``streaming``: ``bvsc_tpu_torch.streaming`` on the main path's batch and
+   trained pair, at parity and in fast ``'auto'`` mode, against the same
+   codec's one-shot calls.  ``FusedPacketCodec`` in 256-sample packets and
+   ``flush()`` against ``codec(x)`` (1e-5 parity, 7e-2 fast), its codes
+   against ``encode``'s and the K1 launch counts read around it (12 a step
+   in the mode's kernel, 0 in the other); ``StreamingEncoder`` at chunks
+   of 256, 1 000 and 4 096 against ``encode`` (bitwise at parity, the
+   agreement printed in fast mode); the first code at sample 768;
+   ``StreamingDecoder`` frame by frame against ``decode``, clean and with
+   ``plc``'s losses (stream 0 concealed at 3 kbps), both 1e-5 at parity
+   and 7e-2 fast.  Codes and waveforms are held on the frames whose
+   analysis window lies inside the input: the last two read the reflected
+   tail in a stream and the length bucket's zeros one-shot (their gaps are
+   printed).  Then each stage's streamed kernel output against the
+   one-shot kernel output on the same seeded signal (bit-equality and the
+   largest gap printed), the kernel stage with ``ctx``/``start`` against
+   its plain version on one packet's windows (the first packet's and a
+   later one's, and with per-row starts) within the kernel tolerances,
+   and, at M = B rows against M = B x frames, the bits of each product the
+   one-shot scan hoists over the frames.  Times, no limit: ms per packet
+   step (host wall time, synchronised; median and p90 of 100 steps after
+   10) at B = 1 and 4 in both modes, the vocoder step alone with kernel
+   and with plain stages, and the real-time factor against the 11.61 ms a
+   packet lasts.  The TF32 flags are unchanged at its end.
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -93,6 +127,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
+from bvsc_tpu_torch import streaming as S
 from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, gru_steps, k1_tiles,
                                         seeded_vocoder)
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
@@ -153,6 +188,15 @@ PLC_LOSS = 0.10  # Bernoulli loss rate of each frame
 PLC_BURST = 5  # frames of each stream's one burst
 PLC_CONCEAL_BITRATE = 3000  # stream 0's concealment allocation; the others use every bit
 PLC_MANUAL_TOL = 1e-4  # a concealed frame against the hand-made substitution
+GOLDEN = os.path.join(REPO, "chkpts_npz", "golden_demo_stim15_3kbps.npz")
+GOLDEN_MEL_TOL = 1e-4  # the decoded mel against bvsc_tpu's on the card (sums in another order)
+GOLDEN_MEL_CPU = 2e-5  # the port's BVRNN gate on the CPU, printed beside the card's gap
+GOLDEN_SNR_DB = 40.0  # the codec gate (ROADMAP.md, North star)
+STREAM_TOL = 1e-5  # streaming against one-shot at parity: the overlap-add's reordered sums
+STREAM_FAST_TOL = 7e-2  # the same in fast mode (the reference's fast streaming bound)
+STREAM_CHUNKS = (256, 1000, 4096)
+STREAM_STEPS, STREAM_WARMUP = 100, 10  # timed packet steps, after the warm-up ones
+STREAM_STAGE_STEPS = 16  # packets of one stage streamed against its one-shot output
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -657,6 +701,340 @@ def plc_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray, s
          manual_tol=PLC_MANUAL_TOL, nvidia_smi=smi, **report)
 
 
+def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
+    """The reference's SNR (``bvsc_tpu/eval/metrics.py``)."""
+    err = ref.astype(np.float64) - test
+    return float(10 * np.log10((ref.astype(np.float64) ** 2).mean() / max((err ** 2).mean(), 1e-20)))
+
+
+def enc_margin(codec: BVRNNCodecModel, x: torch.Tensor, frame: int, bit: int) -> float:
+    """|enc - 0.5| of one code before its rounding, from the parity codec's
+    own state before ``frame`` (standard cell)."""
+    mel, _, h_seq, _ = parity_states(codec, x)
+    sp, prec = codec.scan_params.std, codec.bvrnn_cfg.precision
+    with torch.no_grad():
+        phi_x = bvrnn_mod.phi_x_apply(sp, bvrnn_mod._normalize(sp, mel[:, frame]), prec)
+        enc = bvrnn_mod.enc_apply(sp, torch.cat([phi_x, h_seq[:, frame]], -1), prec)
+    return abs(enc[0, bit].item() - 0.5)
+
+
+def golden_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
+    """The parity codec at B = 1 against ``bvsc_tpu``'s goldens; see the
+    module docstring.  The numbers are printed before any gate is applied."""
+    t0 = time.time()
+    with np.load(GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    L, bitrate = int(g["length"]), float(g["bitrate"])
+    if speech.shape != (L,) or bitrate != BITRATE:
+        raise AssertionError(f"goldens for {L} samples at {bitrate} bps, input {speech.shape}")
+    x = torch.from_numpy(speech[None]).to(DEV)
+    gold_codes = torch.from_numpy(g["codes"].astype(np.float32) / 2)[None].to(DEV)
+    mel_gap = max_err(codec.decode_to_mel(gold_codes)[0], torch.from_numpy(g["mel"]).to(DEV))
+    decode_snr = snr_db(g["wav"], codec.decode(gold_codes, L)[0].cpu().numpy())
+    resynthesis_snr = snr_db(g["wav"], codec(x, bitrate)[0].cpu().numpy())
+    flips = (codec.encode(x, bitrate) != gold_codes)[0].nonzero().tolist()
+    first = None
+    if flips:
+        frame, bit = flips[0]
+        first = {"frame": frame, "bit": bit, "enc_margin": enc_margin(codec, x, frame, bit)}
+    emit("golden", t0, samples=L, bitrate=bitrate, frames=int(g["codes"].shape[0]),
+         mel_gap=mel_gap, mel_tol=GOLDEN_MEL_TOL, mel_cpu_gate=GOLDEN_MEL_CPU,
+         mel_within_cpu_gate=mel_gap <= GOLDEN_MEL_CPU, decode_snr_db=decode_snr,
+         resynthesis_snr_db=resynthesis_snr, flipped_bits=len(flips), first_flip=first,
+         nvidia_smi=smi)
+    check("golden decoded mel", mel_gap, GOLDEN_MEL_TOL)
+    if not decode_snr > GOLDEN_SNR_DB:
+        raise AssertionError(f"golden decode SNR {decode_snr} dB <= {GOLDEN_SNR_DB}")
+    if flips:
+        raise AssertionError(f"encode flips {len(flips)} golden code bits, the first {first}")
+
+
+def inside_frames(codec: BVRNNCodecModel, L: int, n: int) -> int:
+    """Frames whose analysis window lies inside an input of L samples: all
+    n where L fills its length buckets (one-shot's right padding is then the
+    same reflection a stream makes), else those ending by sample L."""
+    if codec._pad_length(L) == L:
+        return n
+    return min(n, (L - (codec.conf.winsize - codec.conf.mel_pad_left)) // codec.conf.hopsize + 1)
+
+
+def packet_run(codec: BVRNNCodecModel, x: np.ndarray):
+    """x (B, L) through a ``FusedPacketCodec`` in 256-sample packets, the
+    remainder and ``flush()``, with the K1 launch counts read around it:
+    (waveform, codes of the emitted frames, steps, launches)."""
+    B, L = x.shape
+    hop = codec.conf.hopsize
+    fc = S.FusedPacketCodec(codec, batch=B, bitrate=BITRATE)
+    codes, step = [], fc._step
+
+    def recording(chunk):
+        out = step(chunk)
+        codes.append(out[0])
+        return out
+
+    fc._step = recording
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    outs = [fc.process(x[:, i: i + hop]) for i in range(0, L - hop + 1, hop)]
+    if L % hop:
+        outs.append(fc.process(x[:, L - L % hop:]))
+    outs.append(fc.flush())
+    torch.cuda.synchronize()
+    launches = {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+    wav = torch.cat(outs, 1)
+    return wav, torch.stack(codes, 1)[:, : wav.shape[1] // hop], len(codes), launches
+
+
+def encode_stream(codec: BVRNNCodecModel, x: np.ndarray, chunk: int) -> torch.Tensor:
+    enc = S.StreamingEncoder(codec, batch=x.shape[0], bitrate=BITRATE)
+    outs = [enc.feed(x[:, i: i + chunk]) for i in range(0, x.shape[1], chunk)]
+    return torch.cat(outs + [enc.flush()], 1)
+
+
+def decode_stream(codec: BVRNNCodecModel, codes: torch.Tensor, lost=None,
+                  conceal_bitrate=None) -> torch.Tensor:
+    """``StreamingDecoder`` fed frame by frame."""
+    dec = S.StreamingDecoder(codec, batch=codes.shape[0], conceal_bitrate=conceal_bitrate)
+    return torch.cat([dec.feed(codes[:, t: t + 1], None if lost is None else lost[:, t: t + 1])
+                      for t in range(codes.shape[1])], 1)
+
+
+def percentiles(times: list[float]) -> dict:
+    return {"median": float(np.median(times)), "p90": float(np.percentile(times, 90)),
+            "steps": len(times)}
+
+
+def packet_step_ms(codec: BVRNNCodecModel, x: np.ndarray) -> dict:
+    """Host milliseconds of one packet step (``FusedPacketCodec._step``,
+    synchronised on both sides) over ``STREAM_STEPS`` steps after
+    ``STREAM_WARMUP``, once the stream has started."""
+    B = x.shape[0]
+    hop, need = codec.conf.hopsize, codec.conf.winsize - codec.conf.mel_pad_left
+    fc = S.FusedPacketCodec(codec, batch=B, bitrate=BITRATE)
+    fc.process(x[:, :need])
+    times = []
+    for i in range(STREAM_WARMUP + STREAM_STEPS):
+        chunk = x[:, need + i * hop: need + (i + 1) * hop]
+        _, t = timed(lambda: fc._step(chunk))
+        times.append(t)
+    return percentiles(times[STREAM_WARMUP:])
+
+
+def vocoder_step_ms(codec: BVRNNCodecModel, B: int, plain: bool) -> dict:
+    """Host milliseconds of one streaming vocoder step on one seeded mel
+    frame (the same windows every time), its stages through the kernel or,
+    with ``plain``, through ``amp_stack_plain``."""
+    vcfg = codec.conf.vocoder_config
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    mel = 2 * torch.randn(B, vcfg.num_mels, 1, device=DEV, generator=gen) - 4
+    state = S.generator_stream_init(vcfg, B, DEV)
+    times = []
+    S.amp_stack = AR.amp_stack_plain if plain else AR.amp_stack
+    try:
+        with torch.no_grad():
+            for _ in range(STREAM_WARMUP + STREAM_STEPS):
+                (state, _), t = timed(lambda: S.generator_stream_step(
+                    codec.vocoder_params, codec.kernel_blocks, vcfg, state, mel,
+                    precision=codec.precision, compute_dtype=codec.voc_compute_dtype))
+                times.append(t)
+    finally:
+        S.amp_stack = AR.amp_stack
+    return percentiles(times[STREAM_WARMUP:])
+
+
+def stage_stream_vs_oneshot(codec: BVRNNCodecModel, compute_dtype: torch.dtype) -> list[dict]:
+    """Each stage's kernel over ``STREAM_STAGE_STEPS`` packets of a seeded
+    signal (its per-packet samples a step, over the carried context)
+    against the one-shot kernel on the whole signal."""
+    vcfg = codec.conf.vocoder_config
+    ctx = S.stage_context(vcfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    out, n = [], 1
+    for stage, (u, blocks) in enumerate(zip(vcfg.upsample_rates, codec.kernel_blocks)):
+        n *= u
+        C = blocks[0].channels
+        x = 0.3 * torch.randn(BATCH, C, STREAM_STAGE_STEPS * n, device=DEV, generator=gen)
+        one = AR.amp_stack(x, blocks, compute_dtype)
+        state = {"ctx": torch.zeros(BATCH, C, ctx, device=DEV),
+                 "fed": torch.zeros(BATCH, dtype=torch.int32, device=DEV)}
+        parts = []
+        for i in range(STREAM_STAGE_STEPS):
+            state, y = S._stream_stage(state, x[..., i * n: (i + 1) * n].contiguous(), blocks,
+                                       compute_dtype)
+            parts.append(y)
+        got = torch.cat(parts, -1)
+        out.append({"stage": stage, "new_per_step": n, "bit_equal": torch.equal(got, one),
+                    "max_abs_gap": max_err(got, one)})
+    return out
+
+
+def recorded_windows(codec: BVRNNCodecModel, x: np.ndarray, steps: int) -> list:
+    """The (window, stage, ctx, start) each stage's ``amp_stack`` got in the
+    first and in the ``steps``-th packet step of a stream."""
+    B = x.shape[0]
+    hop, need = codec.conf.hopsize, codec.conf.winsize - codec.conf.mel_pad_left
+    fc = S.FusedPacketCodec(codec, batch=B, bitrate=BITRATE)
+    calls = []
+
+    def stage(window, blocks, compute_dtype, ctx=0, start=None):
+        calls.append((window, blocks, ctx, start.clone()))
+        return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
+
+    S.amp_stack = stage
+    try:
+        fc.process(x[:, :need])  # the first step
+        first = list(calls)
+        fc.process(x[:, need: need + steps * hop])
+    finally:
+        S.amp_stack = AR.amp_stack
+    return first + calls[-len(first):]
+
+
+def stage_windows_vs_plain(codec: BVRNNCodecModel, x: np.ndarray) -> dict:
+    """The kernel stage with ``ctx``/``start`` against ``amp_stack_plain``
+    with the same arguments, on the first packet's windows and a later
+    one's, with their own starts and with per-row starts (a row that began
+    this step, inside the context, at its edge and long ago)."""
+    mode = codec.voc_compute_dtype
+    tol = BF16_KERNEL_TOL if mode == torch.bfloat16 else KERNEL_TOL
+    errs = []
+    for window, blocks, ctx, start in recorded_windows(codec, x, 20):
+        rows = torch.tensor([0, 5, ctx, 10 * ctx], dtype=torch.int32, device=DEV)[: window.shape[0]]
+        for st in (start, rows.contiguous()):
+            err = max_err(AR.amp_stack(window, blocks, mode, ctx=ctx, start=st),
+                          AR.amp_stack_plain(window, blocks, mode, ctx=ctx, start=st))
+            errs.append(check(f"streaming stage {tuple(window.shape)} start {st.tolist()}", err, tol))
+    return {"windows": len(errs), "max_abs_err": max(errs), "tol": tol}
+
+
+def hoisted_product_bits(codec: BVRNNCodecModel, x: torch.Tensor) -> dict:
+    """Each product the one-shot path computes over all frames at once,
+    against the same product frame by frame (M = B rows, as a stream
+    computes it): the largest difference (0.0: bit-equal)."""
+    B, L = x.shape
+    Lp = codec._pad_length(L)
+    prec = codec.bvrnn_cfg.precision
+    fe = codec.frontend
+    with torch.no_grad():
+        frames = (fe.pad(torch.nn.functional.pad(x, (0, Lp - L)) * SCALING)
+                  .unfold(-1, fe.n_fft, fe.hop_size) * fe.window)  # (B, F, n_fft)
+        mel = codec._mel(torch.nn.functional.pad(x, (0, Lp - L)))  # (B, F, M)
+        sp = codec.scan_params.std
+        y = bvrnn_mod._normalize(sp, mel)
+        out = {}
+
+        def per_frame(fn, a):
+            return torch.stack([fn(a[:, t]) for t in range(a.shape[1])], 1)
+
+        out["dft_cos"] = max_err(frames @ fe.cos_basis, per_frame(lambda f: f @ fe.cos_basis, frames))
+        re, im = frames @ fe.cos_basis, frames @ fe.sin_basis
+        mag = torch.sqrt(re * re + im * im + 1e-9).transpose(-1, -2)  # (B, bins, F)
+        out["filterbank"] = max_err(fe.mel_basis @ mag, torch.cat(
+            [fe.mel_basis @ mag[..., t: t + 1] for t in range(mag.shape[-1])], -1))
+        for i, layer in enumerate(sp["phi_x"]):
+            fn = lambda a, layer=layer: bvrnn_mod._dense(layer, a, prec)  # noqa: E731
+            out[f"phi_x_{i}"] = max_err(fn(y), per_frame(fn, y))
+            y = torch.nn.functional.elu(fn(y))
+        if codec.scan_params.fused is not None and bvrnn_mod._use_fused(codec.bvrnn_cfg, B):
+            w = codec.scan_params.fused["w_enc1_x"]
+            fn = lambda a: bvrnn_mod._matmul(a, w, prec)  # noqa: E731
+            out["encx"] = max_err(fn(y), per_frame(fn, y))
+    return out
+
+
+def streaming_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                    smi: str) -> None:
+    """The streaming runtime against one-shot at parity and in fast
+    'auto' mode on the trained pair; see the module docstring."""
+    t0 = time.time()
+    B, L = wav.shape
+    x = torch.from_numpy(wav).to(DEV)
+    hop = parity.conf.hopsize
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    n_blocks = sum(len(blocks) for blocks in parity.kernel_blocks)
+    codes = parity.encode(x, BITRATE)
+    lost = loss_pattern(B, codes.shape[1])
+    cbps = np.full(B, codes.shape[2] * parity.conf.fs / hop)  # every bit
+    cbps[0] = PLC_CONCEAL_BITRATE
+    report = {}
+    for name, codec, kernel in (("parity", parity, "f32"), ("fast", fast, "bf16")):
+        t1 = time.time()
+        tol = STREAM_TOL if kernel == "f32" else STREAM_FAST_TOL
+        ref = codec(x, BITRATE)
+        ref_codes = codec.encode(x, BITRATE)
+        n = ref_codes.shape[1]
+        inside = inside_frames(codec, L, n)
+        bpf = int(codec.bits_per_frame(BITRATE))
+        r = {"frames": n, "inside_frames": inside, "tol": tol}
+
+        def held(got):
+            """Agreement with ``encode`` on the frames inside the input, and
+            on the tail frames."""
+            out = {"codes": agreement(got[:, :inside], ref_codes[:, :inside], bpf)}
+            if inside < n:
+                out["tail_codes"] = agreement(got[:, inside:n], ref_codes[:, inside:], bpf)
+            return out
+
+        wav_pkt, pkt_codes, steps, launches = packet_run(codec, wav)
+        want = {"f32": 0, "bf16": 0, kernel: n_blocks * steps}
+        if launches != want:
+            raise AssertionError(f"{name}: the packet run launched {launches}, expected {want} "
+                                 f"({steps} steps)")
+        if tuple(wav_pkt.shape) != (B, n * hop) or not torch.isfinite(wav_pkt).all():
+            raise AssertionError(f"{name}: packet output {tuple(wav_pkt.shape)}, finite "
+                                 f"{torch.isfinite(wav_pkt).all()}")
+        end = min(n * hop, L)
+        r["packet"] = {"steps": steps, "launches": launches,
+                       "launches_per_step": launches[kernel] / steps, **held(pkt_codes),
+                       "wav_gap": max_err(wav_pkt[:, : inside * hop], ref[:, : inside * hop])}
+        if inside * hop < end:
+            r["packet"]["tail_wav_gap"] = max_err(wav_pkt[:, inside * hop: end],
+                                                  ref[:, inside * hop: end])
+        r["encoder"] = {}
+        for chunk in STREAM_CHUNKS:
+            got = encode_stream(codec, wav, chunk)
+            if tuple(got.shape) != tuple(ref_codes.shape):
+                raise AssertionError(f"{name}: encoder at {chunk} gave {tuple(got.shape)}")
+            r["encoder"][chunk] = held(got)
+        enc = S.StreamingEncoder(codec, batch=B, bitrate=BITRATE)
+        r["first_code_at"] = [enc.feed(wav[:, :767]).shape[1], enc.feed(wav[:, 767:768]).shape[1]]
+        clean = decode_stream(codec, codes)
+        concealed = decode_stream(codec, codes, lost, cbps)
+        r["decoder"] = {  # one-shot decodes to L, past the codes' frames with 0.5 codes
+            "clean_gap": max_err(clean[:, :end], codec.decode(codes, L)[:, :end]),
+            "lossy_gap": max_err(concealed[:, :end], codec.decode(
+                codes, L, lost=lost,
+                conceal_bitrate=np.broadcast_to(cbps[:, None], lost.shape))[:, :end])}
+        r["stage_stream_vs_oneshot"] = stage_stream_vs_oneshot(codec, codec.voc_compute_dtype)
+        r["stage_vs_plain"] = stage_windows_vs_plain(codec, wav)
+        r["hoisted_product_gap"] = hoisted_product_bits(codec, x)
+        r["packet_step_ms"] = {f"B{b}": packet_step_ms(codec, wav[:b]) for b in (1, B)}
+        r["vocoder_step_ms"] = {f"B{b}": {"kernel": vocoder_step_ms(codec, b, False),
+                                          "plain": vocoder_step_ms(codec, b, True)} for b in (1, B)}
+        packet_s = hop / codec.conf.fs * 1e3
+        r["real_time_factor"] = {k: packet_s / v["median"] for k, v in r["packet_step_ms"].items()}
+        r["seconds"] = time.time() - t1
+        report[name] = r
+
+        # gates, after the numbers are kept
+        if r["first_code_at"] != [0, 1]:
+            raise AssertionError(f"{name}: codes after 767 and 768 samples: {r['first_code_at']}")
+        for what, gap in (("packet waveform", r["packet"]["wav_gap"]),
+                          ("decoder", r["decoder"]["clean_gap"]),
+                          ("decoder with losses", r["decoder"]["lossy_gap"])):
+            if not gap <= tol:
+                emit("streaming", t0, failed=name, nvidia_smi=smi, **report)
+                raise AssertionError(f"{name} {what} vs one-shot {gap} > {tol}")
+        if kernel == "f32":
+            exact = [r["packet"]["codes"]["all"]] + [e["codes"]["all"] for e in r["encoder"].values()]
+            if min(exact) != 1.0:
+                emit("streaming", t0, failed=name, nvidia_smi=smi, **report)
+                raise AssertionError(f"parity streaming codes differ from encode's: {exact}")
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+        raise AssertionError(f"the TF32 flags changed from {tf32}")
+    emit("streaming", t0, batch=B, samples=L, bitrate=BITRATE, packet_ms=hop / parity.conf.fs * 1e3,
+         nvidia_smi=smi, **report)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     """Least milliseconds on an H100, and what bounds them."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -899,6 +1277,8 @@ def main() -> None:
         emit("kernel_total", time.time(), kernel=kernel,
              **{key: v for key, v in tot.items() if key != "bound_by"})
     plc_phase(codec, fast, wav, smi)
+    golden_phase(codec, wav[0], smi)
+    streaming_phase(codec, fast, wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

@@ -2,8 +2,10 @@
 (bvsc_tpu_torch.ops.amp_resblock) against the JAX package: the Pallas
 kernel ``resblock_stack_folded`` in interpret mode (float32) and the direct
 ``_amp_block`` stack, at stages 0 and 3 at full channel width with T over
-several tiles.  The CUDA kernel itself is compared with the plain version
-on the card (``gpu`` marker; skipped without one)."""
+several tiles; and, in both modes, a streaming stage's carried context
+(``ctx``) and per-row stream start (``start``) in the plain and tiled
+versions.  The CUDA kernel itself is compared with the plain version on the
+card (``gpu`` marker; skipped without one)."""
 
 import numpy as np
 import jax
@@ -25,6 +27,12 @@ torch.set_num_threads(1)
 HIGH = jax.lax.Precision.HIGHEST
 TOL = 2e-5
 STAGE_T = {0: 700, 3: 3000}  # several tiles (and JAX grid blocks) per stage
+MODES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# Tiled against plain: float32 sums in another order; in bf16 mode that can
+# flip a bf16 rounding of a conv operand (tests/test_torch_amp_resblock_bf16.py)
+STREAM_TOL = {"f32": TOL, "bf16": 5e-5}
+CTX = 120  # the largest halo of a stage's blocks: what a streaming stage carries
+STREAM_T = 40  # new samples of a streaming step
 
 
 def perturbed_generator_params(vcfg, seed=1):
@@ -139,6 +147,65 @@ def test_halo_tile_and_shared_memory(params):
             C = rb.channels
             for tile in (AR.tile_for(C), AR.tile_for(C) // 2):
                 assert 3 * 4 * C * (AR.halo(rb.kernel_size, rb.dilations) + tile) <= AR.SMEM_LIMIT
+
+
+def _seeded(shape, seed):
+    return torch.from_numpy((0.3 * np.random.default_rng(seed).standard_normal(shape)).astype(
+        np.float32))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("stage", [0, 3])
+def test_stream_tiled_matches_plain(params, stage, mode):
+    """``amp_block_tiled`` with ``ctx`` and ``start`` against
+    ``amp_block_plain`` with them, at several tiles, for rows whose stream
+    began at the step (0), inside the context (50) and before it (400)."""
+    blocks = params[1][stage]
+    C = blocks[0].channels
+    x = _seeded((3, C, CTX + STREAM_T), 30 + stage)
+    start = torch.tensor([0, 50, 400], dtype=torch.int32)
+    ref = AR.amp_stack_plain(x, blocks, MODES[mode], ctx=CTX, start=start)
+    assert ref.shape == (3, C, STREAM_T)
+    for tile in (AR.MIN_TILE, 64, AR.tile_for(C, MODES[mode])):
+        got = AR.amp_stack_tiled(x, blocks, MODES[mode], tile=tile, ctx=CTX, start=start)
+        assert (got - ref).abs().max().item() <= STREAM_TOL[mode], tile
+
+
+@pytest.mark.parametrize("impl", ["plain", "tiled"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("stage", [0, 3])
+def test_stream_stage_equals_oneshot_columns(params, stage, mode, impl):
+    """A stage run on [context | new samples], ``start`` the samples its
+    stream fed before, equals the same columns of the one-shot stage bit for
+    bit; context from before the stream began (stale values here) is masked
+    away."""
+    blocks = params[1][stage]
+    C = blocks[0].channels
+    fn = AR.amp_stack_plain if impl == "plain" else AR.amp_stack_tiled
+    full = _seeded((2, C, 600), 40 + stage)
+    one = fn(full, blocks, MODES[mode])
+    for fed in (0, 50, 300):
+        window = full[..., max(fed - CTX, 0): fed + STREAM_T]
+        stale = torch.full((2, C, CTX - window.shape[-1] + STREAM_T), 7.0)
+        window = torch.cat([stale, window], -1)
+        got = fn(window, blocks, MODES[mode], ctx=CTX, start=torch.full((2,), fed, dtype=torch.int32))
+        assert torch.equal(got, one[..., fed: fed + STREAM_T]), fed
+
+
+@pytest.mark.parametrize("impl", ["plain", "tiled"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_offline_call_is_a_stream_from_its_start(params, mode, impl):
+    """``ctx=0, start=None``, the offline call, equals the same stage as a
+    stream from its start (any context masked away, ``start`` 0) and with
+    ``start`` given as zeros, bit for bit."""
+    blocks = params[1][3]
+    fn = AR.amp_stack_plain if impl == "plain" else AR.amp_stack_tiled
+    x = _seeded((2, 8, 300), 50)
+    ref = fn(x, blocks, MODES[mode], ctx=0, start=None)
+    zeros = torch.zeros(2, dtype=torch.int32)
+    assert torch.equal(fn(x, blocks, MODES[mode], ctx=0, start=zeros), ref)
+    window = torch.cat([torch.full((2, 8, CTX), -3.0), x], -1)
+    assert torch.equal(fn(window, blocks, MODES[mode], ctx=CTX, start=zeros), ref)
 
 
 @pytest.mark.gpu
