@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bvsc_tpu_torch.device import resolve_device
+
 
 def _hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
     """Slaney (Auditory Toolbox) Hz->mel: linear below 1 kHz, log above."""
@@ -82,7 +84,8 @@ def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.
 
 class MelFrontend:
     """(B, L) waveform -> (B, num_mels, F) log-mel, with the constants on
-    ``device``."""
+    ``device`` (default CUDA, which raises without a card; pass
+    ``device='cpu'`` for the CPU)."""
 
     def __init__(
         self,
@@ -94,8 +97,9 @@ class MelFrontend:
         fmax: float | None = 8000.0,
         padding_left: int = 256,
         *,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
+        device = resolve_device(device)
         self.pad_left = padding_left
         self.pad_right = n_fft - padding_left - hop_size
         self.n_fft = n_fft

@@ -109,6 +109,38 @@ Phases, each printing one JSON line with its seconds:
    10) at B = 1 and 4 in both modes, the vocoder step alone with kernel
    and with plain stages, and the real-time factor against the 11.61 ms a
    packet lasts.  The TF32 flags are unchanged at its end.
+10. ``serving``: ``bvsc_tpu_torch.serve`` at 128 slots on the trained pair.
+    A ``ServingEngine(max_streams=128)`` at parity and in fast ``'auto'``
+    mode (the standard cell at 128 slots) runs a schedule of 24 live
+    streams (seeded noisy crops of the demo of 20 000 to 54 753 samples, one
+    opened every 3 ticks at 1 000 / 3 000 / 5 512.5 bps, one 256-sample
+    packet a tick, ``begin_flush`` after the last, closed once drained);
+    stream 1 switches to 1 kbps after its 60th frame, and stream 5's slot is
+    reopened with its input when it ends.  The K1 launch counts are read
+    around each run (12 a tick in the mode's kernel, 0 in the other).  Held:
+    streams 0, 1, 2 and 23 against a dedicated B = 1 ``FusedPacketCodec``
+    with ``flush()`` on the same input and bitrates (at parity codes bitwise
+    and audio <= 1e-5 on the frames inside the input; fast against a B = 1
+    codec with ``fused_cell=False``, audio <= 7e-2, the code agreement
+    printed), and the reopened slot bitwise its first run.  A
+    ``DecodeEngine(max_streams=128)`` at parity decodes the main path's
+    codes with ``plc``'s losses on four slots: each within 1e-5 of a B = 1
+    ``StreamingDecoder(lost=)``, bitwise a clean engine run's before its
+    first loss, 12 K1 launches a tick.  A ``CodecDaemon(max_streams=128)`` on
+    loopback serves three concurrent clients of the port's client
+    (resynthesis, encoding, decoding with losses): the wire output bitwise
+    equal to direct engine runs; the daemon is closed.  Times, no limit: ms
+    per tick (median and p90 of 100 after 10) at 1, 32 and 128 active
+    streams of 128 slots, for both engines in both modes, each split into
+    the device step (``_tick_call``, synchronised) and the host's part; at
+    128 the device time of 10 more ticks from a ``torch.profiler`` trace
+    (and the idle share), K1 / K1-bf16 on one tick's stage windows against
+    plain (with the tick's and with per-row starts; float32 within 1e-4,
+    bf16 within the plain bf16 stack's own distance from the float32
+    stage) and timed, and the streams served in real time, 128 x 11.61 /
+    (tick ms).  The TF32 flags
+    are unchanged at its end; the phase prints its line, then fails if any
+    gate did.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -121,6 +153,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -140,6 +173,8 @@ from bvsc_tpu_torch.ops import _build
 from bvsc_tpu_torch.ops import amp_resblock as AR
 from bvsc_tpu_torch.ops import dot_probe as DP
 from bvsc_tpu_torch.ops import persistent_gru as PG
+from bvsc_tpu_torch.serve.daemon import CodecDaemon
+from bvsc_tpu_torch.serve.engine import DecodeEngine, ServingEngine
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
@@ -163,6 +198,9 @@ KERNEL_TOL = 1e-4  # float32, summation order differs over 6 chained convs
 # operand rounds the other way (~1e-5 moves, measured 3e-5 on the CPU
 # against the JAX kernel).
 BF16_KERNEL_TOL = 1e-3
+# K1-bf16 on a serving tick's windows: no further from the float32 stage than
+# the plain bf16 stack, to this factor (both carry the same rounding noise).
+TICK_BF16_MARGIN = 1.1
 FAST_WAVE_TOL = 2e-2  # the reference's fast-serving waveform contract
 AGREE_MIN = 0.995  # code agreement of every fast form with the parity path
 FAST_FORMS = {"auto": {}, "unfused": {"fused_cell": False},
@@ -197,6 +235,16 @@ STREAM_FAST_TOL = 7e-2  # the same in fast mode (the reference's fast streaming 
 STREAM_CHUNKS = (256, 1000, 4096)
 STREAM_STEPS, STREAM_WARMUP = 100, 10  # timed packet steps, after the warm-up ones
 STREAM_STAGE_STEPS = 16  # packets of one stage streamed against its one-shot output
+SERVE_SLOTS = 128  # the reference's serving config: 128 concurrent streams on one card
+SERVE_STREAMS = 24  # streams of the schedule, opened SERVE_STAGGER ticks apart
+SERVE_STAGGER = 3
+SERVE_BITRATES = (1000.0, 3000.0, 5512.5)  # stream i's: SERVE_BITRATES[i % 3]
+SERVE_HELD = (0, 1, 2, 23)  # streams held against a dedicated B = 1 packet codec
+SERVE_SWITCH = (1, 60, 1000.0)  # stream 1 switches to 1 kbps after its 60th frame
+SERVE_REOPEN = 5  # this stream's slot is closed at its end and reopened with its input
+SERVE_ACTIVE = (1, 32, 128)  # streams advancing in the timed ticks
+SERVE_STEPS, SERVE_WARMUP = 100, 10  # timed ticks, after the warm-up ones
+DAEMON_SAMPLES = 20000  # each daemon client's input
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -1035,6 +1083,439 @@ def streaming_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndar
          nvidia_smi=smi, **report)
 
 
+def count_calls(eng) -> list:
+    """Wrap ``eng._tick_call`` (the device step of a tick) so that each call
+    is timed, synchronised on both sides; returns the list of its ms."""
+    orig, times = eng._tick_call, []
+
+    def call(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._tick_call = call
+    return times
+
+
+def k1_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+
+
+def serve_inputs(speech: np.ndarray) -> list[np.ndarray]:
+    """The schedule's streams: seeded noisy copies of the demo, cropped to
+    lengths that differ from stream to stream (20 000 + 1 511 i samples)."""
+    out = []
+    for i in range(SERVE_STREAMS):
+        n = 20000 + 1511 * i
+        rng = np.random.default_rng([SEED, 200 + i])
+        out.append((speech[:n] + 0.01 * rng.standard_normal(n)).astype(np.float32))
+    return out
+
+
+def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray]) -> dict:
+    """The phase's schedule through one ``ServingEngine(max_streams=128)``,
+    each stream a live caller: stream i opens at tick ``SERVE_STAGGER`` i at
+    ``SERVE_BITRATES[i % 3]``, gets one 256-sample packet a tick, calls
+    ``begin_flush`` after its last and is closed once drained.  Stream
+    ``SERVE_SWITCH[0]`` switches bitrate after its ``SERVE_SWITCH[1]``-th
+    frame; the slot of stream ``SERVE_REOPEN``, closed at its end, is
+    reopened at once with the same input.  The K1 launch counts are read
+    around the run."""
+    hop = codec.conf.hopsize
+    eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+    steps = count_calls(eng)
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    live, out, slots, switched, t = {}, {}, {}, False, 0
+    while t < SERVE_STAGGER * SERVE_STREAMS or live:
+        if t % SERVE_STAGGER == 0 and t // SERVE_STAGGER < SERVE_STREAMS:
+            i = t // SERVE_STAGGER
+            slots[i] = eng.open_stream(SERVE_BITRATES[i % 3])
+            live[i] = {"sid": slots[i], "x": inputs[i], "pos": 0, "codes": [], "wav": []}
+        for s in live.values():
+            if s["pos"] < len(s["x"]):
+                eng.push(s["sid"], s["x"][s["pos"]: s["pos"] + hop])
+                s["pos"] += hop
+                if s["pos"] >= len(s["x"]):
+                    eng.begin_flush(s["sid"])
+        res = eng.tick()
+        for s in live.values():
+            if s["sid"] in res:
+                s["codes"].append(res[s["sid"]][0])
+                s["wav"].append(res[s["sid"]][1])
+        stream, frame, bps = SERVE_SWITCH
+        if not switched and stream in live and len(live[stream]["codes"]) == frame:
+            eng.set_bitrate(live[stream]["sid"], bps)
+            switched = True
+        for key in [k for k, s in live.items()
+                    if s["pos"] >= len(s["x"]) and not eng.has_frame(s["sid"])]:
+            s = live.pop(key)
+            eng.close_stream(s["sid"])
+            out[key] = (np.stack(s["codes"]), np.concatenate(s["wav"]))
+            if key == SERVE_REOPEN:
+                eng._free.remove(s["sid"])  # the free list is FIFO: hand this slot out next
+                eng._free.insert(0, s["sid"])
+                slots["reopen"] = eng.open_stream(SERVE_BITRATES[SERVE_REOPEN % 3])
+                live["reopen"] = {"sid": slots["reopen"], "x": inputs[SERVE_REOPEN], "pos": 0,
+                                  "codes": [], "wav": []}
+        t += 1
+    launches = k1_launches()
+    if slots["reopen"] != slots[SERVE_REOPEN] or not switched:
+        raise AssertionError(f"the schedule did not run as planned: slots {slots}, "
+                             f"switched {switched}")
+    return {"out": out, "ticks": t, "steps": len(steps), "launches": launches}
+
+
+def packet_reference(codec: BVRNNCodecModel, x: np.ndarray, bitrate: float, switch=None):
+    """``x`` through a dedicated B = 1 ``FusedPacketCodec``, ``process()``
+    and ``flush()``: (codes (T, z), waveform) as numpy; ``switch=(frame,
+    bps)`` changes its bits before that frame."""
+    fpc = S.FusedPacketCodec(codec, batch=1, bitrate=bitrate)
+    codes, step = [], fpc._step
+
+    def recording(chunk):
+        if switch is not None and len(codes) == switch[0]:
+            fpc.bits.fill_(codec.bits_per_frame(switch[1]))
+        out = step(chunk)
+        codes.append(out[0][0])
+        return out
+
+    fpc._step = recording
+    wav = torch.cat([fpc.process(x[None]), fpc.flush()], 1)[0]
+    n = wav.shape[0] // codec.conf.hopsize
+    return torch.stack(codes)[:n].cpu().numpy(), wav.cpu().numpy()
+
+
+def held_slots(reference: BVRNNCodecModel, out: dict, inputs: list[np.ndarray]) -> list[dict]:
+    """Each of ``SERVE_HELD``'s engine slots against ``packet_reference`` on
+    the same input and bitrates: code agreement and the largest waveform
+    gap, on the frames whose analysis window lies inside the input and on
+    all."""
+    hop, rows = reference.conf.hopsize, []
+    for i in SERVE_HELD:
+        switch = SERVE_SWITCH[1:] if i == SERVE_SWITCH[0] else None
+        ref_codes, ref_wav = packet_reference(reference, inputs[i], SERVE_BITRATES[i % 3], switch)
+        codes, wav = out[i]
+        if codes.shape != ref_codes.shape or wav.shape != ref_wav.shape:
+            raise AssertionError(f"stream {i}: engine {codes.shape} {wav.shape}, B = 1 "
+                                 f"{ref_codes.shape} {ref_wav.shape}")
+        n = codes.shape[0]
+        inside = inside_frames(reference, len(inputs[i]), n)
+        eq = codes == ref_codes
+        row = {"stream": i, "samples": len(inputs[i]), "frames": n, "inside_frames": inside,
+               "bitrate": SERVE_BITRATES[i % 3], "switch": switch,
+               "codes_inside": float(eq[:inside].mean()), "codes_all": float(eq.mean()),
+               "wav_gap_inside": float(np.abs(wav - ref_wav)[: inside * hop].max()),
+               "wav_gap_all": float(np.abs(wav - ref_wav).max())}
+        if not eq.all():
+            frame, bit = (int(v) for v in np.argwhere(~eq)[0])
+            row["first_flip"] = {"frame": frame, "bit": bit}
+        rows.append(row)
+    return rows
+
+
+def decode_engine_run(codec: BVRNNCodecModel, codes: np.ndarray, lost) -> tuple:
+    """The B streams' codes (B, n, z) through one ``DecodeEngine(max_streams
+    =128)``, slot 0 concealed at ``PLC_CONCEAL_BITRATE``, the others with
+    every bit: (waveforms (B, n hop), device steps, K1 launches)."""
+    eng = DecodeEngine(codec, max_streams=SERVE_SLOTS)
+    steps = count_calls(eng)
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    sids = [eng.open_stream(conceal_bitrate=PLC_CONCEAL_BITRATE if b == 0 else None)
+            for b in range(codes.shape[0])]
+    for b, sid in enumerate(sids):
+        eng.push(sid, codes[b], lost=None if lost is None else lost[b])
+    res = [eng.tick() for _ in range(codes.shape[1])]
+    launches = k1_launches()
+    if eng.tick():
+        raise AssertionError("the decode engine ticked past its streams' frames")
+    return np.stack([np.concatenate([r[sid] for r in res]) for sid in sids]), len(steps), launches
+
+
+def solo_serve(codec: BVRNNCodecModel, x: np.ndarray, bitrate: float):
+    """A direct ``ServingEngine(max_streams=128)`` run of one stream, flushed
+    as the daemon's CLOSE flushes: (codes (T, z), waveform)."""
+    eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+    sid = eng.open_stream(bitrate)
+    eng.push(sid, x)
+    eng.begin_flush(sid)
+    codes, wav = [], []
+    while (res := eng.tick()):
+        codes.append(res[sid][0])
+        wav.append(res[sid][1])
+    return np.stack(codes), np.concatenate(wav)
+
+
+def daemon_run(codec: BVRNNCodecModel, inputs: list[np.ndarray], codes: np.ndarray,
+               lost: np.ndarray) -> dict:
+    """A ``CodecDaemon(max_streams=128)`` on loopback serving three
+    concurrent clients of the port's client (resynthesis at 3 kbps and
+    encoding at 1 kbps of two schedule inputs' first ``DAEMON_SAMPLES``,
+    and decoding stream 1's codes with its losses), against direct engine
+    runs of the same streams; the daemon is closed before this returns."""
+    from bvsc_tpu_torch.serve.client import CodecClient
+
+    x_res, x_enc = inputs[2][:DAEMON_SAMPLES], inputs[3][:DAEMON_SAMPLES]
+    bits = int(np.ceil(codec.bits_per_frame(BITRATE)))  # the codes' allocation: 0.5 past it
+    _, ref_res = solo_serve(codec, x_res, 3000.0)
+    ref_enc, _ = solo_serve(codec, x_enc, 1000.0)
+    dec = DecodeEngine(codec, max_streams=SERVE_SLOTS)
+    sid = dec.open_stream()
+    dec.push(sid, codes[1], lost=lost[1])
+    ref_dec = np.concatenate([dec.tick()[sid] for _ in range(codes.shape[1])])
+    results, t0 = {}, time.time()
+
+    def client(name, mode, bitrate, feed):
+        with CodecClient("127.0.0.1", d.port, mode=mode, bitrate=bitrate, timeout=120) as c:
+            feed(c)
+            c.close_input()
+            results[name] = c.drain()
+
+    def feed_decode(c):
+        for frame, flag in zip(codes[1], lost[1]):
+            c.send_lost(1) if flag else c.send_codes(frame[None], bits=bits)
+
+    with CodecDaemon(codec, port=0, max_streams=SERVE_SLOTS) as d:
+        threads = [threading.Thread(target=client, args=a, daemon=True) for a in (
+            ("resynth", "resynth", 3000.0, lambda c: c.send_audio(x_res)),
+            ("encode", "encode", 1000.0, lambda c: c.send_audio(x_enc)),
+            ("decode", "decode", None, feed_decode))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        hung = [t.name for t in threads if t.is_alive()]
+    if hung or len(results) != 3:
+        raise AssertionError(f"daemon clients hung {hung} or failed: got {sorted(results)}")
+    return {"seconds": time.time() - t0,
+            "resynth_bitwise": bool(np.array_equal(results["resynth"]["audio"], ref_res)),
+            "encode_bitwise": bool(np.array_equal(results["encode"]["codes"], ref_enc)),
+            "decode_bitwise": bool(np.array_equal(results["decode"]["audio"], ref_dec)),
+            "frames": {"resynth": len(ref_res) // 256, "encode": len(ref_enc),
+                       "decode": len(ref_dec) // 256}}
+
+
+def device_busy(eng, ticks: int) -> dict:
+    """Device time of ``ticks`` ticks of ``eng`` from a ``torch.profiler``
+    trace: the union of the card's kernel and copy intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"device_ms_per_tick": "not measured (no device events in the trace)"}
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"device_ms_per_tick": busy / 1e3 / ticks, "device_ops_per_tick": len(spans) / ticks}
+
+
+def tick_ms(codec: BVRNNCodecModel, kind: str, active: int, profiled: bool) -> tuple[dict, list]:
+    """Milliseconds of ``tick()`` of a 128-slot engine (``kind`` 'serve' or
+    'decode') with ``active`` streams advancing every tick: median and p90
+    of ``SERVE_STEPS`` ticks after ``SERVE_WARMUP``, each split into its
+    device step (``_tick_call``, synchronised) and the host's part (the rest:
+    the slot loop, queues, transfers, the read-back).  With ``profiled``,
+    the device time of 10 more ticks from a trace, and the stage windows
+    one more tick gives K1 (for the kernel check at this shape)."""
+    n = SERVE_WARMUP + SERVE_STEPS + 12
+    rng = np.random.default_rng([SEED, 300, active])
+    hop, z = codec.conf.hopsize, codec.conf.z_dim
+    if kind == "serve":
+        eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+        for _ in range(active):
+            sid = eng.open_stream(BITRATE)
+            eng.push(sid, (0.1 * rng.standard_normal(512 + n * hop)).astype(np.float32))
+    else:
+        eng = DecodeEngine(codec, max_streams=SERVE_SLOTS)
+        for _ in range(active):
+            sid = eng.open_stream()
+            eng.push(sid, (rng.random((n, z)) > 0.5).astype(np.float32),
+                     lost=rng.random(n) < PLC_LOSS)
+    steps, ticks = count_calls(eng), []
+    for _ in range(SERVE_WARMUP + SERVE_STEPS):
+        t = time.perf_counter()
+        res = eng.tick()
+        ticks.append((time.perf_counter() - t) * 1e3)
+        if len(res) != active:
+            raise AssertionError(f"{kind} tick advanced {len(res)} of {active} streams")
+    host = [a - b for a, b in zip(ticks, steps)]
+    k = SERVE_WARMUP
+    row = {"tick": percentiles(ticks[k:]), "device_step": percentiles(steps[k:]),
+           "host": percentiles(host[k:])}
+    windows = []
+    if profiled:
+        del eng._tick_call  # the unwrapped step: no synchronisation
+        row.update(device_busy(eng, 10))
+        if isinstance(row.get("device_ms_per_tick"), float):
+            row["device_idle_share"] = 1 - row["device_ms_per_tick"] / row["tick"]["median"]
+
+        def stage(window, blocks, compute_dtype, ctx=0, start=None):
+            windows.append((window, blocks, compute_dtype, ctx, start.clone()))
+            return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
+
+        S.amp_stack = stage
+        try:
+            eng.tick()
+        finally:
+            S.amp_stack = AR.amp_stack
+    return row, windows
+
+
+def tick_kernel_vs_plain(windows: list) -> dict:
+    """K1 (or K1-bf16) on one tick's stage windows (128 rows of a 120-sample
+    context and the new samples) against ``amp_stack_plain`` with the same
+    arguments, with the tick's own starts and with per-row starts, and
+    timed by CUDA events (mean of back-to-back calls) beside each stage's
+    bound.  Float32 is held to ``KERNEL_TOL``.  In bf16 both versions round
+    the same operands and sum in float32 in other orders, so each moves from
+    the float32 stage by bf16 rounding noise that grows with the stage's
+    values (stage 0 of the trained vocoder reaches ~20): bf16 is held to
+    that noise, measured on the same windows by the float32 plain stage,
+    the kernel-plain gap within the plain version's own distance from
+    float32, and the kernel no further from float32 than plain, with
+    ``TICK_BF16_MARGIN``; the gap is printed beside ``BF16_KERNEL_TOL``."""
+    stages, ok = [], True
+    for window, blocks, mode, ctx, start in windows:
+        rows = torch.tensor([0, 5, ctx, 10 * ctx], dtype=torch.int32, device=DEV)
+        row = {"shape": [window.shape[0], window.shape[1], ctx, window.shape[2] - ctx],
+               "launches": len(blocks), "max_abs_err": [], "noise": [], "kernel_vs_f32": []}
+        for st in (start, rows.repeat(window.shape[0] // 4 + 1)[: window.shape[0]].contiguous()):
+            kernel = AR.amp_stack(window, blocks, mode, ctx=ctx, start=st)
+            plain = AR.amp_stack_plain(window, blocks, mode, ctx=ctx, start=st)
+            row["max_abs_err"].append(max_err(kernel, plain))
+            if mode == torch.bfloat16:
+                f32 = AR.amp_stack_plain(window, blocks, torch.float32, ctx=ctx, start=st)
+                row["noise"].append(max_err(plain, f32))
+                row["kernel_vs_f32"].append(max_err(kernel, f32))
+                ok &= (row["max_abs_err"][-1] <= row["noise"][-1]
+                       and row["kernel_vs_f32"][-1] <= TICK_BF16_MARGIN * row["noise"][-1])
+            else:
+                ok &= row["max_abs_err"][-1] <= KERNEL_TOL
+        B, C, T = row["shape"][0], row["shape"][1], row["shape"][3]
+        row["bound_ms"], row["bound_by"] = stage_bound_ms(blocks, B, T, mode)
+        row["ms"] = cuda_ms(lambda: AR.amp_stack(window, blocks, mode, ctx=ctx, start=start))
+        row["plain_ms"] = cuda_ms(lambda: AR.amp_stack_plain(window, blocks, mode, ctx=ctx,
+                                                             start=start), reps=5, warmup=1)
+        stages.append(row)
+    bf16 = windows[0][2] == torch.bfloat16
+    return {"stages": stages, "max_abs_err": max(max(s["max_abs_err"]) for s in stages),
+            "tol": "bf16 rounding noise" if bf16 else KERNEL_TOL,
+            "abs_tol_of_other_bf16_checks": BF16_KERNEL_TOL if bf16 else None, "ok": bool(ok),
+            **{k: sum(s[k] for s in stages) for k in ("ms", "plain_ms", "bound_ms")}}
+
+
+def serving_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                  smi: str) -> None:
+    """The serving engines and the daemon at 128 slots on the trained pair;
+    see the module docstring."""
+    t0 = time.time()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if bvrnn_mod._use_fused(fast.bvrnn_cfg, SERVE_SLOTS) or not bvrnn_mod._use_fused(fast.bvrnn_cfg, 1):
+        raise AssertionError("fast 'auto' should run the standard cell at 128 slots, fused at 1")
+    unfused = BVRNNCodecModel(config=fast.conf, bvrnn_params=fast.bvrnn_params,
+                              vocoder_params=fast.vocoder_params, precision="default",
+                              fused_cell=False, device=DEV)
+    n_blocks = sum(len(blocks) for blocks in parity.kernel_blocks)
+    inputs = serve_inputs(wav[0])
+    report, gates = {}, []
+    for name, codec, reference, kernel in (("parity", parity, parity, "f32"),
+                                           ("fast", fast, unfused, "bf16")):
+        t1 = time.time()
+        run = serve_schedule(codec, inputs)
+        want = {"f32": 0, "bf16": 0, kernel: n_blocks * run["steps"]}
+        held = held_slots(reference, run["out"], inputs)
+        first, again = run["out"][SERVE_REOPEN], run["out"]["reopen"]
+        r = {"ticks": run["ticks"], "device_steps": run["steps"], "launches": run["launches"],
+             "launches_per_tick": run["launches"][kernel] / run["steps"],
+             "streams": SERVE_STREAMS + 1, "held": held,
+             "reopened_bitwise": bool(np.array_equal(first[0], again[0])
+                                      and np.array_equal(first[1], again[1]))}
+        gates.append((f"{name}: launches {run['launches']} == {want}", run["launches"] == want))
+        gates.append((f"{name}: the reopened slot repeats its first run bitwise",
+                      r["reopened_bitwise"]))
+        tol = STREAM_TOL if kernel == "f32" else STREAM_FAST_TOL
+        for h in held:
+            gates.append((f"{name} stream {h['stream']}: audio gap {h['wav_gap_inside']} <= {tol}",
+                          h["wav_gap_inside"] <= tol))
+            if kernel == "f32":
+                gates.append((f"parity stream {h['stream']}: codes bitwise inside "
+                              f"({h['codes_inside']})", h["codes_inside"] == 1.0))
+        r["seconds"] = time.time() - t1
+        report[name] = r
+
+    # the decode engine at parity: plc's losses, against B = 1 decoders
+    t1 = time.time()
+    x = torch.from_numpy(wav).to(DEV)
+    codes = parity.encode(x, BITRATE)
+    B, n = codes.shape[:2]
+    lost = loss_pattern(B, n)
+    first_lost = [int(np.argmax(lost[b] > 0)) for b in range(B)]
+    codes_np = codes.cpu().numpy()
+    got, steps, launches = decode_engine_run(parity, codes_np, lost)
+    clean, _, _ = decode_engine_run(parity, codes_np, None)
+    hop = parity.conf.hopsize
+    dec = {"streams": B, "frames": n, "lost_frames": int(lost.sum()), "device_steps": steps,
+           "launches": launches, "launches_per_tick": launches["f32"] / steps, "slots": []}
+    for b in range(B):
+        cb = [PLC_CONCEAL_BITRATE] if b == 0 else None
+        ref = decode_stream(parity, codes[b: b + 1], lost[b: b + 1], cb)[0].cpu().numpy()
+        f = first_lost[b]
+        dec["slots"].append({"stream": b, "first_lost": f,
+                             "gap_vs_streaming_decoder": float(np.abs(got[b] - ref).max()),
+                             "prefix_gap_vs_clean": float(np.abs(got[b, : f * hop]
+                                                                 - clean[b, : f * hop]).max())})
+    dec["seconds"] = time.time() - t1
+    report["decode"] = dec
+    gates.append((f"decode launches {launches}", launches == {"f32": n_blocks * steps, "bf16": 0}))
+    for s in dec["slots"]:
+        gates.append((f"decode stream {s['stream']}: {s['gap_vs_streaming_decoder']} <= {STREAM_TOL}",
+                      s["gap_vs_streaming_decoder"] <= STREAM_TOL))
+        gates.append((f"decode stream {s['stream']}: prefix bitwise ({s['prefix_gap_vs_clean']})",
+                      s["prefix_gap_vs_clean"] == 0.0))
+
+    report["daemon"] = daemon_run(parity, inputs, codes_np, lost)
+    for key in ("resynth_bitwise", "encode_bitwise", "decode_bitwise"):
+        gates.append((f"daemon {key}", report["daemon"][key]))
+
+    # times: both engines, both modes, 1 / 32 / 128 active streams
+    t1 = time.time()
+    times, tick_kernels = {}, {}
+    for name, codec in (("parity", parity), ("fast", fast)):
+        for kind in ("serve", "decode"):
+            for active in SERVE_ACTIVE:
+                profiled = active == SERVE_SLOTS
+                row, windows = tick_ms(codec, kind, active, profiled)
+                times[f"{name}_{kind}_{active}"] = row
+                if profiled and kind == "serve":
+                    tick_kernels[name] = tick_kernel_vs_plain(windows)
+    packet_ms = hop / parity.conf.fs * 1e3
+    served = {f"{name}_{kind}": SERVE_SLOTS * packet_ms / times[f"{name}_{kind}_{SERVE_SLOTS}"]
+              ["tick"]["median"] for name in ("parity", "fast") for kind in ("serve", "decode")}
+    report["times_seconds"] = time.time() - t1
+    for name, k in tick_kernels.items():
+        gates.append((f"{name}: K1 at the tick's shape vs plain ({k['max_abs_err']}, {k['tol']})",
+                      k["ok"]))
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+        gates.append((f"the TF32 flags changed from {tf32}", False))
+    failed = [what for what, ok in gates if not ok]
+    emit("serving", t0, slots=SERVE_SLOTS, packet_ms=packet_ms, nvidia_smi=smi, **report,
+         tick_ms=times, streams_in_real_time=served, tick_kernel=tick_kernels,
+         gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"serving: {len(failed)} gates failed: {failed}")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     """Least milliseconds on an H100, and what bounds them."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1279,6 +1760,7 @@ def main() -> None:
     plc_phase(codec, fast, wav, smi)
     golden_phase(codec, wav[0], smi)
     streaming_phase(codec, fast, wav, smi)
+    serving_phase(codec, fast, wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 def frontends():
     kw = dict(sampling_rate=22050, n_fft=1024, num_mels=80, hop_size=256,
               fmin=0.0, fmax=8000.0, padding_left=256)
-    return jmel.MelFrontend(**kw), tmel.MelFrontend(**kw)
+    return jmel.MelFrontend(**kw), tmel.MelFrontend(**kw, device="cpu")
 
 
 def test_logmel_matches_jax(frontends, rng):
@@ -48,3 +48,11 @@ def test_constants_match_jax():
     for a, b in zip(tmel.dft_real_bases(1024), jmel.dft_real_bases(1024)):
         np.testing.assert_array_equal(a, b)
 
+
+def test_default_device_is_cuda():
+    """No silent CPU fallback: without a card the default device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmel.MelFrontend()
+    assert tmel.MelFrontend(device="cpu").window.device.type == "cpu"
