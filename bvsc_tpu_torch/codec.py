@@ -73,6 +73,26 @@ def _host_array(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
+def _seeds(seed: int):
+    """The BVRNN's and the vocoder's init seeds from the codec's ``seed``."""
+    return np.random.SeedSequence(seed).generate_state(2)
+
+
+def host_bvrnn_params(conf: CodecConfig, bvrnn_chkpt_path: str | None = None,
+                      seed: int = 0) -> dict:
+    """The BVRNN weights ``BVRNNCodecModel(config=conf, bvrnn_chkpt_path=,
+    seed=)`` loads, on the host: the flat ``.npz`` checkpoint, or without one
+    the random init from ``seed``.  ``entropy.PriorEntropyCoder`` takes
+    these."""
+    if bvrnn_chkpt_path is None:
+        cfg = bvrnn_mod.BVRNNConfig(x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim)
+        return bvrnn_mod.init_bvrnn_params(_seeds(seed)[0], cfg,
+                                           log_sigma_init=conf.log_sigma_init)
+    if bvrnn_chkpt_path.endswith(".npz"):
+        return load_bvrnn_npz(bvrnn_chkpt_path)
+    raise _not_ported("loading a non-npz BVRNN checkpoint", _BVRNN_CHECKPOINTS)
+
+
 class BVRNNCodecModel:
     """Bitrate-scalable neural speech codec (API of ``bvsc_tpu``'s model)."""
 
@@ -162,19 +182,12 @@ class BVRNNCodecModel:
             padding_left=conf.mel_pad_left,
             device=self.device,
         )
-        seed_bvrnn, seed_voc = np.random.SeedSequence(seed).generate_state(2)
         if bvrnn_params is None:
-            if bvrnn_chkpt_path is None:
-                bvrnn_params = bvrnn_mod.init_bvrnn_params(
-                    seed_bvrnn, self.bvrnn_cfg, log_sigma_init=conf.log_sigma_init
-                )
-            elif bvrnn_chkpt_path.endswith(".npz"):
-                bvrnn_params = load_bvrnn_npz(bvrnn_chkpt_path)
-            else:
-                raise _not_ported("loading a non-npz BVRNN checkpoint", _BVRNN_CHECKPOINTS)
+            bvrnn_params = host_bvrnn_params(conf, bvrnn_chkpt_path, seed)
         if vocoder_params is None:
             if vocoder_chkpt_path is None:
-                vocoder_params = voc_mod.init_generator_params(seed_voc, conf.vocoder_config)
+                vocoder_params = voc_mod.init_generator_params(_seeds(seed)[1],
+                                                               conf.vocoder_config)
             else:
                 vocoder_params = load_vocoder_npz(vocoder_chkpt_path)
         self.bvrnn_params = to_torch(bvrnn_params, self.device)

@@ -4,9 +4,8 @@ Port of ``bvsc_tpu/ops/bitpack.py``, byte for byte the same format: packs
 the first-k priority bits of each frame into a contiguous little-endian
 bitstream (k bits per 11.6 ms frame = the actual transmitted payload).  Uses
 the port's own C source (``bvsc_tpu_torch/native/bitpack.c``), compiled on
-first use with ``cc`` into ``bvsc_tpu_torch/_build/`` under a name keyed by
-the source's hash (never a checked-in binary), with a pure-numpy fallback
-when no C compiler is there.
+first use with ``cc`` into ``bvsc_tpu_torch/_build/`` (``ops._cc``), with a
+pure-numpy fallback when no C compiler is there.
 
 Both paths validate the payload length before touching native memory:
 ``unpack_codes`` raises ``ValueError`` on a truncated payload instead of
@@ -16,41 +15,26 @@ reading out of bounds, and negative bit counts are clamped to zero.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "native", "bitpack.c")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from bvsc_tpu_torch.ops import _cc
+
+_SRC = _cc.source("bitpack")
+BUILD_DIR = _cc.BUILD_DIR
 _lib = None
 _tried = False
 
 
 def _load_native():
-    """Compile bitpack.c (keyed by its source hash) into ``_build/`` and load
-    it; None when there is no C compiler."""
+    """Compile bitpack.c (``ops._cc``) and load it; None when there is no C
+    compiler."""
     global _lib, _tried
     if _tried:
         return _lib
     _tried = True
-    try:
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so_path = os.path.join(BUILD_DIR, f"libbitpack-{digest}.so")
-        if not os.path.exists(so_path):
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            try:
-                subprocess.run(["cc", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
-                               check=True, capture_output=True)
-                os.replace(tmp, so_path)  # atomic: a concurrent build never sees half a file
-            finally:
-                if os.path.exists(tmp):  # cc failed: no stray half-built library
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(so_path)
+    lib = _cc.load("bitpack")
+    if lib is not None:
         lib.bvsc_pack.restype = ctypes.c_long
         lib.bvsc_pack.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
@@ -62,9 +46,7 @@ def _load_native():
             ctypes.POINTER(ctypes.c_int32),
             ctypes.c_long, ctypes.c_long, ctypes.POINTER(ctypes.c_float),
         ]
-        _lib = lib
-    except (OSError, subprocess.CalledProcessError):  # no C compiler: the numpy path
-        _lib = None
+    _lib = lib
     return _lib
 
 

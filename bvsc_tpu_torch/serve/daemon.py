@@ -10,8 +10,10 @@ batched step per engine, however many clients are connected.
 
 Wire protocol: ``bvsc_tpu_torch/serve/protocol.py`` (framed little-endian
 binary, the same bytes as ``bvsc_tpu``'s; code payloads use the first-k bit
-packing of ``.bvsc`` files).  Clients: ``bvsc_tpu_torch/serve/client.py``,
-``bvsc_tpu``'s own Python client and its native C client all speak it.
+packing of ``.bvsc`` files, or, for a stream that negotiates
+``FLAG_ENTROPY``, the adaptive rANS coding of ``serve/entropy_wire.py``).
+Clients: ``bvsc_tpu_torch/serve/client.py``, ``bvsc_tpu``'s own Python
+client and its native C client all speak it.
 
 Threading model: per-connection reader threads parse messages and enqueue
 input; one ticker thread owns all device work (the engines are advanced and
@@ -24,10 +26,17 @@ produces (the one-shot-equivalent flush tail included) before the server
 closes the socket; a client that vanishes (EOF without ``CLOSE``) has its
 slot freed at once.
 
+Entropy-coded streams (``FLAG_ENTROPY``, encode and decode modes): the
+reader thread decodes each ``CODES_ENT`` in arrival order with its
+connection's coder; the ticker aggregates ``entropy_block`` encoded frames
+per ``CODES_ENT_OUT`` (a bitrate change flushes the pending block first,
+and a drained stream flushes its remainder), so the block boundaries
+follow the codes and the rate schedule alone, never the tick timing, and
+the wire bytes are reproducible.  A corrupt payload is a protocol error on
+its connection; the daemon keeps serving.
+
 Not ported yet, and refused with the queue item named: an AOT serving
-bundle in place of a live codec (``ROADMAP.md``, queue 1, item 9) and the
-entropy-coded wire option, ``FLAG_ENTROPY`` (item 8); the latter is a
-protocol error on its connection and the daemon keeps serving.
+bundle in place of a live codec (``ROADMAP.md``, queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -40,14 +49,16 @@ import struct
 import threading
 import time
 
+import numpy as np
+
 from bvsc_tpu_torch.codec import BVRNNCodecModel, _not_ported
 from bvsc_tpu_torch.serve import protocol as P
 from bvsc_tpu_torch.serve.engine import DecodeEngine, EngineStateLost, ServingEngine
+from bvsc_tpu_torch.serve.entropy_wire import AdaptiveCodesCoder
 
 log = logging.getLogger("bvsc_tpu_torch.serve.daemon")
 
 _BUNDLE = "ROADMAP.md, queue 1, item 9 (AOT export)"
-_ENTROPY = "ROADMAP.md, queue 1, item 8 (entropy coding)"
 
 
 class _Conn:
@@ -66,6 +77,14 @@ class _Conn:
         self.sid: int | None = None
         self.closing = False  # CLOSE received: drain queued input, then FIN
         self.dead = False  # slot freed; no more routing to this conn
+        # negotiated adaptive entropy coding (protocol.FLAG_ENTROPY):
+        # enc_coder compresses outbound code frames (ticker thread only),
+        # dec_coder decompresses inbound CODES_ENT (reader thread only)
+        self.ent_block = 8
+        self.enc_coder: AdaptiveCodesCoder | None = None
+        self.dec_coder: AdaptiveCodesCoder | None = None
+        self.ent_pending: list[np.ndarray] = []  # buffered outbound frames
+        self.ent_pending_bits = -1
         self._outq: collections.deque[tuple[int, bytes]] = collections.deque()
         self._out_bytes = 0
         self._outq_limit = outq_limit
@@ -330,15 +349,20 @@ class CodecDaemon:
         msg = P.read_msg(conn.sock)
         if msg is None or msg[0] != P.MSG_HELLO:
             raise P.ProtocolError("expected HELLO")
-        mode, bitrate, flags, _ = P.unpack_hello(msg[1])
-        if flags & P.FLAG_ENTROPY:
-            raise P.ProtocolError(
-                f"entropy-coded payloads (FLAG_ENTROPY) are not ported yet; they come "
-                f"with {_ENTROPY}")
-        if flags:
+        mode, bitrate, flags, ent_block = P.unpack_hello(msg[1])
+        if flags & ~P.FLAG_ENTROPY:
             raise P.ProtocolError(f"unsupported HELLO flags 0x{flags:02x}")
         if bitrate is not None:
             bitrate = self._check_bitrate(bitrate)
+        if flags & P.FLAG_ENTROPY:
+            if mode == P.MODE_RESYNTH:
+                raise P.ProtocolError("entropy coding applies to encode/decode streams only")
+            conn.ent_block = ent_block
+            coder = AdaptiveCodesCoder(self.codec.conf.z_dim)
+            if mode == P.MODE_ENCODE:
+                conn.enc_coder = coder
+            else:
+                conn.dec_coder = coder
         conn.mode = mode
         with self._cond:
             if self._shutdown:
@@ -355,7 +379,8 @@ class CodecDaemon:
             except RuntimeError as e:  # no free slots
                 raise P.ProtocolError(str(e)) from e
         conf = self.codec.conf
-        conn.send(P.MSG_OPENED, P.pack_opened(conn.sid, conf.z_dim, conf.hopsize))
+        conn.send(P.MSG_OPENED, P.pack_opened(conn.sid, conf.z_dim, conf.hopsize,
+                                              flags=flags & P.FLAG_ENTROPY))
 
     def _push_decode(self, conn: _Conn, frames: int, push) -> None:
         """Queue ``frames`` decode frames through ``push`` under the lock,
@@ -385,7 +410,22 @@ class CodecDaemon:
                 n = P.unpack_u16(payload)
                 self._push_decode(conn, n, lambda: self._dec.push_lost(conn.sid, n))
             elif msg_type == P.MSG_CODES_ENT:
-                raise P.ProtocolError("CODES_ENT without negotiated entropy coding")
+                if conn.dec_coder is None:
+                    raise P.ProtocolError("CODES_ENT without negotiated entropy coding")
+                frames, bits, body = P.unpack_codes_ent_msg(payload)
+                if not conf.var_bit and bits != conf.z_dim:
+                    raise P.ProtocolError(
+                        f"fixed-bitrate codec: CODES_ENT must carry exactly {conf.z_dim} "
+                        f"bits/frame, got {bits}")
+                if bits > conf.z_dim:
+                    raise P.ProtocolError(f"CODES_ENT bits {bits} > z_dim {conf.z_dim}")
+                try:
+                    # stateful: blocks decode in arrival order (the reader
+                    # thread owns this connection's coder)
+                    codes = conn.dec_coder.decode_block(body, frames, bits)
+                except ValueError as e:
+                    raise P.ProtocolError(str(e)) from e
+                self._push_decode(conn, frames, lambda: self._dec.push(conn.sid, codes))
             else:
                 raise P.ProtocolError(f"message 0x{msg_type:02x} not valid in decode mode")
         elif msg_type == P.MSG_AUDIO:
@@ -454,7 +494,18 @@ class CodecDaemon:
                 conn = self._by_slot.get(("e", sid))
                 if conn is None or conn.dead:
                     continue
-                if conn.mode == P.MODE_ENCODE:
+                if conn.enc_coder is not None:
+                    # ent_block frames per rANS payload (the ~4-byte flush
+                    # amortizes); a change of bits flushes the pending
+                    # block first
+                    bits = int(math.ceil(self._eng.bits[sid]))
+                    ok = (not conn.ent_pending or bits == conn.ent_pending_bits
+                          or self._flush_entropy(conn))
+                    if ok:
+                        conn.ent_pending.append(np.asarray(codes, np.float32))
+                        conn.ent_pending_bits = bits
+                        ok = len(conn.ent_pending) < conn.ent_block or self._flush_entropy(conn)
+                elif conn.mode == P.MODE_ENCODE:
                     bits = int(math.ceil(self._eng.bits[sid]))
                     ok = conn.enqueue(P.MSG_CODES_OUT, P.pack_codes_msg(codes[None, :], bits))
                 else:
@@ -486,6 +537,19 @@ class CodecDaemon:
             conn.enqueue(P.MSG_ERROR, b"engine device state lost; stream reset - reconnect")
             self._release(conn, graceful=True)
 
+    def _flush_entropy(self, conn: _Conn) -> bool:
+        """Entropy-encode and enqueue the pending outbound frame block (the
+        ticker thread owns enc_coder; caller holds the lock).  False on
+        queue overflow, like enqueue."""
+        if not conn.ent_pending:
+            return True
+        block = np.stack(conn.ent_pending)
+        bits = conn.ent_pending_bits
+        conn.ent_pending = []
+        body = conn.enc_coder.encode_block(block, bits)
+        return conn.enqueue(P.MSG_CODES_ENT_OUT,
+                            P.pack_codes_ent_msg(body, block.shape[0], bits))
+
     def _finish_drained(self) -> None:
         """FIN connections that sent CLOSE and have no input left (caller
         holds the lock).  Graceful: the slot is freed now, but the socket
@@ -493,6 +557,8 @@ class CodecDaemon:
         for conn in [c for c in self._conns if c.closing and not c.dead]:
             eng = self._dec if conn.mode == P.MODE_DECODE else self._eng
             if not eng.has_frame(conn.sid):
+                if conn.ent_pending:  # the sub-block remainder of a drained encode stream
+                    self._flush_entropy(conn)
                 self._release(conn, graceful=True)
 
     def _teardown(self, conn: _Conn) -> None:

@@ -33,10 +33,11 @@ Audio payloads are raw float32 samples at the codec rate (22.05 kHz for the
 shipped configs); PCM conversion is the application's concern.  ``CODES``
 payloads are ``<HB`` (frames: u16, bits_per_frame: u8) + the packed
 first-k-priority bitstream produced by
-:func:`bvsc_tpu_torch.ops.bitpack.pack_codes`.  The entropy-coded message
-types and the ``FLAG_ENTROPY`` option are part of the format; the port's
-daemon refuses them until entropy coding is ported (``ROADMAP.md``,
-queue 1, item 8).
+:func:`bvsc_tpu_torch.ops.bitpack.pack_codes`.  A stream that negotiates
+``FLAG_ENTROPY`` in its HELLO (echoed in ``OPENED``) carries its codes as
+``CODES_ENT`` / ``CODES_ENT_OUT`` instead: the same ``<HB`` header and one
+rANS payload against integer adaptive counts
+(``bvsc_tpu_torch/serve/entropy_wire.py``).
 
 The client half is :class:`bvsc_tpu_torch.serve.client.CodecClient`; the
 server half is :class:`bvsc_tpu_torch.serve.daemon.CodecDaemon`.
@@ -74,7 +75,7 @@ MODE_ENCODE = 1
 MODE_DECODE = 2
 
 # HELLO/OPENED option flags (the optional 2-byte extension; see pack_hello)
-FLAG_ENTROPY = 0x01  # adaptive entropy-coded code payloads (bvsc_tpu/serve/entropy_wire.py)
+FLAG_ENTROPY = 0x01  # adaptive entropy-coded code payloads (serve/entropy_wire.py)
 
 _HDR = struct.Struct("<BI")
 _HELLO = struct.Struct("<4sBBf")
@@ -254,7 +255,7 @@ def unpack_codes_msg(payload: bytes, z_dim: int) -> tuple[np.ndarray, int]:
 
 def pack_codes_ent_msg(body: bytes, frames: int, bits: int) -> bytes:
     """Entropy-coded codes frame: same ``<HB`` header as CODES, body = one
-    self-contained rANS payload (``bvsc_tpu/serve/entropy_wire.py``) over the
+    self-contained rANS payload (``bvsc_tpu_torch/serve/entropy_wire.py``) over the
     frames' first-``bits`` bits under the stream's adaptive model."""
     if not 0 <= frames <= 0xFFFF:
         raise ValueError("at most 65535 frames per CODES_ENT message")

@@ -9,7 +9,10 @@ Phases, each printing one JSON line with its seconds:
    (also printed raw on a line of its own).  Without a card the script
    exits non-zero and prints no result.
 2. ``build``: nvcc builds every CUDA source of ``bvsc_tpu_torch/csrc``
-   into the gitignored ``bvsc_tpu_torch/_build``; ``cuobjdump`` counts the
+   into the gitignored ``bvsc_tpu_torch/_build``, and ``cc`` the host C
+   sources of ``bvsc_tpu_torch/native`` (bit packing, rANS, the prior
+   coder's fixed-order products; a missing one fails the run, so no numpy
+   path is taken on the card's host); ``cuobjdump`` counts the
    float32-pipe instructions of one snake on its fast path in the bf16
    build's SASS (``k1_tiles.snake_instructions``).
 3. ``main_path``: ``BVRNNCodecModel`` at full width (the shipped BVRNN
@@ -127,9 +130,16 @@ Phases, each printing one JSON line with its seconds:
     codes with ``plc``'s losses on four slots: each within 1e-5 of a B = 1
     ``StreamingDecoder(lost=)``, bitwise a clean engine run's before its
     first loss, 12 K1 launches a tick.  A ``CodecDaemon(max_streams=128)`` on
-    loopback serves three concurrent clients of the port's client
-    (resynthesis, encoding, decoding with losses): the wire output bitwise
-    equal to direct engine runs; the daemon is closed.  Times, no limit: ms
+    loopback serves six concurrent clients: three of the port's client
+    (resynthesis, encoding, decoding with losses), the same encoding and
+    decoding with ``entropy=True`` (the ``FLAG_ENTROPY`` wire option), and
+    the encoding through ``bvsc_tpu``'s native C client's ``encode-ent``
+    (built with ``cc`` from its C source): the wire output bitwise equal to
+    direct engine runs and the entropy wire's to the raw wire's, every
+    ``CODES_ENT_OUT`` body of the C client byte for byte the port's
+    ``AdaptiveCodesCoder`` on the same block partition, and the entropy
+    clients' raw and wire bytes printed (no gate: savings depend on the
+    model); the daemon is closed.  Times, no limit: ms
     per tick (median and p90 of 100 after 10) at 1, 32 and 128 active
     streams of 128 slots, for both engines in both modes, each split into
     the device step (``_tick_call``, synchronised) and the host's part; at
@@ -141,6 +151,22 @@ Phases, each printing one JSON line with its seconds:
     (tick ms).  The TF32 flags
     are unchanged at its end; the phase prints its line, then fails if any
     gate did.
+11. ``entropy``: ``.bvsc`` files (``bvsc_tpu_torch.cli.codec_cli``) on the
+    trained pair at parity, on the demo utterance encoded on the card at
+    3 kbps and with a VBR schedule (1 / 3 / 5.5 kbps, a third of the frames
+    each).  Each is written as version 1 (raw packing) and version 3 (rANS
+    against the BVRNN's prior, ``bvsc_tpu_torch.entropy``: a fixed-order
+    float64 pass on the host) and read back: the codes bitwise
+    ``encode``'s, and ``decode`` of them bitwise ``decode`` of the encoded
+    codes, with 12 K1 launches a call.  The CLI runs as a user runs it, in
+    a subprocess on the card (``encode --entropy``, then ``decode``): its
+    file is the in-process version 3 file and its wav within 1e-6 of the
+    in-process decode written the same way.  The version 3 payload of the
+    golden codes has the SHA-256 that ``tests/test_torch_entropy.py``
+    asserts on the CPU (the same bytes on both machines) and a size within
+    1 % of ``bvsc_tpu``'s 912 bytes.  Printed, no gate: the files' sizes,
+    the coder's ms per frame writing and reading, and rANS MB/s native
+    against numpy.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -149,10 +175,13 @@ and no ``ok`` line.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -160,21 +189,27 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import BVRNNCodecModel, load_config
+from bvsc_tpu_torch import entropy as PE
 from bvsc_tpu_torch import streaming as S
 from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, gru_steps, k1_tiles,
                                         seeded_vocoder)
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
+from bvsc_tpu_torch.cli import codec_cli
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
+from bvsc_tpu_torch.convert import load_bvrnn_npz
+from bvsc_tpu_torch.data.audio import load_wav, save_wav
 from bvsc_tpu_torch.device import set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
-from bvsc_tpu_torch.ops import _build
+from bvsc_tpu_torch.ops import _build, _cc, bitpack, rans
 from bvsc_tpu_torch.ops import amp_resblock as AR
 from bvsc_tpu_torch.ops import dot_probe as DP
 from bvsc_tpu_torch.ops import persistent_gru as PG
+from bvsc_tpu_torch.serve import protocol as P
 from bvsc_tpu_torch.serve.daemon import CodecDaemon
 from bvsc_tpu_torch.serve.engine import DecodeEngine, ServingEngine
+from bvsc_tpu_torch.serve.entropy_wire import AdaptiveCodesCoder
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
@@ -245,6 +280,16 @@ SERVE_REOPEN = 5  # this stream's slot is closed at its end and reopened with it
 SERVE_ACTIVE = (1, 32, 128)  # streams advancing in the timed ticks
 SERVE_STEPS, SERVE_WARMUP = 100, 10  # timed ticks, after the warm-up ones
 DAEMON_SAMPLES = 20000  # each daemon client's input
+DAEMON_ENT_BLOCK = 8  # frames a CODES_ENT message of the entropy decode client
+NATIVE_CLIENT = os.path.join(REPO, "bvsc_tpu", "native", "bvsp_client.c")  # C, built with cc
+ENTROPY_VBR = (1000.0, 3000.0, 5512.5)  # the VBR file's bitrates, one a third of the frames
+# SHA-256 of the port's prior-coded payload of the golden codes (35 bits a
+# frame); tests/test_torch_entropy.py holds the CPU to the same constant
+GOLDEN_V3_SHA256 = "c6db926661ba5993ae8c505205097521dc51744bd534bac5fa5bafb4d499a26f"
+GOLDEN_V2_BYTES = 912  # bvsc_tpu's payload of the same codes (its float32 prior)
+ENTROPY_SIZE_RTOL = 0.01
+CLI_WAV_TOL = 1e-6  # the CLI's wav against the in-process decode written the same way
+RANS_BITS = (1 << 20, 1 << 15)  # bits coded to time rANS: native, numpy
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -305,13 +350,22 @@ def device_phase() -> tuple[str, float, str]:
 
 
 def build_phase(clock_mhz: float) -> dict:
-    """Builds every kernel; returns one snake's float32-pipe instruction
-    count in the bf16 build's SASS and the SM clock, for the snake floor."""
+    """Builds every kernel, and with ``cc`` the host C libraries (bit
+    packing, rANS, the prior coder's fixed-order products): the card's host
+    has a C compiler, so no numpy path is taken there.  Returns one snake's
+    float32-pipe instruction count in the bf16 build's SASS and the SM
+    clock, for the snake floor."""
     t0 = time.time()
     _build.load_all()
+    host = {"bitpack": bitpack._load_native(), "rans": rans._load_native(),
+            "prior": PE._load_native()}
+    missing = [name for name, lib in host.items() if lib is None]
+    if missing:
+        raise AssertionError(f"cc did not build the host libraries {missing}")
     snake = {**k1_tiles.snake_instructions(), "clock_mhz": clock_mhz}
     emit("build", t0, libraries=[os.path.relpath(_build.library_path(name), REPO)
-                                 for name in _build.sources()], snake=snake)
+                                 for name in _build.sources()],
+         host_libraries=[os.path.relpath(lib._name, REPO) for lib in host.values()], snake=snake)
     return snake
 
 
@@ -797,6 +851,131 @@ def golden_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
         raise AssertionError(f"encode flips {len(flips)} golden code bits, the first {first}")
 
 
+def rans_rates() -> dict:
+    """MB/s of coded payload through rANS, native against numpy, on seeded
+    bits with probabilities in [0.01, 0.99]."""
+    out = {}
+    saved = (rans._lib, rans._tried)
+    try:
+        for path, n in zip(("native", "numpy"), RANS_BITS):
+            if path == "numpy":
+                rans._lib, rans._tried = None, True
+            rng = np.random.default_rng([SEED, n])
+            p = rng.uniform(0.01, 0.99, n)
+            q, bits = rans.quantize_probs(p), (rng.uniform(size=n) < p).astype(np.uint8)
+            t = time.perf_counter()
+            payload = rans.rans_encode(bits, q)
+            t_enc = time.perf_counter() - t
+            t = time.perf_counter()
+            dec = rans.RansDecoder(payload)
+            ok = np.array_equal(dec.decode_bits(q), bits)
+            dec.finish()
+            t_dec = time.perf_counter() - t
+            out[path] = {"bits": n, "payload_bytes": len(payload), "roundtrip": ok,
+                         "encode_mb_s": len(payload) / t_enc / 1e6,
+                         "decode_mb_s": len(payload) / t_dec / 1e6}
+    finally:
+        rans._lib, rans._tried = saved
+    return out
+
+
+def run_cli(*args: str) -> str:
+    """``python -m bvsc_tpu_torch.cli.codec_cli`` on the card, as a user runs it."""
+    proc = subprocess.run([sys.executable, "-m", "bvsc_tpu_torch.cli.codec_cli", *args,
+                           "--bvrnn_checkpoint", NPZ, "--vocoder_checkpoint", VOC_NPZ],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"codec_cli {args[0]} failed ({proc.returncode}): {proc.stderr}")
+    return proc.stdout.strip()
+
+
+def entropy_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
+    """``.bvsc`` files on the trained pair at parity; see the module
+    docstring.  The numbers are printed before any gate is applied."""
+    t0 = time.time()
+    gates = [(f"rANS native library loaded ({rans._lib})", rans._load_native() is not None),
+             (f"prior native library loaded ({PE._lib})", PE._load_native() is not None)]
+    coder = PE.PriorEntropyCoder(load_bvrnn_npz(NPZ), codec.bvrnn_cfg)
+    L, hop, fs = speech.shape[0], codec.conf.hopsize, codec.conf.fs
+    n = codec.frontend.num_frames(L)
+    x = torch.from_numpy(speech[None]).to(DEV)
+    n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
+    schedules = {"3kbps": float(BITRATE),
+                 "vbr": np.asarray(ENTROPY_VBR)[np.minimum(np.arange(n) * 3 // n, 2)]}
+    files, report = {}, {}
+    with tempfile.TemporaryDirectory(dir=_cc.BUILD_DIR) as tmp:  # inside the checkout
+        for name, bitrate in schedules.items():
+            codes = codec.encode(x, bitrate)
+            codes_np = codes[0].cpu().numpy()
+            bits = codec.bits_per_frame(bitrate)
+            y_enc = codec.decode(codes, L)
+            r = {"frames": codes_np.shape[0], "raw_bits": int(np.sum(np.ceil(
+                np.broadcast_to(bits, (codes_np.shape[0],)))))}
+            for version, c in (("v1", None), ("v3", coder)):
+                path = os.path.join(tmp, f"{name}_{version}.bvsc")
+                t = time.perf_counter()
+                codec_cli.write_bvsc(path, codes_np, bits, fs, coder=c)
+                t_write = time.perf_counter() - t
+                t = time.perf_counter()
+                got, got_bits, _ = codec_cli.read_bvsc(path, lambda: coder)
+                t_read = time.perf_counter() - t
+                AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+                y_read = codec.decode(torch.from_numpy(got)[None].to(DEV), L)
+                launches = k1_launches()
+                files[(name, version)] = open(path, "rb").read()
+                r[version] = {"bytes": os.path.getsize(path),
+                              "codes_bitwise": bool(np.array_equal(got, codes_np)),
+                              "bits_equal": bool(np.array_equal(got_bits, bits)),
+                              "decode_bitwise": bool(torch.equal(y_read, y_enc)),
+                              "launches": launches,
+                              "write_ms_per_frame": t_write * 1e3 / codes_np.shape[0],
+                              "read_ms_per_frame": t_read * 1e3 / codes_np.shape[0]}
+                for key in ("codes_bitwise", "bits_equal", "decode_bitwise"):
+                    gates.append((f"{name} {version} {key}", r[version][key]))
+                gates.append((f"{name} {version}: decode launches {launches}",
+                              launches == {"f32": n_blocks, "bf16": 0}))
+            report[name] = r
+
+        # the CLI as a user runs it: encode --entropy, then decode
+        t1 = time.time()
+        cli_file, cli_wav, ref_wav = (os.path.join(tmp, f) for f in
+                                      ("cli.bvsc", "cli.wav", "ref.wav"))
+        cli_out = [run_cli("encode", WAV, cli_file, "--bitrate", str(BITRATE), "--entropy"),
+                   run_cli("decode", cli_file, cli_wav)]
+        got, _, _ = codec_cli.read_bvsc(cli_file, lambda: coder)
+        save_wav(codec.decode(torch.from_numpy(got)[None].to(DEV), got.shape[0] * hop)[0]
+                 .cpu().numpy(), ref_wav, fs)
+        (a, fs_a), (b, fs_b) = load_wav(cli_wav), load_wav(ref_wav)
+        cli = {"seconds": time.time() - t1, "stdout": cli_out,
+               "file_bitwise": open(cli_file, "rb").read() == files[("3kbps", "v3")],
+               "wav_gap": float(np.abs(a - b).max()) if a.shape == b.shape else None,
+               "samples": a.shape[0], "fs": [fs_a, fs_b]}
+    gates.append(("the CLI's file is the in-process v3 file", cli["file_bitwise"]))
+    gates.append((f"the CLI's wav against the in-process decode ({cli['wav_gap']})",
+                  cli["wav_gap"] is not None and cli["wav_gap"] <= CLI_WAV_TOL))
+
+    # the golden codes: cross-machine determinism and the size against bvsc_tpu's
+    with np.load(GOLDEN) as z:
+        gold = z["codes"].astype(np.float32) / 2
+    t = time.perf_counter()
+    payload = coder.encode(gold, codec.conf.bits_per_frame(BITRATE))
+    golden = {"bytes": len(payload), "bvsc_tpu_v2_bytes": GOLDEN_V2_BYTES,
+              "sha256": hashlib.sha256(payload).hexdigest(),
+              "encode_ms_per_frame": (time.perf_counter() - t) * 1e3 / gold.shape[0]}
+    gates.append((f"golden payload sha256 {golden['sha256']}",
+                  golden["sha256"] == GOLDEN_V3_SHA256))
+    gates.append((f"golden payload {len(payload)} B within {ENTROPY_SIZE_RTOL} of "
+                  f"{GOLDEN_V2_BYTES}",
+                  abs(len(payload) - GOLDEN_V2_BYTES) <= ENTROPY_SIZE_RTOL * GOLDEN_V2_BYTES))
+    rates = rans_rates()
+    gates += [(f"rANS {path} round trip", r["roundtrip"]) for path, r in rates.items()]
+    failed = [what for what, ok in gates if not ok]
+    emit("entropy", t0, samples=L, frames=n, nvidia_smi=smi, files=report, cli=cli,
+         golden=golden, rans=rates, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"entropy: {len(failed)} gates failed: {failed}")
+
+
 def inside_frames(codec: BVRNNCodecModel, L: int, n: int) -> int:
     """Frames whose analysis window lies inside an input of L samples: all
     n where L fills its length buckets (one-shot's right padding is then the
@@ -1249,13 +1428,56 @@ def solo_serve(codec: BVRNNCodecModel, x: np.ndarray, bitrate: float):
     return np.stack(codes), np.concatenate(wav)
 
 
+def native_client() -> str:
+    """``bvsc_tpu``'s native BVSP client, built with ``cc`` from its C source
+    into the gitignored build directory (a C file read, not an import)."""
+    with open(NATIVE_CLIENT, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    exe = os.path.join(_cc.BUILD_DIR, f"bvsp_client-{digest}")
+    if not os.path.exists(exe):
+        os.makedirs(_cc.BUILD_DIR, exist_ok=True)
+        subprocess.run(["cc", "-O2", "-o", exe, NATIVE_CLIENT], check=True, capture_output=True)
+    return exe
+
+
+def parse_frames(blob: bytes) -> list[tuple[int, bytes]]:
+    """BVSP wire frames (u8 type, u32 length, payload) from a byte stream."""
+    out, pos = [], 0
+    while pos < len(blob):
+        t, n = struct.unpack_from("<BI", blob, pos)
+        out.append((t, blob[pos + 5: pos + 5 + n]))
+        pos += 5 + n
+    return out
+
+
+def native_ent_codes(stdout: bytes, z_dim: int) -> tuple:
+    """The C client's encode-ent output, CODES_ENT_OUT frames verbatim ->
+    (codes, every body byte for byte the port's coder on the same block
+    partition, raw bytes, wire bytes)."""
+    dec, enc = AdaptiveCodesCoder(z_dim), AdaptiveCodesCoder(z_dim)
+    codes, same, raw, wire = [], True, 0, 0
+    for t, payload in parse_frames(stdout):
+        if t != P.MSG_CODES_ENT_OUT:
+            raise AssertionError(f"native encode-ent wrote message 0x{t:02x}")
+        frames, bits, body = P.unpack_codes_ent_msg(payload)
+        block = dec.decode_block(body, frames, bits)
+        same &= enc.encode_block(block, bits) == body
+        codes.append(block)
+        raw += (frames * bits + 7) // 8
+        wire += len(body)
+    return np.concatenate(codes), bool(same), raw, wire
+
+
 def daemon_run(codec: BVRNNCodecModel, inputs: list[np.ndarray], codes: np.ndarray,
                lost: np.ndarray) -> dict:
-    """A ``CodecDaemon(max_streams=128)`` on loopback serving three
-    concurrent clients of the port's client (resynthesis at 3 kbps and
-    encoding at 1 kbps of two schedule inputs' first ``DAEMON_SAMPLES``,
-    and decoding stream 1's codes with its losses), against direct engine
-    runs of the same streams; the daemon is closed before this returns."""
+    """A ``CodecDaemon(max_streams=128)`` on loopback serving six concurrent
+    clients: three of the port's client on the raw wire (resynthesis at
+    3 kbps and encoding at 1 kbps of two schedule inputs' first
+    ``DAEMON_SAMPLES``, and decoding stream 1's codes with its losses), and
+    the same encoding and decoding with ``entropy=True``, and the encoding
+    through ``bvsc_tpu``'s native C client's ``encode-ent``; against direct
+    engine runs of the same streams.  The daemon is closed before this
+    returns."""
     from bvsc_tpu_torch.serve.client import CodecClient
 
     x_res, x_enc = inputs[2][:DAEMON_SAMPLES], inputs[3][:DAEMON_SAMPLES]
@@ -1266,34 +1488,75 @@ def daemon_run(codec: BVRNNCodecModel, inputs: list[np.ndarray], codes: np.ndarr
     sid = dec.open_stream()
     dec.push(sid, codes[1], lost=lost[1])
     ref_dec = np.concatenate([dec.tick()[sid] for _ in range(codes.shape[1])])
+    exe = native_client()
     results, t0 = {}, time.time()
 
-    def client(name, mode, bitrate, feed):
-        with CodecClient("127.0.0.1", d.port, mode=mode, bitrate=bitrate, timeout=120) as c:
-            feed(c)
-            c.close_input()
-            results[name] = c.drain()
+    errors = {}
+
+    def client(name, mode, bitrate, feed, entropy=False):
+        try:
+            with CodecClient("127.0.0.1", d.port, mode=mode, bitrate=bitrate, timeout=120,
+                             entropy=entropy) as c:
+                feed(c)
+                c.close_input()
+                results[name] = {**c.drain(), "entropy_stats": dict(c.entropy_stats)}
+        except Exception as e:  # reported below, with the phase's failure
+            errors[name] = repr(e)
 
     def feed_decode(c):
+        pend = []  # blocks of received frames; a loss report keeps its place
         for frame, flag in zip(codes[1], lost[1]):
-            c.send_lost(1) if flag else c.send_codes(frame[None], bits=bits)
+            if not flag:
+                pend.append(frame)
+            if pend and (flag or len(pend) == DAEMON_ENT_BLOCK):
+                c.send_codes(np.stack(pend), bits=bits)
+                pend = []
+            if flag:
+                c.send_lost(1)
+        if pend:
+            c.send_codes(np.stack(pend), bits=bits)
+
+    def native(name):
+        proc = subprocess.run([exe, "127.0.0.1", str(d.port), "encode-ent", "1000.0"],
+                              input=x_enc.astype("<f4").tobytes(), capture_output=True,
+                              timeout=120)
+        results[name] = {"returncode": proc.returncode, "stdout": proc.stdout,
+                         "stderr": proc.stderr.decode(errors="replace")}
 
     with CodecDaemon(codec, port=0, max_streams=SERVE_SLOTS) as d:
         threads = [threading.Thread(target=client, args=a, daemon=True) for a in (
             ("resynth", "resynth", 3000.0, lambda c: c.send_audio(x_res)),
             ("encode", "encode", 1000.0, lambda c: c.send_audio(x_enc)),
-            ("decode", "decode", None, feed_decode))]
+            ("decode", "decode", None, feed_decode),
+            ("encode_ent", "encode", 1000.0, lambda c: c.send_audio(x_enc), True),
+            ("decode_ent", "decode", None, feed_decode, True))]
+        threads.append(threading.Thread(target=native, args=("native_ent",), daemon=True))
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=300)
         hung = [t.name for t in threads if t.is_alive()]
-    if hung or len(results) != 3:
-        raise AssertionError(f"daemon clients hung {hung} or failed: got {sorted(results)}")
+    if hung or len(results) != len(threads) or results["native_ent"]["returncode"] != 0:
+        raise AssertionError(f"daemon clients hung {hung} or failed: got {sorted(results)}, "
+                             f"errors {errors}, native: "
+                             f"{results.get('native_ent', {}).get('stderr')}")
+    nat_codes, nat_same, nat_raw, nat_wire = native_ent_codes(results["native_ent"]["stdout"],
+                                                              codec.conf.z_dim)
+    enc, enc_ent = results["encode"]["codes"], results["encode_ent"]["codes"]
     return {"seconds": time.time() - t0,
             "resynth_bitwise": bool(np.array_equal(results["resynth"]["audio"], ref_res)),
-            "encode_bitwise": bool(np.array_equal(results["encode"]["codes"], ref_enc)),
+            "encode_bitwise": bool(np.array_equal(enc, ref_enc)),
             "decode_bitwise": bool(np.array_equal(results["decode"]["audio"], ref_dec)),
+            "encode_ent_bitwise": bool(np.array_equal(enc_ent, ref_enc)
+                                       and np.array_equal(enc_ent, enc)),
+            "decode_ent_bitwise": bool(np.array_equal(results["decode_ent"]["audio"],
+                                                      results["decode"]["audio"])),
+            "native_ent_bitwise": bool(np.array_equal(nat_codes, ref_enc)),
+            "native_ent_bodies_equal": nat_same,
+            "entropy_stats": {"encode_ent": results["encode_ent"]["entropy_stats"],
+                              "decode_ent": results["decode_ent"]["entropy_stats"],
+                              "native_ent": {"raw_payload_bytes": nat_raw,
+                                             "wire_payload_bytes": nat_wire}},
             "frames": {"resynth": len(ref_res) // 256, "encode": len(ref_enc),
                        "decode": len(ref_dec) // 256}}
 
@@ -1485,7 +1748,8 @@ def serving_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarra
                       s["prefix_gap_vs_clean"] == 0.0))
 
     report["daemon"] = daemon_run(parity, inputs, codes_np, lost)
-    for key in ("resynth_bitwise", "encode_bitwise", "decode_bitwise"):
+    for key in ("resynth_bitwise", "encode_bitwise", "decode_bitwise", "encode_ent_bitwise",
+                "decode_ent_bitwise", "native_ent_bitwise", "native_ent_bodies_equal"):
         gates.append((f"daemon {key}", report["daemon"][key]))
 
     # times: both engines, both modes, 1 / 32 / 128 active streams
@@ -1761,6 +2025,7 @@ def main() -> None:
     golden_phase(codec, wav[0], smi)
     streaming_phase(codec, fast, wav, smi)
     serving_phase(codec, fast, wav, smi)
+    entropy_phase(codec, wav[0], smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

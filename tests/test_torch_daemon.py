@@ -258,13 +258,15 @@ def test_native_client_decode_with_plc_matches_engine(codec, daemon):
 
 
 @needs_cc
-def test_native_client_entropy_refused(daemon):
-    """The native client's entropy mode gets the port daemon's error (exit 2)."""
+def test_native_client_entropy_refused(codec, daemon):
+    """The native client's entropy mode gets the port daemon's error (exit 2)
+    when its payload is refused: a CODES_ENT claiming more bits than z_dim."""
     from bvsc_tpu.serve.native_client import run_native_client
 
-    proc = run_native_client("127.0.0.1", daemon.port, "encode-ent", BITRATE,
-                             np.zeros(768, "<f4").tobytes(), timeout=TIMEOUT)
-    assert proc.returncode == 2 and b"item 8" in proc.stderr
+    payload = P.pack_codes_ent_msg(b"\0\0\x80\0", 1, codec.conf.z_dim + 1)
+    blob = struct.pack("<BI", P.MSG_CODES_ENT, len(payload)) + payload
+    proc = run_native_client("127.0.0.1", daemon.port, "decode-ent", None, blob, timeout=TIMEOUT)
+    assert proc.returncode == 2 and b"z_dim" in proc.stderr
 
 
 # --- protocol cases -------------------------------------------------------------------
@@ -396,18 +398,18 @@ def test_invalid_set_bitrate_kills_stream_not_daemon(codec, daemon):
 
 
 def test_entropy_hello_refused_with_item(codec, daemon):
-    """A HELLO asking for entropy-coded payloads gets a protocol error that
-    names the queue item; the daemon keeps serving."""
+    """A HELLO asking for entropy-coded payloads on a resynthesis stream
+    (which carries no codes) gets a protocol error that says so; both
+    Python clients refuse it before connecting; the daemon keeps serving."""
     with socket.create_connection(("127.0.0.1", daemon.port), timeout=TIMEOUT) as s:
-        P.write_msg(s, P.MSG_HELLO, P.pack_hello(P.MODE_ENCODE, BITRATE, flags=P.FLAG_ENTROPY))
+        P.write_msg(s, P.MSG_HELLO, P.pack_hello(P.MODE_RESYNTH, BITRATE, flags=P.FLAG_ENTROPY))
         msg = P.read_msg(s)
         assert msg is not None and msg[0] == P.MSG_ERROR
-        assert b"queue 1, item 8" in msg[1]
-    with pytest.raises(JC.ServerError, match="item 8"):
-        JC.CodecClient("127.0.0.1", daemon.port, mode="encode", bitrate=BITRATE,
-                       timeout=TIMEOUT, entropy=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TC.CodecClient("127.0.0.1", daemon.port, mode="encode", bitrate=BITRATE, entropy=True)
+        assert b"encode/decode streams only" in msg[1]
+    for client in CLIENTS.values():
+        with pytest.raises(ValueError, match="encode/decode"):
+            client("127.0.0.1", daemon.port, mode="resynth", bitrate=BITRATE, timeout=TIMEOUT,
+                   entropy=True)
     x = _noise(13, 768 + HOP)
     _, wav_ref = solo_engine_run(codec, x, BITRATE)
     with TC.CodecClient("127.0.0.1", daemon.port, mode="resynth", bitrate=BITRATE,
