@@ -6,7 +6,8 @@
 Each module has a ``main()`` that prints the probe's lines and a ``run()``
 that returns its numbers.  Times come from CUDA events (:func:`cuda_ms`,
 :func:`graph_ms`, :func:`cold_ms`); a probe without a card raises.
-``k1_tiles`` and ``dot_sizes`` time single kernels over several shapes.
+``k1_tiles`` and ``dot_sizes`` time single kernels over several shapes;
+``export_frames`` times a serving bundle's programs at a 256-frame bucket.
 """
 
 from __future__ import annotations

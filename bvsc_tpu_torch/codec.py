@@ -17,18 +17,26 @@ Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
 package, so both packages see the same padded input; the padded frames
 carry 0.5 codes.  ``decode(lost=)`` conceals lost packets from the BVRNN's
 prior (``models.bvrnn.decode_plc``).  A trained vocoder loads from the flat
-``.npz`` that ``tools/export_vocoder_npz.py`` writes.  Streaming and the
-serving engines are later slices (``ROADMAP.md``).
+``.npz`` that ``tools/export_vocoder_npz.py`` writes.
+
+The device work of ``encode``, ``decode`` (without ``lost``) and
+``__call__`` is a function of (:class:`CodecWeights`, inputs):
+:func:`_encode_impl`, :func:`_decode_impl`, :func:`_forward_impl` and the
+vocoder's :func:`_generator_impl`.  The live methods call them on the
+codec's own weights, and ``serve.export`` traces the same functions into a
+serving bundle's programs; the host keeps the bookkeeping (length buckets,
+the per-frame bits, the squeeze of a missing batch axis).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from bvsc_tpu_torch.config import CodecConfig, load_config
+from bvsc_tpu_torch.config import CodecConfig, VocoderConfig, load_config
 from bvsc_tpu_torch.convert import load_bvrnn_npz, load_vocoder_npz, to_torch
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
@@ -91,6 +99,123 @@ def host_bvrnn_params(conf: CodecConfig, bvrnn_chkpt_path: str | None = None,
     if bvrnn_chkpt_path.endswith(".npz"):
         return load_bvrnn_npz(bvrnn_chkpt_path)
     raise _not_ported("loading a non-npz BVRNN checkpoint", _BVRNN_CHECKPOINTS)
+
+
+def bits_per_frame(conf: CodecConfig, bitrate) -> float | np.ndarray:
+    """bps -> bits/frame, half-to-even rounding; a scalar or a per-frame
+    array (VBR schedules)."""
+    bits = np.round(np.asarray(bitrate, np.float64) * conf.hopsize / conf.fs)
+    return float(bits) if bits.ndim == 0 else bits.astype(np.float32)
+
+
+def frame_bits(conf: CodecConfig, bitrate, batch: int, L: int, n_frames: int, frames: int,
+               device) -> torch.Tensor:
+    """bps (a scalar, or per frame of the ``n_frames`` of ``L`` samples) ->
+    (batch, frames) bits/frame; a per-frame schedule gives the frames from
+    ``n_frames`` on 0 bits."""
+    bits = bits_per_frame(conf, bitrate)
+    if np.ndim(bits):
+        expected = (n_frames,) if np.ndim(bits) == 1 else (batch, n_frames)
+        if np.shape(bits) != expected:
+            raise ValueError(
+                f"per-frame bitrate shape {np.shape(bits)} != {expected} "
+                f"({n_frames} frames for {L} samples)"
+            )
+        pad = [(0, 0)] * (np.ndim(bits) - 1) + [(0, frames - n_frames)]
+        bits = np.pad(bits, pad)
+    bits = torch.as_tensor(bits, dtype=torch.float32, device=device)
+    return torch.broadcast_to(bits, (batch, frames))
+
+
+# the vocoder params the kernel path reads (its residual stacks read the
+# packed ResblockParams instead of 'resblocks')
+VOCODER_KEYS = ("conv_pre", "ups", "act_post", "conv_post")
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecWeights:
+    """Every tensor the codec's programs read, prepared as they read it
+    (the mel frontend's constants, the scan's cast weights, the vocoder's
+    convs and the residual stacks' packed kernel weights), with the static
+    numerics they were prepared for."""
+
+    frontend: MelFrontend
+    scan: bvrnn_mod.ScanParams
+    vocoder: dict
+    blocks: list  # per vocoder stage, its ResblockParams
+    bvrnn_cfg: bvrnn_mod.BVRNNConfig
+    vocoder_cfg: VocoderConfig
+    voc_compute_dtype: torch.dtype
+
+    @property
+    def precision(self) -> str:
+        return self.bvrnn_cfg.precision
+
+    def tree(self) -> dict:
+        """The tensors alone, as a tree of dicts and lists: what a serving
+        bundle stores, the residual stacks' in their mode's packing only."""
+        scan = {"std": self.scan.std}
+        if self.scan.fused is not None:
+            scan["fused"] = self.scan.fused
+        return {"mel": self.frontend.tensors(), "scan": scan,
+                "vocoder": {k: self.vocoder[k] for k in VOCODER_KEYS},
+                "blocks": [[rb.op_tensors(self.voc_compute_dtype) for rb in stage]
+                           for stage in self.blocks]}
+
+    def with_tree(self, tree: dict, traced: bool = False) -> "CodecWeights":
+        """These weights with the tensors of ``tree`` (:meth:`tree`'s
+        layout) in place of their own; ``traced`` runs the scans' frames
+        under torch's scan operator (``models.bvrnn.ScanParams``)."""
+        mode = self.voc_compute_dtype
+        return dataclasses.replace(
+            self, frontend=self.frontend.with_tensors(tree["mel"]),
+            scan=bvrnn_mod.ScanParams(tree["scan"]["std"], tree["scan"].get("fused"), traced),
+            vocoder=tree["vocoder"],
+            blocks=[[rb.for_mode(mode, t) for rb, t in zip(stage, ts)]
+                    for stage, ts in zip(self.blocks, tree["blocks"])])
+
+
+def _h_init(w: CodecWeights, batch, device) -> torch.Tensor:
+    return torch.zeros(batch, w.bvrnn_cfg.h_dim, device=device)
+
+
+def _mel_impl(w: CodecWeights, x: torch.Tensor) -> torch.Tensor:
+    """Padded waveform (B, Lp) -> log-mel frames (B, T, M)."""
+    return w.frontend(x * SCALING).transpose(1, 2)
+
+
+def _generator_impl(w: CodecWeights, mel: torch.Tensor, length: int) -> torch.Tensor:
+    """Mel (B, M, T) -> the vocoder's waveform (B, length), residual stacks
+    through the kernels, unscaled (the standalone vocoder's output)."""
+    return voc_mod.generator_apply_kernel(
+        w.vocoder, w.blocks, w.vocoder_cfg, mel, length, precision=w.precision,
+        compute_dtype=w.voc_compute_dtype)[:, 0, :]
+
+
+def _encode_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Padded waveform (B, Lp), bits/frame (B, T) -> codes (B, T, z)."""
+    codes, _ = bvrnn_mod.encode_with_state(w.scan, w.bvrnn_cfg, _mel_impl(w, x), bits,
+                                           _h_init(w, x.shape[0], x.device))
+    return codes
+
+
+def _decode_impl(w: CodecWeights, codes: torch.Tensor, length: int) -> torch.Tensor:
+    """0.5-padded codes (B, T, z) -> waveform (B, length)."""
+    mel, _ = bvrnn_mod.decode(w.scan, w.bvrnn_cfg, codes, _h_init(w, codes.shape[0], codes.device))
+    return _generator_impl(w, mel.transpose(1, 2), length) / SCALING
+
+
+def _forward_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor, n_frames,
+                  length: int) -> torch.Tensor:
+    """Resynthesis in one scan: padded waveform (B, Lp), bits (B, T) and the
+    count of real frames (an int or a 0-d tensor; the codes of later frames
+    are 0.5, as ``decode`` pads them) -> waveform (B, length)."""
+    mel = _mel_impl(w, x)
+    B, T, _ = mel.shape
+    valid = (torch.arange(T, device=x.device) < n_frames).to(torch.float32)
+    _, dec_mel, _ = bvrnn_mod.encode_decode(w.scan, w.bvrnn_cfg, mel, bits,
+                                            _h_init(w, B, x.device), frame_valid=valid.expand(B, T))
+    return _generator_impl(w, dec_mel.transpose(1, 2), length) / SCALING
 
 
 class BVRNNCodecModel:
@@ -217,6 +342,9 @@ class BVRNNCodecModel:
         self.kernel_blocks = voc_mod.prepare_kernel_params(
             self.vocoder_params, conf.vocoder_config
         )
+        self.weights = CodecWeights(self.frontend, self.scan_params, self.vocoder_params,
+                                    self.kernel_blocks, self.bvrnn_cfg, conf.vocoder_config,
+                                    self.voc_compute_dtype)
 
     # -- helpers ------------------------------------------------------------
 
@@ -228,25 +356,13 @@ class BVRNNCodecModel:
     def bits_per_frame(self, bitrate) -> float | np.ndarray:
         """bps -> bits/frame, half-to-even rounding; a scalar or a per-frame
         array (VBR schedules)."""
-        bits = np.round(np.asarray(bitrate, np.float64) * self.conf.hopsize / self.conf.fs)
-        return float(bits) if bits.ndim == 0 else bits.astype(np.float32)
+        return bits_per_frame(self.conf, bitrate)
 
     def _frame_bits(self, bitrate, batch: int, L: int, Lp: int, n_frames: int) -> torch.Tensor:
-        """bps (scalar or per-frame) -> (batch, frames of Lp) bits/frame;
-        padded frames get 0 bits."""
-        bits = self.bits_per_frame(bitrate)
-        Tp = self.frontend.num_frames(Lp)
-        if np.ndim(bits):
-            expected = (n_frames,) if np.ndim(bits) == 1 else (batch, n_frames)
-            if np.shape(bits) != expected:
-                raise ValueError(
-                    f"per-frame bitrate shape {np.shape(bits)} != {expected} "
-                    f"({n_frames} frames for {L} samples)"
-                )
-            pad = [(0, 0)] * (np.ndim(bits) - 1) + [(0, Tp - n_frames)]
-            bits = np.pad(bits, pad)
-        bits = torch.as_tensor(bits, dtype=torch.float32, device=self.device)
-        return torch.broadcast_to(bits, (batch, Tp))
+        """bps (scalar or per-frame) -> (batch, frames of Lp) bits/frame
+        (:func:`frame_bits`)."""
+        return frame_bits(self.conf, bitrate, batch, L, n_frames, self.frontend.num_frames(Lp),
+                          self.device)
 
     def _as_input(self, x, ndim: int, what: str) -> tuple[torch.Tensor, bool]:
         """To a float32 tensor on the device, promoting a missing batch axis."""
@@ -262,16 +378,12 @@ class BVRNNCodecModel:
 
     def _mel(self, x: torch.Tensor) -> torch.Tensor:
         """Padded waveform (B, Lp) -> log-mel frames (B, T, M)."""
-        return self.frontend(x * SCALING).transpose(1, 2)
+        return _mel_impl(self.weights, x)
 
     def _vocode(self, mel: torch.Tensor, length: int) -> torch.Tensor:
         """Mel (B, M, T) -> waveform (B, length), residual stacks through the
         kernel."""
-        wav = voc_mod.generator_apply_kernel(
-            self.vocoder_params, self.kernel_blocks, self.conf.vocoder_config, mel, length,
-            precision=self.precision, compute_dtype=self.voc_compute_dtype,
-        )
-        return wav[:, 0, :] / SCALING
+        return _generator_impl(self.weights, mel, length) / SCALING
 
     def _h0(self, batch: int) -> torch.Tensor:
         return torch.zeros(batch, self.bvrnn_cfg.h_dim, device=self.device)
@@ -292,10 +404,7 @@ class BVRNNCodecModel:
         x = torch.nn.functional.pad(x, (0, Lp - L))
         n_frames = self.frontend.num_frames(L)
         bits = self._frame_bits(bitrate, x.shape[0], L, Lp, n_frames)
-        codes, _ = bvrnn_mod.encode_with_state(
-            self.scan_params, self.bvrnn_cfg, self._mel(x), bits, self._h0(x.shape[0])
-        )
-        codes = codes[:, :n_frames]
+        codes = _encode_impl(self.weights, x, bits)[:, :n_frames]
         return codes[0] if squeeze else codes
 
     @torch.no_grad()
@@ -319,7 +428,7 @@ class BVRNNCodecModel:
         Tp = padded_len // hop
         codes = self._pad_codes(codes, Tp)
         if lost is None:
-            mel, _ = bvrnn_mod.decode(self.scan_params, self.bvrnn_cfg, codes, self._h0(B))
+            y = _decode_impl(self.weights, codes, padded_len)[:, :length]
         else:
             lost = _host_array(lost)
             if lost.ndim == 1:
@@ -336,7 +445,7 @@ class BVRNNCodecModel:
                 self.scan_params, self.bvrnn_cfg, codes, torch.as_tensor(lost, device=self.device),
                 self._h0(B), cbits, mode=conceal_mode,
             )
-        y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
+            y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
         return y[0] if squeeze else y
 
     @torch.no_grad()
@@ -364,15 +473,8 @@ class BVRNNCodecModel:
             Lp = self._pad_length(length)
             x = torch.nn.functional.pad(x, (0, Lp - length))
             n_frames = self.frontend.num_frames(length)
-            mel = self._mel(x)
-            B, T, _ = mel.shape
-            bits = self._frame_bits(bitrate, B, length, Lp, n_frames)
-            valid = (torch.arange(T, device=self.device) < n_frames).to(torch.float32)
-            _, dec_mel, _ = bvrnn_mod.encode_decode(
-                self.scan_params, self.bvrnn_cfg, mel, bits, self._h0(B),
-                frame_valid=valid.expand(B, T),
-            )
-            y = self._vocode(dec_mel.transpose(1, 2), Lp)[:, :length]
+            bits = self._frame_bits(bitrate, x.shape[0], length, Lp, n_frames)
+            y = _forward_impl(self.weights, x, bits, n_frames, Lp)[:, :length]
         else:
             y = self.decode(self.encode(x, bitrate), length)
         return y[0] if squeeze else y

@@ -15,8 +15,11 @@ GRU gates are packed [r|z|n].  Weights may also be weight-only int8 dicts
 cell's weights); the scans take its :class:`ScanParams` or, as the tests
 do, a raw tree, which they prepare on each call.
 
-The frame recurrence is a Python loop; each step is a handful of products,
-as the JAX package leaves these GEMMs to XLA.
+The frame recurrence is one step function per scan, run by :func:`_frames`:
+a Python loop, or, when the scan params are ``traced`` (a serving bundle's
+programs, ``serve.export``), ``torch._higher_order_ops.scan`` over the same
+step, so a program holds one step whatever its frame count.  Each step is a
+handful of products, as the JAX package leaves these GEMMs to XLA.
 
 Closed-loop state sync: encode and decode advance the GRU only with
 *generated* features, so both sides' hidden states follow the codes alone.
@@ -304,6 +307,9 @@ class ScanParams:
 
     std: Params
     fused: Params | None
+    # run the frames under torch's scan operator (a traced program holds one
+    # step, whatever its frame count) instead of a Python loop
+    traced: bool = False
 
 
 def _cast_weights(tree, precision: str):
@@ -355,6 +361,30 @@ def _advance(params, z_t, h, prec):
     return dec_t, h_next
 
 
+def _frames(step, h, xs: list, traced: bool, statics=None):
+    """``step(h, *x_t) -> (h, outs)`` over the frames (axis 1) of ``xs``:
+    (final h, each of ``outs`` stacked on axis 1).  A Python loop, or, with
+    ``traced`` and more than one frame, ``torch._higher_order_ops.scan``,
+    which runs the same step and keeps a traced program one step long.
+    ``statics`` gives the loop's steps one keyword argument each (a host
+    value, so not under ``traced``)."""
+    T = xs[0].shape[1]
+    if traced and T > 1:
+        if statics is not None:
+            raise ValueError("a traced scan takes no per-step host values")
+        from torch._higher_order_ops.scan import scan
+
+        # frames first, in and out (torch versions differ in where scan
+        # leaves the frame axis of its outputs for dim != 0)
+        h, outs = scan(lambda c, x: step(c, *x), h, [x.movedim(1, 0) for x in xs])
+        return h, tuple(o.movedim(0, 1) for o in outs)
+    outs = []
+    for t in range(T):
+        h, o = step(h, *(x[:, t] for x in xs), **({} if statics is None else statics[t]))
+        outs.append(o)
+    return h, tuple(torch.stack(o, 1) for o in zip(*outs))
+
+
 def _code_mask(cfg, y, var_bitrate, frame_valid):
     if cfg.var_bit:
         if var_bitrate is None:
@@ -367,44 +397,45 @@ def _code_mask(cfg, y, var_bitrate, frame_valid):
     return mask
 
 
-def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False):
+def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False, want_states=False):
     """The greedy encode scan.  Returns the codes (B, T, z), the decoded mel
-    (B, T, x) if ``want_mel`` (else None), the per-frame list of the state
-    before each frame, and the final state."""
+    (B, T, x) if ``want_mel`` (else None), the state before each frame (B,
+    T, h) if ``want_states`` (else None), and the final state."""
     sp = prepare(params, cfg)
     prec = cfg.precision
     mask = _code_mask(cfg, y, var_bitrate, frame_valid)
     phi_x = phi_x_apply(sp.std, _normalize(sp.std, y), prec)  # (B, T, h), hoisted
-    zs, outs, hs = [], [], []
     if _use_fused(cfg, y.shape[0]):
         fp = _fused_params(sp)
-        encx = _matmul(phi_x, fp["w_enc1_x"], prec)
-        for t in range(y.shape[1]):
+
+        def step(h, encx_t, mask_t):
             e1h, d1h, gh = _fused_h_combo(fp, h, prec)
-            z_t = _fused_enc(fp, encx[:, t], e1h, mask[:, t], prec)
-            hs.append(h)
-            h, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
-            zs.append(z_t)
-            outs.append(a3)
-        mel = _fused_dec_seq(fp, torch.stack(outs, 1), prec) if want_mel else None
-        return torch.stack(zs, 1), mel, hs, h
-    p = sp.std
-    for t in range(y.shape[1]):
-        enc_t = enc_apply(p, torch.cat([phi_x[:, t], h], -1), prec)
-        z_t = _apply_bit_mask(torch.round(enc_t), mask[:, t])
-        hs.append(h)
-        dec_t, h = _advance(p, z_t, h, prec)
-        zs.append(z_t)
-        outs.append(dec_t)
-    return torch.stack(zs, 1), torch.stack(outs, 1) if want_mel else None, hs, h
+            z_t = _fused_enc(fp, encx_t, e1h, mask_t, prec)
+            h_next, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
+            return h_next, (z_t, a3) + ((h,) if want_states else ())
+
+        h, outs = _frames(step, h, [_matmul(phi_x, fp["w_enc1_x"], prec), mask], sp.traced)
+        mel = _fused_dec_seq(fp, outs[1], prec) if want_mel else None
+    else:
+        p = sp.std
+
+        def step(h, phi_x_t, mask_t):
+            enc_t = enc_apply(p, torch.cat([phi_x_t, h], -1), prec)
+            z_t = _apply_bit_mask(torch.round(enc_t), mask_t)
+            dec_t, h_next = _advance(p, z_t, h, prec)
+            return h_next, (z_t, dec_t) + ((h,) if want_states else ())
+
+        h, outs = _frames(step, h, [phi_x, mask], sp.traced)
+        mel = outs[1] if want_mel else None
+    return outs[0], mel, outs[2] if want_states else None, h
 
 
 def encode(params, cfg, y, var_bitrate, h):
     """Greedy encode.  y: (B, T, x_dim); var_bitrate: (B, T) or None;
     h: (B, h_dim).  Returns (codes (B, T, z), h_seq (B, T, h)) where
     ``h_seq[:, t]`` is the state before frame t."""
-    codes, _, hs, _ = _scan(params, cfg, y, var_bitrate, h)
-    return codes, torch.stack(hs, 1)
+    codes, _, hs, _ = _scan(params, cfg, y, var_bitrate, h, want_states=True)
+    return codes, hs
 
 
 def encode_with_state(params, cfg, y, var_bitrate, h):
@@ -451,21 +482,26 @@ def decode(params, cfg, z, h):
     equal to the encoder's."""
     sp = prepare(params, cfg)
     prec = cfg.precision
-    outs = []
     if _use_fused(cfg, z.shape[0]):
         fp = _fused_params(sp)
-        for t in range(z.shape[1]):
+
+        def fused_step(h, z_t):
             _, d1h, gh = _fused_h_combo(fp, h, prec)
-            h, a3 = _fused_tail(fp, h, z[:, t], d1h, gh, prec)
-            outs.append(a3)
-        return _fused_dec_seq(fp, torch.stack(outs, 1), prec), h
-    for t in range(z.shape[1]):
-        dec_t, h = _advance(sp.std, z[:, t], h, prec)
-        outs.append(dec_t)
-    return torch.stack(outs, 1), h
+            h_next, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
+            return h_next, (a3,)
+
+        h, (a3,) = _frames(fused_step, h, [z], sp.traced)
+        return _fused_dec_seq(fp, a3, prec), h
+
+    def step(h, z_t):
+        dec_t, h_next = _advance(sp.std, z_t, h, prec)
+        return h_next, (dec_t,)
+
+    h, (mel,) = _frames(step, h, [z], sp.traced)
+    return mel, h
 
 
-def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect"):
+def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect", every_step=False):
     """:func:`decode` with packet-loss concealment from the BVRNN's prior.
 
     Frames flagged in ``lost`` (B, T) ignore their ``z`` entries and take
@@ -478,7 +514,11 @@ def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect"):
     shares :func:`_fused_h_combo` / :func:`_fused_tail` with fused
     :func:`decode`; the prior stays the standard per-step MLP.  It runs
     only on steps where some stream lost its frame (read from ``lost`` once,
-    before the loop).  Returns (mel (B, T, x_dim), final h)."""
+    before the loop), or, with ``every_step``, on every step, selected by
+    ``torch.where`` alone: the form a traced program takes, which reads
+    nothing of ``lost`` on the host.  Both forms give the same bits, since
+    ``where`` returns a received frame's ``z`` exactly.  Returns (mel (B,
+    T, x_dim), final h)."""
     if mode not in ("expect", "map"):
         raise ValueError(f"unknown concealment mode {mode!r}")
     sp = prepare(params, cfg)
@@ -489,25 +529,32 @@ def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect"):
         cmask = bit_mask_from_bitrate(conceal_bits, cfg.z_dim)
     else:
         cmask = torch.ones(B, T, cfg.z_dim, device=z.device)
-    any_lost = lost.any(0).tolist()
+    # the steps where some stream lost its frame, read on the host
+    statics = None if every_step else [{"prior": v} for v in lost.any(0).tolist()]
 
-    def codes_at(t, h):
-        if not any_lost[t]:
-            return z[:, t]
+    def codes_at(h, z_t, lost_t, cmask_t, prior):
+        if not prior:
+            return z_t
         prior_t = prior_apply(sp.std, h, prec)
         z_hat = torch.round(prior_t) if mode == "map" else prior_t
-        return torch.where(lost[:, t, None], _apply_bit_mask(z_hat, cmask[:, t]), z[:, t])
+        return torch.where(lost_t[:, None], _apply_bit_mask(z_hat, cmask_t), z_t)
 
-    outs = []
+    xs = [z, lost, cmask]
     if _use_fused(cfg, B):
         fp = _fused_params(sp)
-        for t in range(T):
-            z_t = codes_at(t, h)
+
+        def fused_step(h, z_t, lost_t, cmask_t, prior=True):
+            z_t = codes_at(h, z_t, lost_t, cmask_t, prior)
             _, d1h, gh = _fused_h_combo(fp, h, prec)
-            h, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
-            outs.append(a3)
-        return _fused_dec_seq(fp, torch.stack(outs, 1), prec), h
-    for t in range(T):
-        dec_t, h = _advance(sp.std, codes_at(t, h), h, prec)
-        outs.append(dec_t)
-    return torch.stack(outs, 1), h
+            h_next, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
+            return h_next, (a3,)
+
+        h, (a3,) = _frames(fused_step, h, xs, sp.traced, statics)
+        return _fused_dec_seq(fp, a3, prec), h
+
+    def step(h, z_t, lost_t, cmask_t, prior=True):
+        dec_t, h_next = _advance(sp.std, codes_at(h, z_t, lost_t, cmask_t, prior), h, prec)
+        return h_next, (dec_t,)
+
+    h, (mel,) = _frames(step, h, xs, sp.traced, statics)
+    return mel, h

@@ -16,13 +16,21 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
   rounded to bf16 and the products summed in float32; snake, bias, start
   mask and residual stay float32, and so do input and output.
 
-* :func:`amp_resblock` is the kernels' wrapper.  For a CUDA tensor it
-  launches the mode's kernel (one launch per block, the stage average in
-  torch) or raises; only a CPU tensor takes the plain version.
-  ``amp_resblock.launches`` and ``amp_resblock.launches_bf16`` count the
-  launches of each mode.
+* :func:`amp_resblock` is the kernels' wrapper.  Each mode is a
+  ``torch.library`` custom op (:data:`OPS`: ``bvsc_torch::amp_resblock_f32``
+  and ``bvsc_torch::amp_resblock_bf16``, flat tensors and ints in, (B, C,
+  T) out), which a ``torch.export`` trace records; its fake function gives
+  the shape, so a symbolic batch traces.  An eager call runs the op's
+  implementation for its device without the dispatcher, and a traced
+  program calls the op, so both reach the same launch: for a CUDA tensor
+  :func:`launch` (one launch per block, the stage average in torch), which
+  launches the mode's kernel or raises; only a CPU tensor takes the plain
+  version, from the same packed weights.  ``amp_resblock.launches`` and
+  ``amp_resblock.launches_bf16`` count the launches of each mode, in
+  Python, on either route.
 * :func:`amp_block_plain` is the plain version, the reference
-  ``_amp_block`` written with the port's ``conv1d`` and ``snake_beta``.
+  ``_amp_block`` written with the port's ``conv1d`` and SnakeBeta from the
+  parameters :func:`snake_params` prepares.
 * :func:`amp_block_tiled` reproduces a kernel's tiling in torch (per-tile
   halo recompute, shrinking windows, zeros re-imposed at t < 0 after every
   conv's bias; each conv reads the mode's packed weights as its kernel
@@ -52,7 +60,7 @@ import torch.nn.functional as F
 from bvsc_tpu_torch.ops import _build
 from bvsc_tpu_torch.ops.conv import conv1d, pad1d
 from bvsc_tpu_torch.ops.precision import round_bf16
-from bvsc_tpu_torch.ops.snake import EPS, snake_beta
+from bvsc_tpu_torch.ops.snake import EPS
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 N_UNITS = 3
@@ -72,25 +80,46 @@ BF16_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 1, 64: 1}
 @dataclasses.dataclass(frozen=True)
 class ResblockParams:
     """One resblock: its raw params (for the plain version) and the packed
-    tensors the kernel reads."""
+    tensors the kernels read.  :meth:`for_mode` keeps only what one mode's
+    op reads (a serving bundle's programs take nothing else); the fields it
+    drops are None."""
 
-    block: dict
+    block: dict | None
     kernel_size: int
     dilations: tuple[int, ...]
-    w1: torch.Tensor  # (3, C_out, C_in, k)
+    w1: torch.Tensor | None  # (3, C_out, C_in, k)
     b1: torch.Tensor  # (3, C)
-    w2: torch.Tensor  # (3, C_out, C_in, k)
+    w2: torch.Tensor | None  # (3, C_out, C_in, k)
     b2: torch.Tensor  # (3, C)
     alpha: torch.Tensor  # (6, C), exp(log alpha)
     inv_beta: torch.Tensor  # (6, C), 1 / (exp(log beta) + eps)
-    wf1: torch.Tensor  # (3, C_in, k, C_out) float32, w1 packed for the float32 kernel
-    wf2: torch.Tensor  # (3, C_in, k, C_out) float32
-    wk1: torch.Tensor  # (3, C, Kp) bf16, w1 packed for the bf16 kernel
-    wk2: torch.Tensor  # (3, C, Kp) bf16
+    wf1: torch.Tensor | None  # (3, C_in, k, C_out) float32, w1 packed for the float32 kernel
+    wf2: torch.Tensor | None  # (3, C_in, k, C_out) float32
+    wk1: torch.Tensor | None  # (3, C, Kp) bf16, w1 packed for the bf16 kernel
+    wk2: torch.Tensor | None  # (3, C, Kp) bf16
 
     @property
     def channels(self) -> int:
-        return self.w1.shape[1]
+        return self.b1.shape[1]
+
+    def op_tensors(self, compute_dtype: torch.dtype) -> dict:
+        """The tensors the mode's op takes: the mode's packed conv weights
+        as ``w1``/``w2``, then the biases and snake parameters."""
+        bf16 = _precision(compute_dtype) == "default"
+        return {"w1": self.wk1 if bf16 else self.wf1, "b1": self.b1,
+                "w2": self.wk2 if bf16 else self.wf2, "b2": self.b2,
+                "alpha": self.alpha, "inv_beta": self.inv_beta}
+
+    def for_mode(self, compute_dtype: torch.dtype, t: dict) -> "ResblockParams":
+        """This block holding only ``t``, tensors of the mode's
+        :meth:`op_tensors` layout."""
+        bf16 = _precision(compute_dtype) == "default"
+        w1, w2 = t["w1"], t["w2"]
+        return ResblockParams(
+            block=None, kernel_size=self.kernel_size, dilations=self.dilations, w1=None,
+            b1=t["b1"], w2=None, b2=t["b2"], alpha=t["alpha"], inv_beta=t["inv_beta"],
+            wf1=None if bf16 else w1, wf2=None if bf16 else w2,
+            wk1=w1 if bf16 else None, wk2=w2 if bf16 else None)
 
 
 def pack_f32(w: torch.Tensor) -> torch.Tensor:
@@ -108,6 +137,20 @@ def pack_bf16(w: torch.Tensor) -> torch.Tensor:
     return F.pad(rows, (0, -(k * ci) % 16)).to(torch.bfloat16).contiguous()
 
 
+def snake_params(acts: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's (6, C) linear-scale alpha and 1 / (beta + eps) from its
+    log-scale snake params, on their device.  Computed on the host in
+    float64 and rounded once to float32, so the same on every device: a
+    card's ``exp`` and the CPU's can differ in the last bit, and a serving
+    bundle stores these as they were prepared."""
+    def host64(key):
+        return torch.stack([a[key] for a in acts]).detach().to("cpu", torch.float64)
+
+    dev = acts[0]["alpha"].device
+    return (torch.exp(host64("alpha")).float().to(dev),
+            (1.0 / (torch.exp(host64("beta")) + EPS)).float().to(dev))
+
+
 def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams:
     """Pack one resblock's params (snakebeta, log scale) for the kernel."""
     dilations = tuple(int(d) for d in dilations)
@@ -117,7 +160,7 @@ def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams
     def stack(tensors):
         return torch.stack(list(tensors)).contiguous()
 
-    acts = block["acts"]
+    alpha, inv_beta = snake_params(block["acts"])
     w1 = stack(c["w"] for c in block["convs1"])
     w2 = stack(c["w"] for c in block["convs2"])
     return ResblockParams(
@@ -128,8 +171,8 @@ def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams
         b1=stack(c["b"] for c in block["convs1"]),
         w2=w2,
         b2=stack(c["b"] for c in block["convs2"]),
-        alpha=stack(torch.exp(a["alpha"]) for a in acts),
-        inv_beta=stack(1.0 / (torch.exp(a["beta"]) + EPS) for a in acts),
+        alpha=alpha,
+        inv_beta=inv_beta,
         wf1=pack_f32(w1),
         wf2=pack_f32(w2),
         wk1=pack_bf16(w1),
@@ -196,14 +239,16 @@ def _stream_times(x: torch.Tensor, ctx: int, start: torch.Tensor | None, lo: int
     return start.to(torch.int64)[:, None, None] + cols
 
 
-def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
-                    compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
-                    start: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal AMP residual block (reference ``_amp_block``, causal branch);
-    in bf16 mode each conv takes bf16-rounded operands (``conv1d`` at
-    precision ``'default'``).  With ``ctx`` or ``start`` (module docstring)
-    the positions before each row's stream began are zeroed on load and
-    after every conv's bias, and the last T columns returned."""
+def _snake(x: torch.Tensor, alpha: torch.Tensor, inv_beta: torch.Tensor) -> torch.Tensor:
+    """SnakeBeta from the linear-scale (C,) alpha and 1 / (beta + eps)
+    (:func:`snake_params`)."""
+    return x + inv_beta[None, :, None] * torch.square(torch.sin(x * alpha[None, :, None]))
+
+
+def _block_plain(x, w1, b1, w2, b2, alpha, inv_beta, kernel_size: int, dilations,
+                 compute_dtype: torch.dtype, ctx: int, start) -> torch.Tensor:
+    """The plain block on (3, C_out, C_in, k) conv weights, (3, C) biases
+    and (6, C) linear-scale snake parameters."""
     prec = _precision(compute_dtype)
     p2 = kernel_size - 1
     keep = None if ctx == 0 and start is None else _stream_times(x, ctx, start) >= 0
@@ -213,13 +258,56 @@ def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
 
     x = mask(x)
     for j, d in enumerate(dilations):
-        xt = snake_beta(x, block["acts"][2 * j], logscale=True)
-        xt = mask(conv1d(pad1d(xt, (kernel_size - 1) * d), block["convs1"][j], dilation=d,
-                         precision=prec))
-        xt = snake_beta(xt, block["acts"][2 * j + 1], logscale=True)
-        xt = mask(conv1d(pad1d(xt, p2), block["convs2"][j], precision=prec))
+        xt = _snake(x, alpha[2 * j], inv_beta[2 * j])
+        xt = mask(conv1d(pad1d(xt, (kernel_size - 1) * d), {"w": w1[j], "b": b1[j]},
+                         dilation=d, precision=prec))
+        xt = _snake(xt, alpha[2 * j + 1], inv_beta[2 * j + 1])
+        xt = mask(conv1d(pad1d(xt, p2), {"w": w2[j], "b": b2[j]}, precision=prec))
         x = xt + x
     return x[..., ctx:]
+
+
+def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
+                    compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal AMP residual block (reference ``_amp_block``, causal branch);
+    in bf16 mode each conv takes bf16-rounded operands (``conv1d`` at
+    precision ``'default'``).  With ``ctx`` or ``start`` (module docstring)
+    the positions before each row's stream began are zeroed on load and
+    after every conv's bias, and the last T columns returned."""
+    def stack(tensors):
+        return torch.stack(list(tensors))
+
+    return _block_plain(
+        x, stack(c["w"] for c in block["convs1"]), stack(c["b"] for c in block["convs1"]),
+        stack(c["w"] for c in block["convs2"]), stack(c["b"] for c in block["convs2"]),
+        *snake_params(block["acts"]), kernel_size, dilations, compute_dtype, ctx, start)
+
+
+def unpack_f32(wf: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_f32`: (3, C_in, k, C_out) -> (3, C_out, C_in, k)."""
+    return wf.permute(0, 3, 1, 2).contiguous()
+
+
+def unpack_bf16(wk: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bf16` to the bf16-rounded weights, in float32:
+    (3, C_out, Kp) -> (3, C_out, C_in, k)."""
+    n, co, _ = wk.shape
+    ci = co  # a resblock's convs are square
+    rows = wk[..., : kernel_size * ci].to(torch.float32)
+    return rows.reshape(n, co, kernel_size, ci).permute(0, 1, 3, 2).contiguous()
+
+
+def amp_block_packed_plain(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size: int,
+                           dilations, ctx: int, compute_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`amp_block_plain` from the op's arguments (the mode's packed
+    weights): the ops' CPU implementation, bitwise the plain block of the
+    raw params (unpacking is exact, and bf16 mode rounds the weights to
+    bf16 either way)."""
+    bf16 = _precision(compute_dtype) == "default"
+    unpack = (lambda w: unpack_bf16(w, kernel_size)) if bf16 else unpack_f32
+    return _block_plain(x, unpack(w1), b1, unpack(w2), b2, alpha, inv_beta, kernel_size,
+                        dilations, compute_dtype, ctx, start)
 
 
 def _conv_gemm(xt: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, k: int, d: int) -> torch.Tensor:
@@ -251,13 +339,12 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
     halo from a window read from the input where it lies at or after input
     column 0, zeros elsewhere and before each row's stream began; each conv
     reads the mode's packed weights (:func:`_conv_packed`, or the bf16 GEMM
-    :func:`_conv_gemm`)."""
+    :func:`_conv_gemm`) and each snake its prepared parameters."""
     bf16 = _precision(compute_dtype) == "default"
     B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     k, dils = rb.kernel_size, rb.dilations
     H, tile = halo(k, dils), tile or tile_for(C, compute_dtype)
     xpad = F.pad(x, (H, tile))  # column i holds input column i - H
-    acts = rb.block["acts"]
     out = x.new_empty(B, C, T)
 
     def conv(xt, n, j, d):
@@ -270,11 +357,11 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
         g = _stream_times(x, ctx, start, ctx + t0 - H, H + tile)
         xw = xpad[..., ctx + t0 : ctx + t0 + H + tile] * (g >= 0).to(x.dtype)
         for j, d in enumerate(dils):
-            xt = snake_beta(xw, acts[2 * j], logscale=True)
+            xt = _snake(xw, rb.alpha[2 * j], rb.inv_beta[2 * j])
             xt = conv(xt, 1, j, d)
             g = g[..., (k - 1) * d :]
             xt = xt * (g >= 0).to(xt.dtype)
-            xt = snake_beta(xt, acts[2 * j + 1], logscale=True)
+            xt = _snake(xt, rb.alpha[2 * j + 1], rb.inv_beta[2 * j + 1])
             xt = conv(xt, 2, j, 1)
             g = g[..., k - 1 :]
             xt = xt * (g >= 0).to(xt.dtype)
@@ -384,8 +471,9 @@ def bf16_plan(rb: ResblockParams, tile: int | None = None) -> dict:
             "weight_buffers": out[4], "blocks_per_sm": out[5]}
 
 
-def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
-           tile: int | None = None, ctx: int = 0, start: torch.Tensor | None = None) -> None:
+def _check_op(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size: int,
+              dilations: tuple, compute_dtype: torch.dtype, tile: int | None = None,
+              ctx: int = 0) -> None:
     """Refuses what the mode's kernel cannot take; with a ``tile``, also a
     window whose shared memory, as the kernel's build reports it, exceeds
     :data:`SMEM_LIMIT`."""
@@ -398,24 +486,110 @@ def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
                               or start.device != x.device or not start.is_contiguous()):
         raise ValueError(f"start must be a contiguous int32 ({x.shape[0]},) tensor on the "
                          f"input's device, got {start.dtype} {tuple(start.shape)} on {start.device}")
-    if x.shape[1] != rb.channels:
-        raise ValueError(f"{x.shape[1]} channels, resblock has {rb.channels}")
+    C = b1.shape[-1]
+    if x.shape[1] != C:
+        raise ValueError(f"{x.shape[1]} channels, resblock has {C}")
     bf16 = compute_dtype == torch.bfloat16
-    weights = [(rb.wk1, torch.bfloat16), (rb.wk2, torch.bfloat16)] if bf16 else [
-        (rb.wf1, torch.float32), (rb.wf2, torch.float32)]
-    for t, dtype in weights + [(p, torch.float32) for p in (rb.b1, rb.b2, rb.alpha, rb.inv_beta)]:
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"resblock params must be contiguous {dtype} on the input's device")
-    if bf16 and any(t.data_ptr() % 16 for t in (rb.wk1, rb.wk2)):
+    wshape = (3, C, C * kernel_size + -(C * kernel_size) % 16) if bf16 else (3, C, kernel_size, C)
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    for t, dtype, shape in [(w1, wdtype, wshape), (w2, wdtype, wshape), (b1, torch.float32, (3, C)),
+                            (b2, torch.float32, (3, C)), (alpha, torch.float32, (6, C)),
+                            (inv_beta, torch.float32, (6, C))]:
+        if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"resblock params must be contiguous {dtype} {shape} on the "
+                             f"input's device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if bf16 and any(t.data_ptr() % 16 for t in (w1, w2)):
         raise ValueError("the bf16 kernel copies its weights in 16-byte pieces: align them")
-    shapes = [(rb.channels, rb.kernel_size, d) for d in rb.dilations]
+    shapes = [(C, kernel_size, d) for d in dilations]
     if not set(shapes) <= set(BF16_SHAPES if bf16 else F32_SHAPES):
         name = "BF16_SHAPES" if bf16 else "F32_SHAPES"
         raise ValueError(f"the {compute_dtype} kernel takes (C, k, d) in {name}, got {shapes}")
     if tile is not None and (tile <= 0 or bf16 and tile % 16):
         raise ValueError(f"the tile must be positive (a multiple of 16 in bf16), got {tile}")
-    if tile is not None and (smem := smem_bytes(rb, compute_dtype, tile)) > SMEM_LIMIT:
-        raise ValueError(f"{smem} B of shared memory exceeds {SMEM_LIMIT}")
+    if tile is not None:
+        plan = _ask_plan(compute_dtype, C, kernel_size, tuple(dilations), tile, 6 if bf16 else 4)
+        if plan[1] > SMEM_LIMIT:
+            raise ValueError(f"{plan[1]} B of shared memory exceeds {SMEM_LIMIT}")
+
+
+def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
+           tile: int | None = None, ctx: int = 0, start: torch.Tensor | None = None) -> None:
+    """:func:`_check_op` on one resblock's tensors for the mode."""
+    t = rb.op_tensors(compute_dtype)
+    _check_op(x, t["w1"], t["b1"], t["w2"], t["b2"], t["alpha"], t["inv_beta"], start,
+              rb.kernel_size, rb.dilations, compute_dtype, tile, ctx)
+
+
+def launch(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size: int,
+           dilations, ctx: int, tile: int, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The ops' CUDA implementation: checks the arguments, then launches the
+    mode's kernel on the current stream with ``tile`` outputs per thread
+    block (0: :func:`launch_tile`'s, from the real B) and counts the
+    launch."""
+    tile = tile or launch_tile(x, compute_dtype, ctx)
+    dilations = tuple(dilations)
+    _check_op(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations,
+              compute_dtype, tile, ctx)
+    B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
+    y = x.new_empty(B, C, T)
+    with torch.cuda.device(x.device):
+        err = _kernel(compute_dtype)(
+            x.data_ptr(), y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), alpha.data_ptr(), inv_beta.data_ptr(),
+            None if start is None else start.data_ptr(),
+            B, C, T, ctx, kernel_size, *dilations, tile,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"amp_resblock ({compute_dtype}) kernel launch failed: CUDA error {err}")
+    if compute_dtype == torch.bfloat16:
+        amp_resblock.launches_bf16 += 1
+    else:
+        amp_resblock.launches += 1
+    return y
+
+
+_OP_SCHEMA = ("(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor alpha, "
+              "Tensor inv_beta, Tensor? start, int kernel_size, int[] dilations, int ctx, "
+              "int tile) -> Tensor")
+
+
+def _plain_op(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size: int, dilations, ctx: int,
+              tile: int, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The ops' CPU implementation: the plain block, contiguous as the
+    kernel's output and the fake function's are (``tile`` is the kernel's
+    only)."""
+    return amp_block_packed_plain(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size,
+                                  dilations, ctx, compute_dtype).contiguous()
+
+
+def _define_op(name: str, compute_dtype: torch.dtype):
+    """The mode's custom op: CPU implementation :func:`_plain_op`, CUDA
+    implementation :func:`launch`, fake function (B, C, T - ctx)."""
+
+    def plain(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations, ctx, tile):
+        return _plain_op(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations, ctx,
+                         tile, compute_dtype)
+
+    op = torch.library.custom_op(f"bvsc_torch::{name}", plain, mutates_args=(),
+                                 device_types="cpu", schema=_OP_SCHEMA)
+
+    @op.register_kernel("cuda")
+    def _cuda(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations, ctx, tile):
+        return launch(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations, ctx,
+                      tile, compute_dtype)
+
+    @op.register_fake
+    def _fake(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations, ctx, tile):
+        return x.new_empty(x.shape[0], x.shape[1], x.shape[2] - ctx)
+
+    return op
+
+
+# One op per mode; a traced program calls them as torch.ops.bvsc_torch.<name>.
+OPS = {torch.float32: _define_op("amp_resblock_f32", torch.float32),
+       torch.bfloat16: _define_op("amp_resblock_bf16", torch.bfloat16)}
 
 
 def amp_resblock(x: torch.Tensor, rb: ResblockParams,
@@ -423,37 +597,22 @@ def amp_resblock(x: torch.Tensor, rb: ResblockParams,
                  tile: int | None = None, ctx: int = 0,
                  start: torch.Tensor | None = None) -> torch.Tensor:
     """One AMP residual block in ``compute_dtype``'s mode, on (B, C, ctx +
-    T) with ``start`` (module docstring) to (B, C, T).  CUDA tensors launch
-    that mode's kernel with ``tile`` outputs per thread block
-    (:func:`launch_tile`'s by default); CPU tensors take
-    :func:`amp_block_plain`; anything else raises."""
+    T) with ``start`` (module docstring) to (B, C, T), through the mode's
+    op (:data:`OPS`).  CUDA tensors launch that mode's kernel with ``tile``
+    outputs per thread block (:func:`launch_tile`'s by default); CPU
+    tensors take the plain block; anything else raises."""
     _precision(compute_dtype)
-    if x.device.type == "cpu":
-        return amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, compute_dtype, ctx,
-                               start)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"amp_resblock runs on cuda or cpu, not {x.device}")
-    tile = tile or launch_tile(x, compute_dtype, ctx)
-    _check(x, rb, compute_dtype, tile, ctx, start)
-    bf16 = compute_dtype == torch.bfloat16
-    B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
-    w1, w2 = (rb.wk1, rb.wk2) if bf16 else (rb.wf1, rb.wf2)
-    y = x.new_empty(B, C, T)
-    with torch.cuda.device(x.device):
-        err = _kernel(compute_dtype)(
-            x.data_ptr(), y.data_ptr(), w1.data_ptr(), rb.b1.data_ptr(),
-            w2.data_ptr(), rb.b2.data_ptr(), rb.alpha.data_ptr(), rb.inv_beta.data_ptr(),
-            None if start is None else start.data_ptr(),
-            B, C, T, ctx, rb.kernel_size, *rb.dilations, tile,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"amp_resblock ({compute_dtype}) kernel launch failed: CUDA error {err}")
-    if bf16:
-        amp_resblock.launches_bf16 += 1
-    else:
-        amp_resblock.launches += 1
-    return y
+    t = rb.op_tensors(compute_dtype)
+    args = (x, t["w1"], t["b1"], t["w2"], t["b2"], t["alpha"], t["inv_beta"], start,
+            rb.kernel_size, list(rb.dilations), ctx, tile or 0)
+    if torch.compiler.is_compiling() or type(x) is not torch.Tensor:
+        return OPS[compute_dtype](*args)  # a trace records the op
+    # Eager calls skip the dispatcher, which adds tens of microseconds to a
+    # launch on the card's host (PERF.md, section 6), and run the op's
+    # implementation itself.
+    return (launch if x.device.type == "cuda" else _plain_op)(*args, compute_dtype)
 
 
 amp_resblock.launches = 0  # float32 kernel

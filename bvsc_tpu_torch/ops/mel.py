@@ -10,6 +10,8 @@ with the same formulae as the JAX package, so the constants are identical.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -113,6 +115,21 @@ class MelFrontend:
         ).to(device)
         self.cos_basis = torch.from_numpy(cos_b).to(device)
         self.sin_basis = torch.from_numpy(sin_b).to(device)
+
+    TENSORS = ("window", "mel_basis", "cos_basis", "sin_basis")
+
+    def tensors(self) -> dict:
+        """The frontend's constants by name (a serving bundle stores them
+        as program inputs)."""
+        return {k: getattr(self, k) for k in self.TENSORS}
+
+    def with_tensors(self, tensors: dict) -> "MelFrontend":
+        """A copy of this frontend that computes with ``tensors`` (the
+        layout of :meth:`tensors`) in place of its own."""
+        new = copy.copy(self)
+        for k in self.TENSORS:
+            setattr(new, k, tensors[k])
+        return new
 
     def num_frames(self, length: int) -> int:
         return 1 + (length + self.pad_left + self.pad_right - self.n_fft) // self.hop_size

@@ -38,8 +38,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
     on the CPU, which has no such kernel, it is the float32 product of the
     bf16-rounded operands, which is also its oracle."""
     if precision == "highest":
-        return torch.matmul(x, w.to(torch.float32))
-    wb = w.to(torch.bfloat16)
+        # no cast of float32 weights: it would be a traced program's node
+        return torch.matmul(x, w if w.dtype == torch.float32 else w.to(torch.float32))
+    wb = w if w.dtype == torch.bfloat16 else w.to(torch.bfloat16)
     if x.device.type == "cuda":
         y = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), wb, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])

@@ -2,9 +2,10 @@
 ``bvsc_tpu/serve/``).
 
 All exports are lazy, so that the client half (``CodecClient``,
-``bvsc_tpu_torch.serve.protocol``) loads no engine.  The AOT serving
-bundles and the native client are not ported (``ROADMAP.md``, queue 1,
-item 9; ``bvsc_tpu``'s native C client talks to this daemon as it is).
+``bvsc_tpu_torch.serve.protocol``) loads no engine.  AOT serving bundles
+(``export_serving_bundle``, ``ServingBundle``) are ``serve.export``'s.  The
+native client is not ported: ``bvsc_tpu``'s native C client talks to this
+daemon as it is.
 """
 
 _LAZY = {
@@ -12,6 +13,13 @@ _LAZY = {
     "ServingEngine": ("bvsc_tpu_torch.serve.engine", "ServingEngine"),
     "CodecDaemon": ("bvsc_tpu_torch.serve.daemon", "CodecDaemon"),
     "CodecClient": ("bvsc_tpu_torch.serve.client", "CodecClient"),
+    "FORMAT": ("bvsc_tpu_torch.serve.export", "FORMAT"),
+    "export_serving_bundle": ("bvsc_tpu_torch.serve.export", "export_serving_bundle"),
+    "ServingBundle": ("bvsc_tpu_torch.serve.export", "ServingBundle"),
+    "ExportedPacketCodec": ("bvsc_tpu_torch.serve.export", "ExportedPacketCodec"),
+    "ExportedPacketDecoder": ("bvsc_tpu_torch.serve.export", "ExportedPacketDecoder"),
+    "BundleServingEngine": ("bvsc_tpu_torch.serve.export", "BundleServingEngine"),
+    "BundleDecodeEngine": ("bvsc_tpu_torch.serve.export", "BundleDecodeEngine"),
 }
 
 __all__ = sorted(_LAZY)

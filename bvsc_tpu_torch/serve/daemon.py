@@ -35,8 +35,9 @@ follow the codes and the rate schedule alone, never the tick timing, and
 the wire bytes are reproducible.  A corrupt payload is a protocol error on
 its connection; the daemon keeps serving.
 
-Not ported yet, and refused with the queue item named: an AOT serving
-bundle in place of a live codec (``ROADMAP.md``, queue 1, item 9).
+The daemon serves a live codec or an AOT serving bundle
+(``serve.export.ServingBundle``): a bundle's engines run its exported tick
+programs, at the slot count it was exported with.
 """
 
 from __future__ import annotations
@@ -51,14 +52,13 @@ import time
 
 import numpy as np
 
-from bvsc_tpu_torch.codec import BVRNNCodecModel, _not_ported
+from bvsc_tpu_torch.codec import BVRNNCodecModel
 from bvsc_tpu_torch.serve import protocol as P
 from bvsc_tpu_torch.serve.engine import DecodeEngine, EngineStateLost, ServingEngine
 from bvsc_tpu_torch.serve.entropy_wire import AdaptiveCodesCoder
+from bvsc_tpu_torch.serve.export import BundleDecodeEngine, BundleServingEngine, ServingBundle
 
 log = logging.getLogger("bvsc_tpu_torch.serve.daemon")
-
-_BUNDLE = "ROADMAP.md, queue 1, item 9 (AOT export)"
 
 
 class _Conn:
@@ -171,14 +171,14 @@ class _Conn:
 
 
 class CodecDaemon:
-    """Serve a port :class:`bvsc_tpu_torch.codec.BVRNNCodecModel` over TCP
-    (BVSP/1).
+    """Serve a port :class:`bvsc_tpu_torch.codec.BVRNNCodecModel`, or a
+    :class:`~bvsc_tpu_torch.serve.export.ServingBundle`, over TCP (BVSP/1).
 
     ``max_streams`` (default 128) is each engine's slot count, the fixed
-    batch of its device state.  Bind ``port=0`` for an ephemeral port (read
-    it back from ``.port`` after ``start()``).  Both engines are built, and
-    their first tick run, in the constructor, so the kernels are built
-    before the daemon listens.
+    batch of its device state; a bundle's is its ``engine_batch``.  Bind
+    ``port=0`` for an ephemeral port (read it back from ``.port`` after
+    ``start()``).  Both engines are built, and their first tick run, in the
+    constructor, so the kernels are built before the daemon listens.
     """
 
     def __init__(self, codec, host: str = "127.0.0.1", port: int = 0,
@@ -187,10 +187,10 @@ class CodecDaemon:
                  send_queue_bytes: int = 32 << 20,
                  max_buffered_seconds: float = 600.0,
                  sndbuf: int | None = None):
-        """codec: a live port ``BVRNNCodecModel``; anything else (such as
-        what stands for ``bvsc_tpu``'s AOT ``ServingBundle``) raises
-        NotImplementedError.  mesh (multi-card serving) raises in the
-        engines.
+        """codec: a live port ``BVRNNCodecModel``, or a ``ServingBundle``
+        exported with ``engine_batch=N`` (then ``max_streams`` is None or
+        N, else ValueError); anything else is a TypeError.  mesh
+        (multi-card serving) raises in the engines.
 
         handshake_timeout bounds how long an accepted connection may take
         to complete HELLO (before it owns a slot).  send_timeout bounds a
@@ -203,9 +203,18 @@ class CodecDaemon:
         backlog (audio seconds, or the equivalent frame count for decode
         streams); input beyond it is a protocol error.  sndbuf, if set,
         caps each connection's kernel send buffer (SO_SNDBUF)."""
-        if not isinstance(codec, BVRNNCodecModel):
-            raise _not_ported(f"serving a {type(codec).__name__} (an AOT serving bundle)",
-                              _BUNDLE)
+        if not isinstance(codec, (BVRNNCodecModel, ServingBundle)):
+            raise TypeError(f"CodecDaemon serves a BVRNNCodecModel or a ServingBundle, got "
+                            f"{type(codec).__name__}")
+        if isinstance(codec, ServingBundle):
+            if not codec.meta.get("engine"):
+                raise ValueError("the bundle was exported without engine programs; export "
+                                 "with engine_batch=N to serve it")
+            slots = codec.meta["engine"]["batch"]
+            if max_streams is not None and max_streams != slots:
+                raise ValueError(f"the bundle exports {slots} stream slots, got "
+                                 f"max_streams={max_streams}")
+            max_streams = slots
         max_streams = 128 if max_streams is None else max_streams
         if not 1 <= max_streams <= 0xFFFF:
             raise ValueError("max_streams must be in [1, 65535] "
@@ -219,8 +228,12 @@ class CodecDaemon:
         self._max_buffered_samples = int(max_buffered_seconds * codec.conf.fs)
         self._max_buffered_frames = max(1, self._max_buffered_samples // codec.conf.hopsize)
         self._cond = threading.Condition()
-        self._eng = ServingEngine(codec, max_streams=max_streams, mesh=mesh)
-        self._dec = DecodeEngine(codec, max_streams=max_streams, mesh=mesh)
+        if isinstance(codec, ServingBundle):
+            self._eng = BundleServingEngine(codec, mesh=mesh)
+            self._dec = BundleDecodeEngine(codec, mesh=mesh)
+        else:
+            self._eng = ServingEngine(codec, max_streams=max_streams, mesh=mesh)
+            self._dec = DecodeEngine(codec, max_streams=max_streams, mesh=mesh)
         self._conns: set[_Conn] = set()
         self._by_slot: dict[tuple[str, int], _Conn] = {}
         self._listener: socket.socket | None = None

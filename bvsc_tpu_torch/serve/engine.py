@@ -49,7 +49,6 @@ import torch
 
 from bvsc_tpu_torch import streaming as S
 from bvsc_tpu_torch.codec import _not_ported
-from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 
 _MESH = "ROADMAP.md, queue 1, item 11 (the parallel paths)"
 
@@ -131,26 +130,27 @@ def _zero_rows(tree, sid: int) -> None:
         tree[sid] = 0
 
 
-def _fused_tick(codec, state: dict, chunk: torch.Tensor, bits: torch.Tensor,
+def _fused_tick(w, state: dict, chunk: torch.Tensor, bits: torch.Tensor,
                 active: torch.Tensor):
-    """Every slot by one 256-sample frame: one ``_fused_packet_step`` over
-    all B rows, then the masked merge.  state: {window (B, win), h (B, h),
-    voc}; chunk (B, hop); bits (B,) bits/frame; active (B,) bool.  Returns
-    (state, codes (B, z), waveform (B, hop))."""
-    new, codes, wav = S._fused_packet_step(codec, state, chunk, bits)
+    """Every slot by one 256-sample frame on the codec's weights ``w``
+    (``codec.CodecWeights``): one ``_fused_packet_step`` over all B rows,
+    then the masked merge.  state: {window (B, win), h (B, h), voc}; chunk
+    (B, hop); bits (B,) bits/frame; active (B,) bool.  Returns (state,
+    codes (B, z), waveform (B, hop))."""
+    new, codes, wav = S._fused_packet_step(w, state, chunk, bits)
     return _merge_active(active, new, state), codes, wav
 
 
-def _decode_tick(codec, state: dict, codes: torch.Tensor, lost: torch.Tensor,
-                 cbits: torch.Tensor, active: torch.Tensor):
-    """Every decode slot by one frame: ``decode_plc`` at T = 1 (codes (B, z),
-    per-slot ``lost`` 0/1 flags and concealment bits ``cbits``), the
+def _decode_tick(w, state: dict, codes: torch.Tensor, lost: torch.Tensor,
+                 cbits: torch.Tensor, active: torch.Tensor, every_step: bool = False):
+    """Every decode slot by one frame on the codec's weights ``w``:
+    ``decode_plc`` at T = 1 (codes (B, z), per-slot ``lost`` 0/1 flags and
+    concealment bits ``cbits``; ``every_step`` its traceable form), the
     streaming vocoder step, the masked merge.  state: {h (B, h), voc}.
     Returns (state, waveform (B, hop))."""
-    mel, h = bvrnn_mod.decode_plc(codec.scan_params, codec.bvrnn_cfg, codes[:, None],
-                                  lost[:, None], state["h"], cbits[:, None])
-    voc, wav = S._vocode_step(codec, state["voc"], mel)
-    return _merge_active(active, {"h": h, "voc": voc}, state), wav
+    new, wav = S._packet_decode_step(w, state, codes[:, None], lost[:, None], cbits,
+                                     every_step)
+    return _merge_active(active, new, state), wav
 
 
 class ServingEngine:
@@ -207,7 +207,7 @@ class ServingEngine:
     def _tick_call(self, state, chunk, bits, active):
         """The device step of one tick (a test replaces it to inject a
         failure)."""
-        return _fused_tick(self.codec, state, chunk, bits, active)
+        return _fused_tick(self.codec.weights, state, chunk, bits, active)
 
     # -- stream management ----------------------------------------------------
 
@@ -379,7 +379,7 @@ class DecodeEngine:
 
     def _tick_call(self, state, codes, lost, cbits, active):
         """The device step of one decode tick."""
-        return _decode_tick(self.codec, state, codes, lost, cbits, active)
+        return _decode_tick(self.codec.weights, state, codes, lost, cbits, active)
 
     def open_stream(self, conceal_bitrate=None) -> int:
         """conceal_bitrate: bps masking this stream's concealed frames to its

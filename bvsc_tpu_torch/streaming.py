@@ -52,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bvsc_tpu_torch.codec import SCALING, _host_array
+from bvsc_tpu_torch.codec import SCALING, CodecWeights, _host_array
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.device import resolve_device
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
@@ -157,7 +157,9 @@ def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]
     residual stacks' mode, as in ``models.vocoder.generator_apply_kernel``;
     ``kernel_blocks`` from ``prepare_kernel_params``.  Returns (new state,
     waveform)."""
-    new: dict = {"ups": [], "stages": []}
+    # the new state's keys in generator_stream_init's order (a traced
+    # program's state input and output share one tree layout)
+    new: dict = {"conv_pre": None, "ups": [], "stages": [], "conv_post": None}
     new["conv_pre"], x = _stream_conv(state["conv_pre"], mel, params["conv_pre"],
                                       precision=precision)
     for i, u in enumerate(cfg.upsample_rates):
@@ -171,12 +173,12 @@ def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]
     return new, torch.tanh(x)
 
 
-def _vocode_step(codec, state: dict, mel: torch.Tensor):
-    """Decoded mel (B, T, M) -> (new vocoder state, waveform (B, T * hop))."""
+def _vocode_step(w: CodecWeights, state: dict, mel: torch.Tensor):
+    """Decoded mel (B, T, M) -> (new vocoder state, waveform (B, T * hop)),
+    on the codec's weights ``w`` (``codec.CodecWeights``)."""
     state, wav = generator_stream_step(
-        codec.vocoder_params, codec.kernel_blocks, codec.conf.vocoder_config, state,
-        mel.transpose(1, 2).contiguous(), precision=codec.precision,
-        compute_dtype=voc_compute_dtype(codec))
+        w.vocoder, w.blocks, w.vocoder_cfg, state, mel.transpose(1, 2).contiguous(),
+        precision=w.precision, compute_dtype=w.voc_compute_dtype)
     return state, wav[:, 0, :] / SCALING
 
 
@@ -297,7 +299,7 @@ class StreamingDecoder:
                 self.conceal_bits[:, None].expand(B, T))
         else:
             mel, self.h = bvrnn_mod.decode(codec.scan_params, codec.bvrnn_cfg, codes, self.h)
-        self.voc_state, wav = _vocode_step(codec, self.voc_state, mel)
+        self.voc_state, wav = _vocode_step(codec.weights, self.voc_state, mel)
         return wav
 
     def conceal(self, n_frames: int = 1) -> torch.Tensor:
@@ -309,9 +311,10 @@ class StreamingDecoder:
         return self.feed(codes, lost=np.ones((self.batch, n_frames), np.float32))
 
 
-def _fused_packet_step(codec, state: dict, chunk: torch.Tensor, bits: torch.Tensor):
-    """One 256-sample packet: window roll -> mel of one frame -> the BVRNN's
-    ``encode_decode`` at T = 1 -> streaming vocoder step.
+def _fused_packet_step(w: CodecWeights, state: dict, chunk: torch.Tensor, bits: torch.Tensor):
+    """One 256-sample packet on the codec's weights ``w``: window roll ->
+    mel of one frame -> the BVRNN's ``encode_decode`` at T = 1 -> streaming
+    vocoder step.
 
     state: {window (B, 1024), h (B, h_dim), voc (vocoder state)}.  One GRU
     state serves both ends: the closed loop keeps the encoder's and the
@@ -320,11 +323,25 @@ def _fused_packet_step(codec, state: dict, chunk: torch.Tensor, bits: torch.Tens
     waveform (B, 256))."""
     hop = chunk.shape[-1]
     window = torch.cat([state["window"][:, hop:], chunk], -1)
-    mel = codec.frontend.log_mel((window * SCALING)[:, None, :]).transpose(1, 2)  # (B, 1, M)
-    codes, mel_hat, h = bvrnn_mod.encode_decode(codec.scan_params, codec.bvrnn_cfg, mel,
-                                                bits[:, None], state["h"])
-    voc, wav = _vocode_step(codec, state["voc"], mel_hat)
+    mel = w.frontend.log_mel((window * SCALING)[:, None, :]).transpose(1, 2)  # (B, 1, M)
+    codes, mel_hat, h = bvrnn_mod.encode_decode(w.scan, w.bvrnn_cfg, mel, bits[:, None],
+                                                state["h"])
+    voc, wav = _vocode_step(w, state["voc"], mel_hat)
     return {"window": window, "h": h, "voc": voc}, codes[:, 0, :], wav
+
+
+def _packet_decode_step(w: CodecWeights, state: dict, codes: torch.Tensor, lost: torch.Tensor,
+                        cbits: torch.Tensor, every_step: bool = False):
+    """The receiver's step on the codec's weights ``w``: codes (B, T, z)
+    with lost-frame flags (B, T) and concealment bits/frame (B,) ->
+    ``decode_plc`` -> streaming vocoder step.  state: {h (B, h_dim), voc}.
+    ``every_step`` is ``decode_plc``'s traceable form.  Returns (state,
+    waveform (B, T * hop))."""
+    cb = cbits[:, None].expand(codes.shape[0], codes.shape[1])
+    mel, h = bvrnn_mod.decode_plc(w.scan, w.bvrnn_cfg, codes, lost, state["h"], cb,
+                                  every_step=every_step)
+    voc, wav = _vocode_step(w, state["voc"], mel)
+    return {"h": h, "voc": voc}, wav
 
 
 class FusedPacketCodec:
@@ -358,7 +375,8 @@ class FusedPacketCodec:
     def _step(self, chunk: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """One packet through :func:`_fused_packet_step`: (codes, waveform)."""
         chunk = torch.as_tensor(np.ascontiguousarray(chunk), device=self.codec.device)
-        self.state, codes, wav = _fused_packet_step(self.codec, self.state, chunk, self.bits)
+        self.state, codes, wav = _fused_packet_step(self.codec.weights, self.state, chunk,
+                                                    self.bits)
         return codes, wav
 
     def _none(self) -> torch.Tensor:

@@ -168,6 +168,33 @@ Phases, each printing one JSON line with its seconds:
     the coder's ms per frame writing and reading, and rANS MB/s native
     against numpy.
 
+12. ``export``: AOT serving bundles (``bvsc_tpu_torch.serve.export``) on
+    the trained pair.  This process exports a parity bundle on the card
+    while two processes of the export CLI (``cli/export_cli.py``) export a
+    fast ``'auto'`` one on the card and a parity one on the CPU; each has
+    the one-shot programs at B = 4 on the bucket of the demo batch's first
+    16 384 samples (not the CPU one), the packet programs at batch 1 and
+    the engines' ticks at 128 slots, in a temporary directory removed at
+    the end.  Each bundle loads onto the card and each program is held
+    against the same codec live: ``encode`` bitwise, ``decode``,
+    ``forward``, ``vocode``, the packet step (its codes bitwise) and the
+    receiver's step with ``plc``'s losses within 1e-6 (the reference's
+    bound; bitwise is printed), 12 K1 launches (K1-bf16 in fast mode) per
+    ``forward``, ``decode``, packet step and tick, counted through the op;
+    the ``serving`` phase's 24-stream schedule through
+    ``BundleServingEngine`` and its decode run through
+    ``BundleDecodeEngine`` against the live engines' (codes bitwise, audio
+    within 1e-6).  The CPU-traced bundle's packet step and both ticks on
+    the card are bitwise the card-traced bundle's.  A ``CodecDaemon`` of
+    the parity bundle serves three clients (resynthesis, an entropy-coded
+    encode, a decode with losses), bitwise the live daemon's wire.
+    Printed: export seconds and bytes per program, load seconds per
+    program, each bundle's bytes per member, ms per tick at 128 active of
+    the live and the bundle engine (median and p90 of 30 in turns), and a
+    launch's host microseconds through the op and through its direct
+    implementation (``ops.amp_resblock.launch``), on one tick's windows.
+    The daemon is closed and the CLI processes stopped before it ends.
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -196,7 +223,7 @@ from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, 
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
 from bvsc_tpu_torch.cli import codec_cli
-from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
+from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, _generator_impl
 from bvsc_tpu_torch.convert import load_bvrnn_npz
 from bvsc_tpu_torch.data.audio import load_wav, save_wav
 from bvsc_tpu_torch.device import set_parity_mode
@@ -290,6 +317,13 @@ GOLDEN_V2_BYTES = 912  # bvsc_tpu's payload of the same codes (its float32 prior
 ENTROPY_SIZE_RTOL = 0.01
 CLI_WAV_TOL = 1e-6  # the CLI's wav against the in-process decode written the same way
 RANS_BITS = (1 << 20, 1 << 15)  # bits coded to time rANS: native, numpy
+EXPORT_CROP = 16384  # the one-shot programs' input: a 64-frame length bucket of the demo batch
+EXPORT_TOL = 1e-6  # bundle audio against the live codec (the reference's bound)
+EXPORT_PACKET = 16384  # samples through the B = 1 packet codecs
+EXPORT_DECODE_FRAMES = 64  # frames through the B = 1 packet decoders
+EXPORT_TICKS = 30  # timed ticks of each engine at 128 active, in turns, after SERVE_WARMUP
+EXPORT_OP_CALLS = 500  # launches a round when timing the op's host cost
+EXPORT_CLI_TIMEOUT = 900  # seconds an export CLI process may take
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -1295,7 +1329,7 @@ def serve_inputs(speech: np.ndarray) -> list[np.ndarray]:
     return out
 
 
-def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray]) -> dict:
+def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray], eng=None) -> dict:
     """The phase's schedule through one ``ServingEngine(max_streams=128)``,
     each stream a live caller: stream i opens at tick ``SERVE_STAGGER`` i at
     ``SERVE_BITRATES[i % 3]``, gets one 256-sample packet a tick, calls
@@ -1303,9 +1337,9 @@ def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray]) -> dict:
     ``SERVE_SWITCH[0]`` switches bitrate after its ``SERVE_SWITCH[1]``-th
     frame; the slot of stream ``SERVE_REOPEN``, closed at its end, is
     reopened at once with the same input.  The K1 launch counts are read
-    around the run."""
+    around the run.  ``eng`` (default a new live engine) runs it."""
     hop = codec.conf.hopsize
-    eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+    eng = ServingEngine(codec, max_streams=SERVE_SLOTS) if eng is None else eng
     steps = count_calls(eng)
     AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
     live, out, slots, switched, t = {}, {}, {}, False, 0
@@ -1396,11 +1430,12 @@ def held_slots(reference: BVRNNCodecModel, out: dict, inputs: list[np.ndarray]) 
     return rows
 
 
-def decode_engine_run(codec: BVRNNCodecModel, codes: np.ndarray, lost) -> tuple:
+def decode_engine_run(codec: BVRNNCodecModel, codes: np.ndarray, lost, eng=None) -> tuple:
     """The B streams' codes (B, n, z) through one ``DecodeEngine(max_streams
-    =128)``, slot 0 concealed at ``PLC_CONCEAL_BITRATE``, the others with
-    every bit: (waveforms (B, n hop), device steps, K1 launches)."""
-    eng = DecodeEngine(codec, max_streams=SERVE_SLOTS)
+    =128)`` (or ``eng``), slot 0 concealed at ``PLC_CONCEAL_BITRATE``, the
+    others with every bit: (waveforms (B, n hop), device steps, K1
+    launches)."""
+    eng = DecodeEngine(codec, max_streams=SERVE_SLOTS) if eng is None else eng
     steps = count_calls(eng)
     AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
     sids = [eng.open_stream(conceal_bitrate=PLC_CONCEAL_BITRATE if b == 0 else None)
@@ -1780,6 +1815,392 @@ def serving_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarra
         raise AssertionError(f"serving: {len(failed)} gates failed: {failed}")
 
 
+def export_cli(out: str, *args: str) -> subprocess.Popen:
+    """``python -m bvsc_tpu_torch.cli.export_cli`` exporting to ``out``, as a
+    user runs it, in a process of its own (its JSON summary on stdout)."""
+    return subprocess.Popen([sys.executable, "-m", "bvsc_tpu_torch.cli.export_cli", "--out", out,
+                             *args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def cli_summary(proc: subprocess.Popen, what: str) -> dict:
+    out, err = proc.communicate(timeout=EXPORT_CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {what} export failed ({proc.returncode}): {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def load_programs(bundle) -> dict:
+    """Each program of ``bundle`` loaded (deserialised, moved to the card),
+    timed: {program: seconds}."""
+    names = [p for b in bundle.meta["buckets"] for p in b["programs"].values()]
+    for part, kinds in (("packet", ("step", "decode_step")), ("engine", ("tick", "decode_tick"))):
+        names += [bundle.meta[part][k] for k in kinds] if bundle.meta.get(part) else []
+    out = {}
+    for name in names:
+        t = time.perf_counter()
+        bundle._program(name)
+        out[os.path.basename(name)] = time.perf_counter() - t
+    return out
+
+
+def member_bytes(path: str) -> dict:
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return {i.filename: i.file_size for i in zf.infolist()}
+
+
+def launched(fn, mode: str) -> tuple:
+    """``fn()`` with the K1 launch counts set to 0 before and read after:
+    (result, launches of ``mode``'s kernel, launches of the other)."""
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    out = fn()
+    n = k1_launches()
+    other = "f32" if mode == "bf16" else "bf16"
+    return out, n[mode], n[other]
+
+
+def packet_codes_wav(pc, x: np.ndarray):
+    """``x`` (1, n) through a packet codec (live or exported), ``process``
+    then ``flush``: (codes (T, z), waveform (n',), steps)."""
+    codes, step = [], pc._step
+
+    def recording(chunk):
+        out = step(chunk)
+        codes.append(out[0][0])
+        return out
+
+    pc._step = recording
+    wav = torch.cat([pc.process(x), pc.flush()], 1)[0]
+    return torch.stack(codes).cpu().numpy(), wav.cpu().numpy(), len(codes)
+
+
+def bundle_vs_live(name: str, bundle, codec: BVRNNCodecModel, wav: np.ndarray, inputs,
+                   codes_full: np.ndarray, lost_full: np.ndarray, live_runs: dict) -> tuple:
+    """Every program of ``bundle`` against ``codec`` on the card: the
+    one-shot ones at B = 4 on the demo batch's first ``EXPORT_CROP``
+    samples, the packet step and the receiver's step at B = 1, the engines'
+    ticks on the serving phase's schedule and losses.  Returns (report,
+    failed gates)."""
+    mode = "bf16" if codec.voc_compute_dtype == torch.bfloat16 else "f32"
+    n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
+    hop = codec.conf.hopsize
+    x = torch.from_numpy(np.ascontiguousarray(wav[:, :EXPORT_CROP])).to(DEV)
+    rep, gates = {}, []
+
+    def gate(key: str, ok: bool):
+        if not ok:
+            gates.append(f"{name}: {key}")
+
+    def max_gap(a, b) -> float:
+        return max_err(a, b) if a.shape == b.shape else float("inf")
+
+    with torch.no_grad():
+        codes = codec.encode(x, BITRATE)
+        got = bundle.encode(x, BITRATE)
+        rep["encode_bitwise"] = bool(torch.equal(got, codes))
+        rep["encode_flipped_bits"] = (int((got != codes).sum().item()) if got.shape == codes.shape
+                                      else f"shape {tuple(got.shape)}")
+        gate("encode bitwise", rep["encode_bitwise"])
+        for kind, live_fn, fn in (
+                ("decode", lambda: codec.decode(codes, EXPORT_CROP),
+                 lambda: bundle.decode(codes, EXPORT_CROP)),
+                ("forward", lambda: codec(x, BITRATE), lambda: bundle(x, BITRATE))):
+            ref = live_fn()
+            out, n, other = launched(fn, mode)
+            rep[kind] = {"max_abs_gap": max_gap(out, ref), "bitwise": bool(torch.equal(out, ref)),
+                         "launches": n, "other_launches": other}
+            gate(f"{kind} within {EXPORT_TOL}", rep[kind]["max_abs_gap"] <= EXPORT_TOL)
+            gate(f"{kind} launches {n}, {other}", n == n_blocks and other == 0)
+        mel = codec.decode_to_mel(codes)
+        ref = _generator_impl(codec.weights, mel, mel.shape[-1] * hop)
+        out = bundle.vocode(mel)
+        rep["vocode"] = {"max_abs_gap": max_gap(out, ref), "bitwise": bool(torch.equal(out, ref))}
+        gate(f"vocode within {EXPORT_TOL}", rep["vocode"]["max_abs_gap"] <= EXPORT_TOL)
+
+    xp = wav[:1, :EXPORT_PACKET]
+    ref_codes, ref_wav, _ = packet_codes_wav(S.FusedPacketCodec(codec, batch=1, bitrate=BITRATE), xp)
+    (got_codes, got_wav, steps), n, other = launched(
+        lambda: packet_codes_wav(bundle.packet_codec(BITRATE), xp), mode)
+    rep["packet_step"] = {"codes_bitwise": bool(np.array_equal(got_codes, ref_codes)),
+                          "max_abs_gap": float(np.abs(got_wav - ref_wav).max()),
+                          "steps": steps, "launches_per_step": n / steps, "other_launches": other}
+    gate("packet codes bitwise", rep["packet_step"]["codes_bitwise"])
+    gate(f"packet audio within {EXPORT_TOL}", rep["packet_step"]["max_abs_gap"] <= EXPORT_TOL)
+    gate("packet launches", n == n_blocks * steps and other == 0)
+
+    c1 = codes_full[:1, :EXPORT_DECODE_FRAMES]
+    l1 = lost_full[:1, :EXPORT_DECODE_FRAMES]
+    live = S.StreamingDecoder(codec, batch=1, conceal_bitrate=PLC_CONCEAL_BITRATE)
+    ref = torch.cat([live.feed(c1[:, t: t + 1], lost=l1[:, t: t + 1])
+                     for t in range(c1.shape[1])], 1)
+    out, n, other = launched(
+        lambda: bundle.packet_decoder(conceal_bitrate=PLC_CONCEAL_BITRATE).feed(c1, l1), mode)
+    rep["packet_decode_step"] = {"max_abs_gap": max_gap(out, ref),
+                                 "bitwise": bool(torch.equal(out, ref)), "frames": c1.shape[1],
+                                 "lost": int(l1.sum()), "launches_per_step": n / c1.shape[1]}
+    gate(f"packet decoder within {EXPORT_TOL}",
+         rep["packet_decode_step"]["max_abs_gap"] <= EXPORT_TOL)
+    gate("packet decoder launches", n == n_blocks * c1.shape[1] and other == 0)
+
+    run = serve_schedule(codec, inputs, bundle.serving_engine())
+    live = live_runs["serve"]
+    same = [bool(np.array_equal(run["out"][k][0], live["out"][k][0])) for k in live["out"]]
+    gaps = [float(np.abs(run["out"][k][1] - live["out"][k][1]).max()) for k in live["out"]]
+    rep["engine_tick"] = {"streams": len(same), "codes_bitwise": all(same),
+                          "max_abs_gap": max(gaps), "ticks": run["steps"],
+                          "launches_per_tick": run["launches"][mode] / run["steps"]}
+    gate("engine codes bitwise", all(same) and len(same) == len(run["out"]))
+    gate(f"engine audio within {EXPORT_TOL}", max(gaps) <= EXPORT_TOL)
+    gate("engine launches", run["launches"][mode] == n_blocks * run["steps"])
+    out, steps, launches = decode_engine_run(codec, codes_full, lost_full, bundle.decode_engine())
+    ref = live_runs["decode"]
+    rep["engine_decode_tick"] = {"max_abs_gap": float(np.abs(out - ref).max()),
+                                 "bitwise": bool(np.array_equal(out, ref)), "ticks": steps,
+                                 "launches_per_tick": launches[mode] / steps}
+    gate(f"decode engine within {EXPORT_TOL}",
+         rep["engine_decode_tick"]["max_abs_gap"] <= EXPORT_TOL)
+    gate("decode engine launches", launches[mode] == n_blocks * steps)
+    return rep, gates, run
+
+
+def daemon_wire(server, inputs: list[np.ndarray], codes: np.ndarray, lost: np.ndarray) -> dict:
+    """Three concurrent clients of a ``CodecDaemon`` on ``server`` (a live
+    codec or a bundle): resynthesis at 3 kbps, encoding at 1 kbps with
+    ``entropy=True``, decoding stream 1's codes with its losses.  The
+    daemon is closed before this returns."""
+    from bvsc_tpu_torch.serve.client import CodecClient
+
+    x_res, x_enc = inputs[1][:DAEMON_SAMPLES], inputs[2][:DAEMON_SAMPLES]
+    bits = int(np.ceil(server.bits_per_frame(BITRATE)))
+    results, errors = {}, {}
+
+    def client(key, mode, bitrate, feed, entropy=False):
+        try:
+            with CodecClient("127.0.0.1", d.port, mode=mode, bitrate=bitrate, timeout=120,
+                             entropy=entropy) as c:
+                feed(c)
+                c.close_input()
+                results[key] = {**c.drain(), "entropy_stats": dict(c.entropy_stats)}
+        except Exception as e:  # reported below, with the phase's failure
+            errors[key] = repr(e)
+
+    def feed_decode(c):
+        for frame, flag in zip(codes[1], lost[1]):
+            if flag:
+                c.send_lost(1)
+            else:
+                c.send_codes(frame[None], bits=bits)
+
+    with CodecDaemon(server, port=0) as d:
+        threads = [threading.Thread(target=client, args=a, daemon=True) for a in (
+            ("resynth", "resynth", 3000.0, lambda c: c.send_audio(x_res)),
+            ("encode_ent", "encode", 1000.0, lambda c: c.send_audio(x_enc), True),
+            ("decode", "decode", None, feed_decode))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        hung = [t.name for t in threads if t.is_alive()]
+    if hung or errors:
+        raise AssertionError(f"daemon clients hung {hung} or failed: {errors}")
+    return results
+
+
+def tick_pair_ms(engines: dict) -> dict:
+    """Milliseconds of ``tick()`` at 128 active streams of each engine (the
+    engines ticked in turns, ``EXPORT_TICKS`` each after ``SERVE_WARMUP``):
+    median and p90."""
+    n = SERVE_WARMUP + EXPORT_TICKS
+    for eng in engines.values():
+        for i in range(SERVE_SLOTS):
+            rng = np.random.default_rng([SEED, 400, i])
+            sid = eng.open_stream(BITRATE)
+            eng.push(sid, (0.1 * rng.standard_normal(512 + n * 256)).astype(np.float32))
+    times = {key: [] for key in engines}
+    for _ in range(n):
+        for key, eng in engines.items():
+            t = time.perf_counter()
+            res = eng.tick()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            if len(res) != SERVE_SLOTS:
+                raise AssertionError(f"{key} tick advanced {len(res)} of {SERVE_SLOTS} streams")
+    return {key: percentiles(v[SERVE_WARMUP:]) for key, v in times.items()}
+
+
+def tick_windows(codec: BVRNNCodecModel) -> list:
+    """The (window, stage, mode, ctx, start) each stage's ``amp_stack`` gets
+    in one tick of a 128-slot engine with every slot active."""
+    eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+    rng = np.random.default_rng([SEED, 500])
+    for _ in range(SERVE_SLOTS):
+        eng.push(eng.open_stream(BITRATE),
+                 (0.1 * rng.standard_normal(768 + 4 * 256)).astype(np.float32))
+    eng.tick()
+    eng.tick()
+    windows = []
+
+    def stage(window, blocks, compute_dtype, ctx=0, start=None):
+        windows.append((window, blocks, compute_dtype, ctx, start.clone()))
+        return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
+
+    S.amp_stack = stage
+    try:
+        eng.tick()
+    finally:
+        S.amp_stack = AR.amp_stack
+    return windows
+
+
+def op_host_us(codec: BVRNNCodecModel, windows: list) -> dict:
+    """Host microseconds a launch costs through the mode's op (``OPS``,
+    the dispatcher: a bundle's route), through its direct implementation
+    (``ops.amp_resblock.launch``) and through ``amp_resblock`` (the live
+    route), on one tick's stage windows: the host time to issue
+    ``EXPORT_OP_CALLS`` launches of each stage's first block, in turns,
+    synchronised between the rounds, the median round per launch.  The
+    three produce the same bits."""
+    mode = codec.voc_compute_dtype
+    rows, same = [], True
+    for window, blocks, _, ctx, start in windows:
+        rb = blocks[0]
+        t = rb.op_tensors(mode)
+        args = (window, t["w1"], t["b1"], t["w2"], t["b2"], t["alpha"], t["inv_beta"], start,
+                rb.kernel_size, list(rb.dilations), ctx, 0)
+        fns = {"op": lambda: AR.OPS[mode](*args), "direct": lambda: AR.launch(*args, mode),
+               "wrapper": lambda: AR.amp_resblock(window, rb, mode, ctx=ctx, start=start)}
+        outs = [fn() for fn in fns.values()]
+        same &= all(torch.equal(o, outs[0]) for o in outs)
+        times = {key: [] for key in fns}
+        for _ in range(5):
+            for key, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EXPORT_OP_CALLS):
+                    fn()
+                times[key].append((time.perf_counter() - t0) * 1e6 / EXPORT_OP_CALLS)
+        torch.cuda.synchronize()
+        rows.append({"shape": list(window.shape), "ctx": ctx,
+                     **{f"{k}_us": float(np.median(v)) for k, v in times.items()}})
+    mean = {k: float(np.mean([r[f"{k}_us"] for r in rows])) for k in fns}
+    return {"stages": rows, **{f"{k}_us": v for k, v in mean.items()},
+            "op_minus_direct_us": mean["op"] - mean["direct"],
+            "op_per_tick_ms": 12 * (mean["op"] - mean["direct"]) / 1e3, "same_bits": same}
+
+
+def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                 smi: str) -> None:
+    """AOT serving bundles (``bvsc_tpu_torch.serve.export``) on the trained
+    pair; see the module docstring."""
+    import shutil
+
+    from bvsc_tpu_torch.serve.export import ServingBundle, export_serving_bundle
+
+    t0 = time.time()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tmp = tempfile.mkdtemp(prefix="bvscx-")
+    paths = {k: os.path.join(tmp, f"{k}.bvscx") for k in ("parity", "fast", "parity_cpu")}
+    secs = str(EXPORT_CROP / parity.conf.fs)
+    procs = {}
+    report, gates = {"nvidia_smi": smi}, []
+    try:
+        # the fast bundle, and a parity bundle traced on the CPU, through the
+        # CLI in processes of their own while this one exports the parity one
+        procs["fast"] = export_cli(paths["fast"], "--batch", str(BATCH), "--seconds", secs,
+                                   "--engine_batch", str(SERVE_SLOTS), "--precision", "default")
+        procs["parity_cpu"] = export_cli(paths["parity_cpu"], "--device", "cpu", "--seconds",
+                                         "--engine_batch", str(SERVE_SLOTS))
+        t = time.perf_counter()
+        man = export_serving_bundle(parity, paths["parity"], batch=BATCH, lengths=(EXPORT_CROP,),
+                                    engine_batch=SERVE_SLOTS)
+        report["export"] = {"parity": {"wall_s": time.perf_counter() - t,
+                                       "export_seconds": man["export_seconds"],
+                                       "program_bytes": man["program_bytes"]}}
+        for key in ("fast", "parity_cpu"):
+            summary = cli_summary(procs[key], key)
+            report["export"][key] = {k: summary[k] for k in ("export_seconds", "program_bytes",
+                                                            "traced_on", "serving")}
+        report["export"]["concurrent_wall_s"] = time.time() - t0
+        report["bundle_bytes"] = {k: member_bytes(p) for k, p in paths.items()}
+
+        bundles, report["load_seconds"] = {}, {}
+        for key, path in paths.items():
+            t = time.perf_counter()
+            bundles[key] = ServingBundle(path, device=DEV)
+            report["load_seconds"][key] = {"manifest_and_weights": time.perf_counter() - t,
+                                           "programs": load_programs(bundles[key])}
+        if bundles["parity_cpu"].meta["traced_on"] != "cpu":
+            gates.append("the CPU bundle was not traced on the CPU")
+
+        inputs = serve_inputs(wav[0])
+        codes_full = parity.encode(torch.from_numpy(wav).to(DEV), BITRATE).cpu().numpy()
+        lost_full = loss_pattern(*codes_full.shape[:2])
+        for key, codec in (("parity", parity), ("fast", fast)):
+            live_runs = {"serve": serve_schedule(codec, inputs),
+                         "decode": decode_engine_run(codec, codes_full, lost_full)[0]}
+            rep, bad, run = bundle_vs_live(key, bundles[key], codec, wav, inputs, codes_full,
+                                           lost_full, live_runs)
+            report[key] = rep
+            gates += bad
+            if key == "parity":
+                parity_run, parity_decode = run, decode_engine_run(
+                    parity, codes_full, lost_full, bundles["parity"].decode_engine())[0]
+
+        # the CPU-traced bundle on the card against the card-traced one
+        cpu_b, xp = bundles["parity_cpu"], wav[:1, :EXPORT_PACKET]
+        a = packet_codes_wav(cpu_b.packet_codec(BITRATE), xp)
+        b = packet_codes_wav(bundles["parity"].packet_codec(BITRATE), xp)
+        run = serve_schedule(parity, inputs, cpu_b.serving_engine())
+        dec = decode_engine_run(parity, codes_full, lost_full, cpu_b.decode_engine())[0]
+        report["cpu_traced"] = {
+            "packet_bitwise": bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])),
+            "packet_max_abs_gap": float(np.abs(a[1] - b[1]).max()),
+            "engine_bitwise": all(np.array_equal(run["out"][k][i], parity_run["out"][k][i])
+                                  for k in run["out"] for i in (0, 1)),
+            "engine_max_abs_gap": max(float(np.abs(run["out"][k][1] - parity_run["out"][k][1])
+                                            .max()) for k in run["out"]),
+            "decode_engine_bitwise": bool(np.array_equal(dec, parity_decode))}
+        for key in ("packet_bitwise", "engine_bitwise", "decode_engine_bitwise"):
+            if not report["cpu_traced"][key]:
+                gates.append(f"cpu-traced bundle: {key}")
+
+        wire = {"live": daemon_wire(parity, inputs, codes_full, lost_full),
+                "bundle": daemon_wire(bundles["parity"], inputs, codes_full, lost_full)}
+        report["daemon"] = {}
+        for key, field in (("resynth", "audio"), ("encode_ent", "codes"), ("decode", "audio")):
+            same = bool(np.array_equal(wire["bundle"][key][field], wire["live"][key][field]))
+            report["daemon"][f"{key}_bitwise"] = same
+            if not same:
+                gates.append(f"daemon {key} wire")
+        same = wire["bundle"]["encode_ent"]["entropy_stats"] == \
+            wire["live"]["encode_ent"]["entropy_stats"]
+        report["daemon"]["entropy_stats_equal"] = same
+        if not same:
+            gates.append("daemon entropy wire bytes")
+
+        for key, codec in (("parity", parity), ("fast", fast)):
+            report.setdefault("tick_ms_128", {})[key] = tick_pair_ms(
+                {"live": ServingEngine(codec, max_streams=SERVE_SLOTS),
+                 "bundle": bundles[key].serving_engine()})
+        for key, codec in (("parity", parity), ("fast", fast)):
+            windows = tick_windows(codec)
+            report.setdefault("op_host_us", {})[key] = op_host_us(codec, windows)
+            if not report["op_host_us"][key]["same_bits"]:
+                gates.append(f"{key}: op and direct launch differ")
+        if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+            gates.append("the TF32 flags changed")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("export", t0, **report, gates_failed=gates)
+    if gates:
+        raise AssertionError(f"export phase: {gates}")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     """Least milliseconds on an H100, and what bounds them."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2026,6 +2447,7 @@ def main() -> None:
     streaming_phase(codec, fast, wav, smi)
     serving_phase(codec, fast, wav, smi)
     entropy_phase(codec, wav[0], smi)
+    export_phase(codec, fast, wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

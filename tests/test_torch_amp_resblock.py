@@ -225,3 +225,64 @@ def test_kernel_matches_plain_on_card(params, stage):
     assert AR.amp_resblock.launches == before + len(stage_blocks)
     ref = AR.amp_stack_plain(x, stage_blocks)
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+def _op_args(params, mode, B=2, T=STREAM_T, ctx=CTX, seed=50):
+    """The mode's op arguments for stage 3's first block on a seeded window
+    of ``ctx`` context and ``T`` new samples, with per-row starts."""
+    rb = params[1][3][0]
+    x = torch.from_numpy(
+        (np.random.default_rng(seed).standard_normal((B, rb.channels, ctx + T)) * 0.3)
+        .astype(np.float32))
+    start = torch.tensor([0, 3 * ctx][:B], dtype=torch.int32)
+    t = rb.op_tensors(mode)
+    return (x, t["w1"], t["b1"], t["w2"], t["b2"], t["alpha"], t["inv_beta"], start,
+            rb.kernel_size, list(rb.dilations), ctx, 0)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_op_fake_matches_real_output(params, mode):
+    """The op's fake function gives the real output's shape and dtype, with a
+    concrete and with a symbolic batch (what torch.export traces)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    op = AR.OPS[MODES[mode]]
+    args = _op_args(params, MODES[mode])
+    real = op(*args)
+    assert real.shape == (2, args[0].shape[1], STREAM_T) and real.dtype == torch.float32
+    with FakeTensorMode(shape_env=ShapeEnv()) as fm:
+        fake_args = [fm.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        fake = op(*fake_args)
+    assert tuple(fake.shape) == tuple(real.shape) and fake.dtype == real.dtype
+
+    class Stage(torch.nn.Module):
+        def forward(self, x, start):
+            return op(x, *args[1:7], start, *args[8:])
+
+    batch = torch.export.Dim("batch", min=1, max=64)
+    ep = torch.export.export(Stage(), (args[0], args[7]),
+                             dynamic_shapes=({0: batch}, {0: batch}))
+    assert [n for n in ep.graph.nodes if n.op == "call_function"][0].target == op._opoverload
+    x3 = torch.cat([args[0], args[0][:1]])
+    start3 = torch.tensor([0, 3 * CTX, 7], dtype=torch.int32)
+    assert torch.equal(ep.module()(x3, start3), op(x3, *args[1:7], start3, *args[8:]))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_op_opcheck_and_plain(params, mode):
+    """``torch.library.opcheck`` on the op's CPU implementation (schema,
+    fake function, dispatch), which is bitwise the plain block of the raw
+    params; the wrapper's CPU route is the op."""
+    dtype = MODES[mode]
+    args = _op_args(params, dtype)
+    torch.library.opcheck(AR.OPS[dtype], args)
+    rb = params[1][3][0]
+    x, start = args[0], args[7]
+    plain = AR.amp_block_plain(x, rb.block, rb.kernel_size, rb.dilations, dtype, CTX, start)
+    assert torch.equal(AR.OPS[dtype](*args), plain)
+    assert torch.equal(AR.amp_resblock(x, rb, dtype, ctx=CTX, start=start), plain)
+    # the same op from its slim form (what a serving bundle's programs hold)
+    slim = rb.for_mode(dtype, rb.op_tensors(dtype))
+    assert slim.block is None and slim.w1 is None
+    assert torch.equal(AR.amp_resblock(x, slim, dtype, ctx=CTX, start=start), plain)

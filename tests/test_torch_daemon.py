@@ -420,7 +420,8 @@ def test_entropy_hello_refused_with_item(codec, daemon):
 
 
 def test_non_codec_refused_with_item(codec):
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    # a live codec or a serving bundle (tests/test_torch_export.py), nothing else
+    with pytest.raises(TypeError, match="BVRNNCodecModel or a ServingBundle"):
         CodecDaemon(object())
     with pytest.raises(ValueError, match="65535"):
         CodecDaemon(codec, max_streams=70000)
