@@ -5,6 +5,14 @@
   converted to numpy by the caller) and return the port's trees of float32
   tensors.  The layouts are the same on both sides, so this is a walk over
   the tree; weight-normed vocoder convs (``g``, ``v``) are folded to ``w``.
+* Training state: :func:`bvrnn_params_from_jax` keeps ``log_sigma`` and the
+  mel statistics, :func:`generator_train_params_from_jax` keeps the
+  generator's ``{g, v, b}`` unfolded, and
+  :func:`discriminator_params_from_jax` carries an MPD or MRD tree with
+  its spectral-norm buffers, so both trainers can start from the JAX
+  trainers' weights.
+* :func:`flatten_tree` / :func:`unflatten_tree`: the flat ``a/0/b`` names
+  of the ``.npz`` files and the trainers' checkpoints.
 * :func:`load_bvrnn_npz` reads the flat ``a/0/b``-keyed ``.npz`` BVRNN
   checkpoints of ``chkpts/`` with numpy alone (the counterpart of
   ``bvsc_tpu/codec.py:_unflatten_npz``); float16 values widen to float32.
@@ -20,14 +28,17 @@ import torch
 from bvsc_tpu_torch.ops.conv import fold_weight_norm
 
 
-def to_torch(tree, device: str | torch.device = "cpu"):
+def to_torch(tree, device: str | torch.device = "cpu", copy: bool = False):
     """Map every leaf (array or tensor) of a nested dict/list tree to a
-    float32 tensor on ``device``."""
+    float32 tensor on ``device``; with ``copy`` each leaf is a new tensor,
+    detached (a trainer's own weights, which it updates in place)."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: to_torch(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [to_torch(v, device) for v in tree]
+        return [to_torch(v, device, copy) for v in tree]
     if isinstance(tree, torch.Tensor):
+        if copy:
+            return tree.detach().to(device=device, dtype=torch.float32, copy=True)
         return tree.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(tree, np.float32), device=device)
 
@@ -53,17 +64,43 @@ def vocoder_params_from_jax(tree) -> dict:
     return _fold_weight_norm(to_torch(tree))
 
 
-def _load_flat_npz(path: str) -> dict:
-    """Flat ``a/0/b``-keyed npz -> nested tree of float32 tensors; key levels
-    that are all integers become lists."""
+def generator_train_params_from_jax(tree) -> dict:
+    """JAX trainer generator params (weight-normed ``{g, v, b}``) -> the
+    port's trainer tree, unfolded (``VocoderGANTrainer(gen_params=)``)."""
+    return to_torch(tree)
+
+
+def discriminator_params_from_jax(tree) -> list:
+    """A JAX MPD or MRD tree (weight-normed, or spectral-normed with its
+    ``sn_u`` / ``sn_v`` buffers) -> the port's (same keys and layouts)."""
+    return to_torch(tree)
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict/list tree -> ``{'a/0/b': leaf}`` in the tree's order
+    (the flat layout of the ``.npz`` checkpoints)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def unflatten_tree(flat: dict):
+    """Inverse of :func:`flatten_tree`; key levels that are all integers
+    become lists."""
     tree: dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            parts = key.split("/")
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = np.asarray(z[key], np.float32)
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
 
     def listify(node):
         if not isinstance(node, dict):
@@ -72,7 +109,13 @@ def _load_flat_npz(path: str) -> dict:
             return [listify(node[k]) for k in sorted(node, key=int)]
         return {k: listify(v) for k, v in node.items()}
 
-    return to_torch(listify(tree))
+    return listify(tree)
+
+
+def _load_flat_npz(path: str) -> dict:
+    """Flat ``a/0/b``-keyed npz -> nested tree of float32 tensors."""
+    with np.load(path) as z:
+        return to_torch(unflatten_tree({k: np.asarray(z[k], np.float32) for k in z.files}))
 
 
 def load_bvrnn_npz(path: str) -> dict:

@@ -1,1 +1,3 @@
-"""Host-side data handling (numpy and scipy): WAV I/O (``data.audio``)."""
+"""Host-side data handling (numpy and scipy): WAV I/O (``data.audio``),
+waveform augmentation (``data.augment``) and the trainers' segment dataset
+(``data.dataset``)."""

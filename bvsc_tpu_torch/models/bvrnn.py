@@ -1,9 +1,11 @@
 """Bernoulli-valued variational RNN (BVRNN), inference, in PyTorch.
 
-Port of the inference half of ``bvsc_tpu/models/bvrnn.py``: init, the MLP
-nets, the GRU step, the bit mask, the standard and the fused cell, and
-``encode``, ``encode_with_state``, ``encode_decode``, ``decode`` and
-``decode_plc`` (packet-loss concealment from the prior).
+Port of ``bvsc_tpu/models/bvrnn.py``: init, the MLP nets, the GRU step, the
+bit mask, the standard and the fused cell, ``encode``,
+``encode_with_state``, ``encode_decode``, ``decode`` and ``decode_plc``
+(packet-loss concealment from the prior), and the training forward
+``forward_train`` (scheduled sampling, straight-through bits, Bernoulli KL;
+its random draws are tensors the caller passes, :func:`draw_train_noise`).
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts: linear weights are stored (in, out) and applied as ``x @ w``; the
 GRU gates are packed [r|z|n].  Weights may also be weight-only int8 dicts
@@ -111,9 +113,12 @@ def init_bvrnn_params(
 
 
 def _matmul(x, w, precision):
-    """``x @ w`` at ``precision`` for float weights or int8 dicts."""
+    """``x @ w`` at ``precision`` for float weights or int8 dicts; bf16
+    operands (the bf16 training forward) give a bf16 product."""
     if isinstance(w, dict):
         return dequant_matmul(x, w, precision)
+    if x.dtype == torch.bfloat16:
+        return torch.matmul(x, w)
     return P.matmul(x, w, precision)
 
 
@@ -558,3 +563,163 @@ def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect", every_
 
     h, (mel,) = _frames(step, h, xs, sp.traced, statics)
     return mel, h
+
+
+# ---------------------------------------------------------------------------
+# Training forward (scheduled sampling + Bernoulli KL)
+# ---------------------------------------------------------------------------
+
+
+def draw_train_noise(generator: torch.Generator, p_use_gen: float, frames: int, batch: int,
+                     z_dim: int, dtype: torch.dtype = torch.float32):
+    """The random draws of :func:`forward_train` from a (CPU) generator:
+    ``use_gen`` (T,) bool, one uniform draw a frame shared across the batch
+    below ``p_use_gen``, and ``bin_noise`` (T, B, z_dim) uniform in [0, 1),
+    drawn in the compute dtype (as the reference draws it in bf16 mode)."""
+    use_gen = torch.rand(frames, generator=generator) < p_use_gen
+    bin_noise = torch.rand(frames, batch, z_dim, generator=generator, dtype=dtype)
+    return use_gen, bin_noise
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree if tree.dtype == dtype else tree.to(dtype)
+
+
+def _straight_through(enc_t, shifted_noise_t, greedy: bool):
+    """Binarisation with a straight-through gradient: ``round`` (half to
+    even, as ``jnp.round``) of ``enc`` or of ``(noise - 0.5) + enc``, the
+    noise given shifted."""
+    z_hard = torch.round(enc_t) if greedy else torch.round(shifted_noise_t + enc_t)
+    return enc_t + (z_hard - enc_t).detach()
+
+
+def _bernoulli_kld(enc, prior, mask):
+    """Bernoulli KL(enc || prior) of (T, B, z) stacked frames, probabilities
+    clamped at 1e-3, summed over the masked bits, a mean over the batch,
+    then over the frames."""
+    c = 1e-3
+    kld_elem = enc * (
+        torch.log(torch.clamp(enc, min=c)) - torch.log(torch.clamp(prior, min=c))
+    ) + (1.0 - enc) * (
+        torch.log(torch.clamp(1.0 - enc, min=c)) - torch.log(torch.clamp(1.0 - prior, min=c))
+    )
+    return torch.mean(torch.mean(torch.sum(kld_elem * mask, -1), -1))
+
+
+def forward_train(params: Params, cfg: BVRNNConfig, y: torch.Tensor, use_gen: torch.Tensor,
+                  greedy: bool, var_bitrate: torch.Tensor | None, bin_noise: torch.Tensor,
+                  *, dtype: torch.dtype = torch.float32):
+    """Training forward (``bvsc_tpu.models.bvrnn.forward_train``), with the
+    random draws given (:func:`draw_train_noise`).
+
+    Per frame, ``use_gen[t]`` picks the closed-loop state ``h2`` over the
+    teacher-forced ``h`` (scheduled sampling, one choice for the whole
+    batch); the binary bottleneck is straight-through (greedy rounding, or
+    ``bin_noise``-sampled); ``h`` and ``h2`` advance through the one shared
+    GRU; the Bernoulli KL(enc || prior) is clamped at 1e-3 and bit-masked
+    under ``var_bit``.  ``dtype`` is the compute type: float32 trees given
+    with ``torch.bfloat16`` are cast here (gradients flow back through the
+    cast), and every product then takes bf16 operands to a bf16 result.
+    ``cfg.fused_cell`` picks the fused step (the same objective,
+    reassociated, its KL always in float32).  Returns (mel_hat (B, T,
+    x_dim) in ``dtype``, scalar KLD: the mean over frames of each frame's
+    batch mean)."""
+    B = y.shape[0]
+    if is_quantized(params):
+        raise TypeError("forward_train needs float weights")
+    params = _cast_tree(params, dtype)
+    gen_steps = [bool(u) for u in use_gen.tolist()]
+    # frame-major (T, B, z) bit mask, its 0.5 fill and the shifted noise,
+    # made once (each as _apply_bit_mask and the rounding form them)
+    mask = _code_mask(cfg, y, var_bitrate, None).to(dtype).transpose(0, 1)
+    fill = 0.5 * (1.0 - mask)
+    shifted = bin_noise - 0.5
+    ynorm = _normalize(params, y.to(dtype))
+    phi_x = phi_x_apply(params, ynorm)
+    if _use_fused(cfg, B):
+        return _forward_train_fused(params, cfg, phi_x, mask, fill, gen_steps, greedy, shifted)
+    gru = params["gru"]
+    h = h2 = torch.zeros(B, cfg.h_dim, dtype=dtype, device=y.device)
+    decs, encs, priors = [], [], []
+    # frames by unbind, whose backward is one stack (a slice's is a zero
+    # fill of the whole sequence and a copy, every frame)
+    for t, phi_x_t in enumerate(phi_x.unbind(1)):
+        h_sel = h2 if gen_steps[t] else h
+        enc_t = enc_apply(params, torch.cat([phi_x_t, h_sel], -1))
+        z_t = _straight_through(enc_t, shifted[t], greedy) * mask[t] + fill[t]
+        phi_z_t = phi_z_apply(params, z_t)
+        dec_t = dec_apply(params, torch.cat([phi_z_t, h_sel], -1))
+        phi_x_gen = phi_x_apply(params, _normalize(params, dec_t))
+        encs.append(enc_t)
+        priors.append(prior_apply(params, h_sel))
+        h, h2 = (gru_step(gru, torch.cat([phi_x_t, phi_z_t], -1), h),
+                 gru_step(gru, torch.cat([phi_x_gen, phi_z_t], -1), h2))
+        decs.append(dec_t)
+    return torch.stack(decs, 1), _bernoulli_kld(torch.stack(encs), torch.stack(priors), mask)
+
+
+def _forward_train_fused(params, cfg, phi_x, mask, fill, gen_steps, greedy, shifted):
+    """The fused-cell training step (``bvsc_tpu``'s ``_forward_train_fused``):
+    the enc_l1 / prior_l1 / dec_l1 h-parts of the selected state in one
+    product, both GRU hidden projections (h and h2) as one stacked (2B, h)
+    product, enc_l1's phi_x part and the teacher GRU input gates over the
+    whole sequence before the loop, and dec_l4 -> normalize -> phi_x_l1
+    folded (``w_fold``), the mel one dec_l4 product after the loop."""
+    B, H = phi_x.shape[0], cfg.h_dim
+    dtype = phi_x.dtype
+    fp = _cast_tree(_fuse_inference_params(params, cfg), dtype)
+    gru = params["gru"]
+    prior1, prior2, prior3 = params["prior"]
+    w_hsel_combo = torch.cat([params["enc"][0]["w"][H:], prior1["w"],
+                              params["dec"][0]["w"][H:]], dim=1)
+    encx = _matmul(phi_x, fp["w_enc1_x"], "highest")
+    gi_teach_top = _matmul(phi_x, fp["w_ih_top"], "highest")
+
+    # chunk / split / unbind, whose backward is one cat or stack (a slice's
+    # is a zero fill and a copy each)
+    def gates(gi, gh, h):
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
+
+    h = h2 = torch.zeros(B, H, dtype=dtype, device=phi_x.device)
+    a3s, encs, priors = [], [], []
+    for t, (encx_t, gi_top_t) in enumerate(zip(encx.unbind(1), gi_teach_top.unbind(1))):
+        h_sel = h2 if gen_steps[t] else h
+        e1h, p1h, d1h = _matmul(h_sel, w_hsel_combo, "highest").chunk(3, dim=-1)
+        a = F.elu(encx_t + e1h + fp["b_enc1"])
+        a = F.elu(_dense(fp["enc2"], a))
+        enc_t = torch.sigmoid(_dense(fp["enc3"], a))
+        p = F.elu(p1h + prior1["b"])
+        p = F.elu(_dense(prior2, p))
+        prior_t = torch.sigmoid(_dense(prior3, p))
+        z_t = _straight_through(enc_t, shifted[t], greedy) * mask[t] + fill[t]
+
+        pz = z_t
+        for lyr in fp["phi_z"]:
+            pz = F.elu(_dense(lyr, pz))
+        d1z, gi_bot = _matmul(pz, fp["w_pz_combo"], "highest").split([H, 3 * H], dim=-1)
+        d = F.elu(d1z + d1h + fp["b_dec1"])
+        d = F.elu(_dense(fp["dec2"], d))
+        a3 = F.elu(_dense(fp["dec3"], d))
+        u = F.elu(_matmul(a3, fp["w_fold"], "highest") + fp["b_fold"])
+        u = F.elu(_dense(fp["px2"], u))
+        xg = F.elu(_dense(fp["px3"], u))
+        gi_gen_top = _matmul(xg, fp["w_ih_top"], "highest")
+
+        gh_h, gh_h2 = (_matmul(torch.cat([h, h2], 0), gru["w_hh"], "highest")
+                       + fp["b_hh"]).chunk(2, dim=0)
+        h, h2 = (gates(gi_top_t + gi_bot + fp["b_ih"], gh_h, h),
+                 gates(gi_gen_top + gi_bot + fp["b_ih"], gh_h2, h2))
+        a3s.append(a3)
+        encs.append(enc_t)
+        priors.append(prior_t)
+    kld = _bernoulli_kld(torch.stack(encs).float(), torch.stack(priors).float(), mask.float())
+    return _fused_dec_seq(fp, torch.stack(a3s, 1), "highest"), kld

@@ -626,15 +626,19 @@ def amp_stack(x: torch.Tensor, stage: list[ResblockParams],
     return average([amp_resblock(x, rb, compute_dtype, ctx=ctx, start=start) for rb in stage])
 
 
-def supported(cfg) -> bool:
-    """The kernel covers the shipped config family: causal, no anti-alias,
-    snakebeta with log-scale parameters, 3 dilations per block
-    (counterpart of ``pallas_stack_supported``)."""
+def causal_family(cfg) -> bool:
+    """The shipped config family: causal, no anti-alias, snakebeta with
+    log-scale parameters (the plain generator's, any dilation count)."""
     return (
         not any(cfg.layers_sym)
         and not any(cfg.layers_antialias)
         and not cfg.antialias_post
         and cfg.activation == "snakebeta"
         and cfg.snake_logscale
-        and all(len(d) == N_UNITS for d in cfg.resblock_dilation_sizes)
     )
+
+
+def supported(cfg) -> bool:
+    """The kernel covers the shipped config family with 3 dilations per
+    block (counterpart of ``pallas_stack_supported``)."""
+    return causal_family(cfg) and all(len(d) == N_UNITS for d in cfg.resblock_dilation_sizes)

@@ -195,6 +195,31 @@ Phases, each printing one JSON line with its seconds:
     implementation (``ops.amp_resblock.launch``), on one tick's windows.
     The daemon is closed and the CLI processes stopped before it ends.
 
+13. ``train``: both trainers at the full width of the default config, on
+    the demo utterance (a filelist the phase writes; speed and gain
+    augmentation, ``cli/train_bvrnn.py``'s ``--augment``), in a temporary
+    directory removed at the end.  BVRNN (``train.bvrnn_train``): one step
+    at B = 2 on 0.5-s segments on the card against the port's CPU step from
+    the same weights and draws (loss <= 1e-5 relative, gradient norm
+    <= 1e-4, updated params <= 1e-5); 10 float32 steps at batch 32 on 4.0-s
+    segments (344 frames), every loss finite and the mean of the last 3
+    below the first; the fused cell and bf16 compute from the same weights
+    and first batch, their first loss within the reference's 5 % of the
+    standard's; 2 steps, a checkpoint, a restore into a new trainer and 2
+    more bitwise 4 unbroken steps (batch 4, with ``mel_mask``).  The
+    full-size run's params go through ``cli/export_bvrnn_npz.py`` into
+    ``BVRNNCodecModel`` with the trained vocoder: the demo resynthesised at
+    3 kbps with 12 K1 launches, finite.  GAN (``train.vocoder_train``,
+    ``GANTrainConfig`` defaults: batch 32, segment 8192, ``freeze_step`` 1),
+    the generator warm-started from the trained vocoder's ``.npz`` as
+    ``--init_generator`` does it: the first step's D and G losses on the
+    card against the CPU at B = 2 (<= 1e-4 relative); 3 steps, D unchanged
+    at step 0 and changed at step 1, every loss finite; one fine-tuning
+    step on the trained BVRNN's ``decode_to_mel`` of the same crops.  Both
+    trainer CLIs in subprocesses on the card at the same time, 2 steps then
+    a resume to 4.  Printed: the card-against-CPU gaps and ms a step of
+    each mode beside ``nvidia-smi``'s line.
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -222,10 +247,11 @@ from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, 
                                         seeded_vocoder)
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
-from bvsc_tpu_torch.cli import codec_cli
+from bvsc_tpu_torch.cli import codec_cli, export_bvrnn_npz, train_bvrnn, train_vocoder
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, _generator_impl
 from bvsc_tpu_torch.convert import load_bvrnn_npz
 from bvsc_tpu_torch.data.audio import load_wav, save_wav
+from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
 from bvsc_tpu_torch.device import set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
@@ -233,10 +259,14 @@ from bvsc_tpu_torch.ops import _build, _cc, bitpack, rans
 from bvsc_tpu_torch.ops import amp_resblock as AR
 from bvsc_tpu_torch.ops import dot_probe as DP
 from bvsc_tpu_torch.ops import persistent_gru as PG
+from bvsc_tpu_torch.ops.mel import MelFrontend
 from bvsc_tpu_torch.serve import protocol as P
 from bvsc_tpu_torch.serve.daemon import CodecDaemon
 from bvsc_tpu_torch.serve.engine import DecodeEngine, ServingEngine
 from bvsc_tpu_torch.serve.entropy_wire import AdaptiveCodesCoder
+from bvsc_tpu_torch.train import bvrnn_train as BT
+from bvsc_tpu_torch.train import checkpoint as ckpt
+from bvsc_tpu_torch.train import vocoder_train as VT
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
@@ -324,6 +354,19 @@ EXPORT_DECODE_FRAMES = 64  # frames through the B = 1 packet decoders
 EXPORT_TICKS = 30  # timed ticks of each engine at 128 active, in turns, after SERVE_WARMUP
 EXPORT_OP_CALLS = 500  # launches a round when timing the op's host cost
 EXPORT_CLI_TIMEOUT = 900  # seconds an export CLI process may take
+TRAIN_CHECK_BATCH = 2  # card against CPU: one step of each trainer at this batch
+TRAIN_CHECK_SECONDS = 0.5  # the BVRNN's segments in that check
+TRAIN_LOSS_RTOL = 1e-5  # BVRNN loss, card against CPU
+TRAIN_GRAD_RTOL = 1e-4  # BVRNN gradient norm (sums over 43 frames in another order)
+TRAIN_PARAM_TOL = 1e-5  # BVRNN params after the step, card against CPU
+TRAIN_STEPS = 10  # full-size BVRNN steps (batch 32, 4.0-s segments)
+TRAIN_MODE_RTOL = 0.05  # fused / bf16 first loss against the standard one (the reference's)
+TRAIN_RESUME_BATCH = 4  # the resume check's batch and frames, full width
+TRAIN_RESUME_FRAMES = 86
+TRAIN_GAN_RTOL = 1e-4  # GAN D and G losses, card against CPU
+TRAIN_GAN_STEPS = 3  # full-size GAN steps (batch 32, segment 8192), D frozen at step 0
+TRAIN_CLI_BATCH = 4  # the trainer CLIs' batch
+TRAIN_CLI_TIMEOUT = 300  # seconds a trainer CLI process may take
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -2201,6 +2244,293 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
         raise AssertionError(f"export phase: {gates}")
 
 
+def train_filelist(tmp: str) -> str:
+    """A filelist of the demo utterance, the phase's corpus, in ``tmp``."""
+    path = os.path.join(tmp, "train.txt")
+    with open(path, "w") as f:
+        f.write(os.path.splitext(os.path.basename(WAV))[0] + "|demo\n")
+    return path
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def tree_gap(a: list, b: list) -> float:
+    return max((x.detach().cpu() - y.detach().cpu()).abs().max().item() for x, y in zip(a, b))
+
+
+def timed_steps(fn, n: int) -> tuple[list, list[float]]:
+    """``fn()`` n times, each synchronised; (results, ms of each)."""
+    out, ms = [], []
+    for _ in range(n):
+        r, t = timed(fn)
+        out.append(r)
+        ms.append(t)
+    return out, ms
+
+
+def train_bvrnn_checks(conf, corpus: AudioSegmentDataset, mean_std, tmp: str, gates: list) -> tuple:
+    """Card against CPU, the full-size run, the fused and bf16 modes and the
+    resume; returns (report, the full-size trainer)."""
+    rep = {}
+    t0 = time.time()
+    # 1. one step at full width, B = 2, 0.5-s segments: card against CPU
+    seg = int(TRAIN_CHECK_SECONDS * conf.fs) // conf.hopsize * conf.hopsize
+    audio = np.stack([corpus[0][0][:seg] for _ in range(TRAIN_CHECK_BATCH)])
+    card_fe = bvrnn_frontend(conf, DEV)
+    mel = card_fe(torch.from_numpy(audio).to(DEV)).transpose(1, 2)
+    init = bvrnn_mod.init_bvrnn_params(SEED, bvrnn_mod.BVRNNConfig(
+        x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim), mean_std_mel=mean_std,
+        log_sigma_init=conf.log_sigma_init)
+    pair = [BT.BVRNNTrainer(conf, params=init, seed=SEED, device=d) for d in (DEV, "cpu")]
+    metrics = [tr.step(mel.to(tr.device)) for tr in pair]
+    rep["card_vs_cpu"] = {
+        "batch": TRAIN_CHECK_BATCH, "frames": mel.shape[1],
+        "loss_rel": rel_gap(float(metrics[0]["loss"]), float(metrics[1]["loss"])),
+        "grad_norm_rel": rel_gap(float(metrics[0]["grad_norm"]), float(metrics[1]["grad_norm"])),
+        "param_abs": tree_gap(pair[0].leaves, pair[1].leaves),
+        "loss": float(metrics[1]["loss"]), "seconds": time.time() - t0}
+    cc = rep["card_vs_cpu"]
+    gates += [(f"BVRNN loss card/CPU {cc['loss_rel']}", cc["loss_rel"] <= TRAIN_LOSS_RTOL),
+              (f"BVRNN grad norm card/CPU {cc['grad_norm_rel']}",
+               cc["grad_norm_rel"] <= TRAIN_GRAD_RTOL),
+              (f"BVRNN params card/CPU {cc['param_abs']}", cc["param_abs"] <= TRAIN_PARAM_TOL)]
+    del pair
+
+    # 2. full size: batch 32, 4.0-s segments, TRAIN_STEPS steps
+    t0 = time.time()
+    batches = corpus.batches(conf.batch_size)
+    mels = [card_fe(torch.from_numpy(next(batches)[0]).to(DEV)).transpose(1, 2)
+            for _ in range(TRAIN_STEPS)]
+    full = BT.BVRNNTrainer(conf, params=init, seed=SEED, device=DEV)
+    it = iter(mels)
+    results, ms = timed_steps(lambda: full.step(next(it)), TRAIN_STEPS)
+    losses = [float(m["loss"]) for m in results]
+    rep["full"] = {"batch": conf.batch_size, "frames": mels[0].shape[1], "losses": losses,
+                   "ms_per_step": float(np.median(ms[1:])), "first_ms": ms[0]}
+    gates += [("every full-size loss finite", all(np.isfinite(losses))),
+              (f"full-size loss falls {losses[0]} -> {np.mean(losses[-3:])}",
+               np.mean(losses[-3:]) < losses[0])]
+    for mode, kw in (("fused", {"fused_cell": True}), ("bf16", {"compute_dtype": "bf16"})):
+        tr = BT.BVRNNTrainer(conf, params=init, seed=SEED, device=DEV, **kw)
+        res, mode_ms = timed_steps(lambda: tr.step(mels[0]), 2)
+        first = float(res[0]["loss"])
+        rep[mode] = {"first_loss": first, "ms_per_step": mode_ms[1], "first_ms": mode_ms[0]}
+        gates.append((f"{mode} first loss {first} against standard {losses[0]}",
+                      abs(first - losses[0]) < TRAIN_MODE_RTOL * max(1.0, abs(losses[0]))))
+    rep["full"]["seconds"] = time.time() - t0
+    set_parity_mode()  # the bf16 trainer leaves the flags alone; the others set them
+
+    # 3. resume: 2 steps, save, restore into a new trainer, 2 more
+    t0 = time.time()
+    small = mels[0][:TRAIN_RESUME_BATCH, :TRAIN_RESUME_FRAMES]
+    whole = BT.BVRNNTrainer(conf, params=init, seed=SEED, mel_mask={}, device=DEV)
+    for _ in range(4):
+        whole.step(small)
+    first = BT.BVRNNTrainer(conf, params=init, seed=SEED, mel_mask={}, device=DEV)
+    for _ in range(2):
+        first.step(small)
+    ckpt.save_step(tmp, "bvrnn_", first.step_count, first.state_dict())
+    second = BT.BVRNNTrainer(conf, seed=SEED + 1, mel_mask={}, device=DEV)
+    state, step = ckpt.restore_latest(tmp, "bvrnn_")
+    second.load_state_dict(state)
+    for _ in range(2):
+        second.step(small)
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        whole.leaves + whole.opt.mu + whole.opt.nu, second.leaves + second.opt.mu + second.opt.nu))
+    rep["resume"] = {"batch": TRAIN_RESUME_BATCH, "frames": TRAIN_RESUME_FRAMES,
+                     "restored_step": step, "bitwise": bitwise, "seconds": time.time() - t0}
+    gates.append(("resume bitwise 4 unbroken steps", bitwise and second.step_count == 4))
+    return rep, full
+
+
+def bvrnn_frontend(conf, device) -> MelFrontend:
+    return MelFrontend(sampling_rate=conf.fs, n_fft=conf.winsize, num_mels=conf.num_mels,
+                       hop_size=conf.hopsize, fmin=conf.fmin, fmax=conf.fmax,
+                       padding_left=conf.mel_pad_left, device=device)
+
+
+def train_serve_check(conf, trainer, tmp: str, speech: np.ndarray, gates: list):
+    """Export the trained BVRNN through the export CLI, serve it with the
+    trained vocoder; returns (report, the codec)."""
+    src = ckpt.save_step(tmp, "bvrnn_", trainer.step_count, trainer.state_dict())
+    dst = os.path.join(tmp, "trained.npz")
+    export_bvrnn_npz.main([src, dst])
+    codec = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=dst, vocoder_chkpt_path=VOC_NPZ,
+                            device=DEV)
+    n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    y = codec(torch.from_numpy(speech[None]).to(DEV), BITRATE)
+    launches = k1_launches()
+    rep = {"npz_bytes": os.path.getsize(dst), "launches": launches,
+           "finite": bool(torch.isfinite(y).all()), "samples": y.shape[-1]}
+    gates += [(f"trained BVRNN resynthesis launches {launches}",
+               launches == {"f32": n_blocks, "bf16": 0} and n_blocks == 12),
+              ("trained BVRNN resynthesis finite", rep["finite"]),
+              ("trained BVRNN resynthesis length", y.shape[-1] == speech.shape[0])]
+    return rep, codec
+
+
+def gan_setup(conf, corpus: AudioSegmentDataset):
+    """(vocoder config, GANTrainConfig with the codec's DSP keys and
+    ``freeze_step`` 1, the generator warm start as ``--init_generator``
+    reads it, one batch of crops (32, 8192))."""
+    tcfg = VT.GANTrainConfig(freeze_step=1, sampling_rate=conf.fs, n_fft=conf.winsize,
+                             hop_size=conf.hopsize, win_size=conf.winsize, fmin=conf.fmin,
+                             fmax=conf.fmax, mel_pad_left=conf.mel_pad_left)
+    crops = AudioSegmentDataset(corpus.audio_files, tcfg.segment_size, conf.fs,
+                                conf.hopsize, seed=SEED).batches(tcfg.batch_size)
+    return conf.vocoder_config, tcfg, train_vocoder.load_generator(VOC_NPZ), next(crops)[0]
+
+
+def train_gan_checks(conf, corpus: AudioSegmentDataset, codec: BVRNNCodecModel, gates: list):
+    """Three full-size GAN steps (D frozen at step 0), then one fine-tuning
+    step on the trained BVRNN's decoded mel."""
+    vcfg, tcfg, gen, y = gan_setup(conf, corpus)
+    rep = {"batch": tcfg.batch_size, "segment": tcfg.segment_size}
+    tr = VT.VocoderGANTrainer(vcfg, tcfg, seed=SEED, gen_params=gen, device=DEV)
+
+    def disc():
+        return [t.detach().clone() for t in tr._d.tensors]
+
+    d0 = disc()
+    res, ms = [], []
+    for step in range(TRAIN_GAN_STEPS):
+        r, t = timed(lambda: tr.step_on_audio(y))
+        res.append({k: float(v) for k, v in r.items()})
+        ms.append(t)
+        if step == 0:
+            d1 = disc()
+    d_frozen = all(torch.equal(a, b) for a, b in zip(d0, d1))
+    d_moved = any(not torch.equal(a, b) for a, b in zip(d1, disc()))
+    rep.update(metrics=res, ms_per_step=float(np.median(ms[1:])), first_ms=ms[0])
+    gates += [("D unchanged at step 0", d_frozen), ("D changed after step 1", d_moved),
+              ("every GAN loss finite", all(np.isfinite(list(r.values())).all() for r in res))]
+
+    # fine-tuning: the trained BVRNN's decoded mel of the same crops, the
+    # target at the codec's -10 dB (train_vocoder's --fine_tuning default)
+    x = torch.from_numpy(y).to(DEV)
+    mel_in = codec.decode_to_mel(codec.encode(x, BITRATE))
+    r, t = timed(lambda: tr.step_on_audio(x * SCALING, mel_in))
+    rep["fine_tuning"] = {"mel_in": list(mel_in.shape), "ms": t,
+                          "gen_loss_total": float(r["gen_loss_total"])}
+    gates.append(("fine-tuning step finite",
+                  all(np.isfinite(float(v)) for v in r.values())))
+    return rep
+
+
+def train_gan_card_vs_cpu(conf, corpus: AudioSegmentDataset, gates: list) -> dict:
+    """The first GAN step's D and G losses on the card against the CPU, at
+    batch 2, from the same weights (the card trainer's seeded D)."""
+    vcfg, tcfg, gen, y = gan_setup(conf, corpus)
+    card = VT.VocoderGANTrainer(vcfg, tcfg, seed=SEED, gen_params=gen, device=DEV)
+    cpu = VT.VocoderGANTrainer(vcfg, tcfg, gen_params=gen, mpd_params=card.mpd,
+                               mrd_params=card.mrd, device="cpu")
+    m = [tr.step_on_audio(y[:TRAIN_CHECK_BATCH]) for tr in (card, cpu)]
+    rep = {k: rel_gap(float(m[0][k]), float(m[1][k]))
+           for k in ("disc_loss_mpd", "disc_loss_mrd", "gen_loss_total")}
+    gates += [(f"GAN {k} card/CPU {v}", v <= TRAIN_GAN_RTOL) for k, v in rep.items()]
+    return rep
+
+
+class TrainCLIs:
+    """Both trainer CLIs on the card in subprocesses at the same time, each
+    into its own run directory, output to a log file: ``start(steps)``,
+    then ``finish(gates)``."""
+
+    def __init__(self, filelist: str, wavs: str, tmp: str):
+        self.tmp = tmp
+        common = ["--input_wavs_dir", wavs, "--input_training_file", filelist,
+                  "--input_validation_file", filelist, "--stdout_interval", "1",
+                  "--batch_size", str(TRAIN_CLI_BATCH), "--device", str(DEV),
+                  "--config", DEFAULT_CONFIG]
+        self.args = {
+            "train_bvrnn": common + ["--stats_batches", "1", "--val_interval", "2"],
+            "train_vocoder": common + ["--freeze_step", "1", "--validation_interval", "2",
+                                       "--init_generator", VOC_NPZ]}
+        self.report, self.procs = {}, {}
+
+    def start(self, steps: int) -> None:
+        self.steps, self.t0 = steps, time.time()
+        for m, args in self.args.items():
+            log = open(os.path.join(self.tmp, f"{m}_{steps}.log"), "w")
+            self.procs[m] = (subprocess.Popen(
+                [sys.executable, "-m", f"bvsc_tpu_torch.cli.{m}", *args, "--checkpoint_path",
+                 os.path.join(self.tmp, m), "--max_steps", str(steps)],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log)
+
+    def finish(self, gates: list) -> None:
+        for m, (proc, log) in self.procs.items():
+            try:
+                proc.wait(timeout=TRAIN_CLI_TIMEOUT)
+            finally:
+                proc.kill()
+                log.close()
+            out = open(log.name).read()
+            self.report[f"{m}_{self.steps}"] = {"rc": proc.returncode,
+                                                "tail": out.strip().splitlines()[-3:]}
+            gates.append((f"{m} to step {self.steps} (rc {proc.returncode})",
+                          proc.returncode == 0 and f"done at step {self.steps}" in out
+                          and (self.steps == 2 or "resumed from step 2" in out)))
+        self.report[f"seconds_{self.steps}"] = time.time() - self.t0
+        self.procs = {}
+
+    def close(self) -> None:
+        """Stop whatever still runs (after a failure elsewhere)."""
+        for proc, log in self.procs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+        self.procs = {}
+
+
+def train_phase(wav: np.ndarray, smi: str) -> None:
+    """Training on the card: the BVRNN and the GAN trainers at the full width
+    of the default config, their CLIs and the trained BVRNN served; see the
+    module docstring.  The numbers are printed before any gate is applied."""
+    t0 = time.time()
+    conf = load_config(DEFAULT_CONFIG)
+    gates, report = [], {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="bvsc-train-") as tmp:
+        filelist = train_filelist(tmp)
+        segment = int(conf.train_seq_duration * conf.fs) // conf.hopsize * conf.hopsize
+        corpus = AudioSegmentDataset([WAV], segment, conf.fs, conf.hopsize, seed=SEED,
+                                     augment=train_bvrnn.AUGMENT)
+        stats = bvrnn_frontend(conf, DEV)(torch.from_numpy(next(corpus.batches(
+            conf.batch_size))[0]).to(DEV)).transpose(1, 2).reshape(-1, conf.num_mels)
+        mean_std = (stats.mean(0).cpu().numpy(), stats.std(0, correction=0).cpu().numpy() + 1e-5)
+        t = time.time()
+        report["bvrnn"], trainer = train_bvrnn_checks(conf, corpus, mean_std, tmp, gates)
+        report["bvrnn"]["seconds"] = time.time() - t
+        t = time.time()
+        report["serve"], codec = train_serve_check(conf, trainer, tmp, wav[0], gates)
+        report["serve"]["seconds"] = time.time() - t
+        t = time.time()
+        report["gan"] = train_gan_checks(conf, corpus, codec, gates)
+        report["gan"]["seconds"] = time.time() - t
+        del trainer, codec
+        # the CLIs' first run beside the card-against-CPU GAN step, which is
+        # the CPU's work (nothing is timed on the card meanwhile)
+        clis = TrainCLIs(filelist, os.path.dirname(WAV), tmp)
+        try:
+            clis.start(2)
+            t = time.time()
+            report["gan"]["card_vs_cpu"] = train_gan_card_vs_cpu(conf, corpus, gates)
+            report["gan"]["card_vs_cpu_seconds"] = time.time() - t
+            clis.finish(gates)
+            clis.start(4)
+            clis.finish(gates)
+        finally:
+            clis.close()
+        report["cli"] = clis.report
+    set_parity_mode()
+    failed = [what for what, ok in gates if not ok]
+    emit("train", t0, **report, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"train: {len(failed)} gates failed: {failed}")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     """Least milliseconds on an H100, and what bounds them."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2448,6 +2778,7 @@ def main() -> None:
     serving_phase(codec, fast, wav, smi)
     entropy_phase(codec, wav[0], smi)
     export_phase(codec, fast, wav, smi)
+    train_phase(wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

@@ -64,3 +64,19 @@ def test_source_imports_no_jax(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
+
+
+TRAINING = ("bvsc_tpu_torch.data.augment", "bvsc_tpu_torch.data.dataset",
+            "bvsc_tpu_torch.utils.logging", "bvsc_tpu_torch.ops.stft_loss",
+            "bvsc_tpu_torch.models.discriminators", "bvsc_tpu_torch.models.losses",
+            "bvsc_tpu_torch.train.optim", "bvsc_tpu_torch.train.bvrnn_train",
+            "bvsc_tpu_torch.train.vocoder_train", "bvsc_tpu_torch.train.checkpoint",
+            "bvsc_tpu_torch.cli.train_bvrnn", "bvsc_tpu_torch.cli.train_vocoder",
+            "bvsc_tpu_torch.cli.export_bvrnn_npz")
+
+
+@pytest.mark.parametrize("module", TRAINING)
+def test_training_modules_are_checked(module):
+    """The training path's modules are among those the two tests above
+    import and read."""
+    assert module in _port_modules()
