@@ -13,8 +13,20 @@ port's format, ``train.checkpoint``), the run resumes from the latest, and
 validation (closed loop, every bit) keeps the best one under ``best/``;
 ``cli.export_bvrnn_npz`` turns one into the ``.npz`` that
 ``BVRNNCodecModel(bvrnn_chkpt_path=)`` serves.  The run directory gets a
-copy of the config.  Training runs on the card unless ``--device cpu``;
-the distributed flags raise (ROADMAP item 11).
+copy of the config.  Training runs on the card unless ``--device cpu``.
+
+Data parallelism: one process per rank, each given ``--coordinator_address``
+(``host:port`` of process 0, or a ``file://`` path all share),
+``--num_processes`` and its ``--process_id``.  Each rank trains on its
+shard of the filelist at the global batch divided by the world size (the
+reference's error where it does not divide) and averages the gradients
+with the others (``train.bvrnn_train``); the mel statistics are rank 0's.
+Rank 0 alone copies the config, logs, validates and writes checkpoints;
+every rank resumes from them and prints its steps (the losses are the
+global batch's, equal on every rank).  Each rank runs on ``--device`` if
+given, else on card ``process_id``; the backend follows the device (NCCL
+on cards, gloo on the CPU) unless ``--dist_backend`` names one, as two
+ranks sharing one card must (NCCL refuses that).
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
 from bvsc_tpu_torch.device import resolve_device
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.ops.mel import MelFrontend
+from bvsc_tpu_torch.parallel.collectives import broadcast
+from bvsc_tpu_torch.parallel.mesh import DATA_AXIS, init_distributed, make_mesh
 from bvsc_tpu_torch.train import checkpoint as ckpt
 from bvsc_tpu_torch.train.bvrnn_train import BVRNNTrainer, StepDraws, loss_fn
 from bvsc_tpu_torch.utils.logging import TrainLogger
@@ -46,18 +60,55 @@ AUGMENT_FULL = {"noise_snr_db": (8.0, 30.0), "noise_p": 0.5, "reverb_rt60": (0.1
 def add_common_args(p: argparse.ArgumentParser) -> None:
     """``--device`` and the distributed flags, shared with ``train_vocoder``."""
     p.add_argument("--device", default=None,
-                   help="torch device; default the CUDA card (raises without one)")
+                   help="torch device of every rank; default the CUDA card (raises without "
+                        "one), card process_id under --coordinator_address")
     p.add_argument("--coordinator_address", default=None,
-                   help="multi-process training: not ported yet (ROADMAP item 11)")
+                   help="host:port of process 0 (or a file:// path all processes share); "
+                        "presence enables data-parallel training over the processes")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="default by device: nccl on cards, gloo on the CPU (two ranks on one "
+                        "card need gloo)")
 
 
-def check_distributed(args) -> None:
-    if args.coordinator_address or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            "multi-process training is not ported yet; it comes with ROADMAP item 11 "
-            "(parallel: DP via DDP)")
+class Distributed:
+    """This process's place in a data-parallel run (module docstring): the
+    mesh (None alone), its device, rank and world size."""
+
+    def __init__(self, args):
+        if not args.coordinator_address:
+            if args.num_processes not in (None, 1) or args.process_id not in (None, 0):
+                raise ValueError("--num_processes and --process_id need --coordinator_address")
+            self.mesh, self.device, self.rank, self.world = None, resolve_device(args.device), 0, 1
+            return
+        init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                         backend=args.dist_backend, device=args.device)
+        devices = None if args.device is None else [args.device] * args.num_processes
+        self.mesh = make_mesh(devices=devices)
+        self.device, self.rank, self.world = self.mesh.device, args.process_id, args.num_processes
+
+    @property
+    def main(self) -> bool:
+        """Rank 0: logs, validates and writes."""
+        return self.rank == 0
+
+    def local_batch(self, global_batch: int) -> int:
+        """The per-rank batch (the reference divides by the world size)."""
+        if global_batch % self.world:
+            raise ValueError(f"batch_size {global_batch} not divisible by {self.world} processes")
+        return global_batch // self.world
+
+    def from_rank0(self, x: np.ndarray) -> np.ndarray:
+        """Rank 0's ``x`` on every rank."""
+        if self.mesh is None:
+            return x
+        t = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return broadcast(t, self.mesh.axis(DATA_AXIS), 0).cpu().numpy()
+
+    def close(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 def build_env(config_path: str, checkpoint_path: str) -> None:
@@ -123,13 +174,21 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_distributed(args)
-    device = resolve_device(args.device)
+    dist = Distributed(args)
+    try:
+        train(args, dist)
+    finally:
+        dist.close()
+
+
+def train(args, dist: Distributed) -> None:
+    device = dist.device
     conf = CodecConfig.from_toml(args.config)
     if args.teacher_force_step_1perc is not None:
         conf = dataclasses.replace(conf, teacher_force_step_1perc=args.teacher_force_step_1perc)
-    build_env(args.config, args.checkpoint_path)
-    batch_size = args.batch_size or conf.batch_size
+    if dist.main:
+        build_env(args.config, args.checkpoint_path)
+    batch_size = dist.local_batch(args.batch_size or conf.batch_size)
     max_steps = args.max_steps or conf.max_steps
     segment = int(conf.train_seq_duration * conf.fs)
     segment -= segment % conf.hopsize
@@ -145,26 +204,28 @@ def main(argv=None):
         with torch.no_grad():
             return frontend(torch.as_tensor(audio, device=device)).transpose(1, 2)
 
-    # mel statistics over the first batches, frozen into the fresh params
-    batches = trainset.batches(batch_size)
+    # mel statistics over the first batches (rank 0's), frozen into the
+    # fresh params
+    batches = trainset.batches(batch_size, host_id=dist.rank, num_hosts=dist.world)
     stats = [mel_fn(next(batches)[0]).cpu().numpy() for _ in range(args.stats_batches)]
     cat = np.concatenate(stats).reshape(-1, conf.num_mels)
-    mean_std = (cat.mean(0), cat.std(0) + 1e-5)
+    mean_std = tuple(dist.from_rank0(np.stack([cat.mean(0), cat.std(0) + 1e-5])))
     print(f"mel stats from {len(stats)} batches: "
           f"mean[0]={mean_std[0][0]:.3f} std[0]={mean_std[1][0]:.3f}")
 
     trainer = BVRNNTrainer(conf, seed=args.seed, mean_std_mel=mean_std,
                            mel_mask={} if args.mel_mask else None, fused_cell=args.fused_cell,
-                           compute_dtype=args.compute_dtype, device=device)
+                           compute_dtype=args.compute_dtype,
+                           device=None if dist.mesh else device, mesh=dist.mesh)
     if conf.resume or ckpt.scan_checkpoint(args.checkpoint_path, PREFIX) is not None:
         state, start = ckpt.restore_latest(args.checkpoint_path, PREFIX)
         if state is not None:
             trainer.load_state_dict(state)
             print(f"resumed from step {start}")
 
-    logger = TrainLogger(os.path.join(args.checkpoint_path, "logs"))
+    logger = TrainLogger(os.path.join(args.checkpoint_path, "logs") if dist.main else None)
     val_mels = None
-    if args.input_validation_file:
+    if args.input_validation_file and dist.main:
         valset = AudioSegmentDataset(
             read_filelist(args.input_validation_file, args.input_wavs_dir), segment, conf.fs,
             conf.hopsize, shuffle=False, seed=0)
@@ -223,13 +284,14 @@ def main(argv=None):
             t0 = time.time()
         if steps % 100 == 0:
             logger.scalars(metrics, steps)
-        if steps % conf.distinct_chkpt_interval == 0:
+        if steps % conf.distinct_chkpt_interval == 0 and dist.main:
             ckpt.save_step(args.checkpoint_path, PREFIX, steps, trainer.state_dict())
             print(f"saved checkpoint at step {steps}")
         if steps % val_interval == 0:
             validate(steps)
 
-    ckpt.save_step(args.checkpoint_path, PREFIX, steps, trainer.state_dict())
+    if dist.main:
+        ckpt.save_step(args.checkpoint_path, PREFIX, steps, trainer.state_dict())
     logger.flush()
     print(f"done at step {steps}")
 

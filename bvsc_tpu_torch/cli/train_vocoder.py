@@ -17,7 +17,10 @@ the codec's -10 dB unless ``--audio_scale`` says otherwise.  Validation
 reports the loss-band mel L1 and the multi-resolution STFT loss per set
 (seen, and each ``unseen_<name>``); STOI and PESQ come with the eval
 metrics (ROADMAP item 12).  Training runs on the card unless ``--device
-cpu``; the distributed flags raise (ROADMAP item 11).
+cpu``; ``--coordinator_address`` / ``--num_processes`` / ``--process_id``
+train data-parallel as ``cli.train_bvrnn`` does (each rank its shard at the
+global batch over the world size; rank 0 logs, validates, saves audio and
+writes checkpoints).
 """
 
 from __future__ import annotations
@@ -30,14 +33,13 @@ import time
 import numpy as np
 import torch
 
-from bvsc_tpu_torch.cli.train_bvrnn import (add_common_args, augment_dict, build_env,
-                                            check_distributed, read_filelist, scalars)
+from bvsc_tpu_torch.cli.train_bvrnn import (Distributed, add_common_args, augment_dict,
+                                            build_env, read_filelist, scalars)
 from bvsc_tpu_torch.codec import SCALING
 from bvsc_tpu_torch.config import CodecConfig, VocoderConfig
 from bvsc_tpu_torch.convert import load_vocoder_npz
 from bvsc_tpu_torch.data.audio import save_wav
 from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
-from bvsc_tpu_torch.device import resolve_device
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops.stft_loss import multi_resolution_stft_loss
 from bvsc_tpu_torch.train import checkpoint as ckpt
@@ -129,13 +131,23 @@ def load_generator(path: str) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    check_distributed(args)
-    device = resolve_device(args.device)
+    dist = Distributed(args)
+    try:
+        train(args, dist)
+    finally:
+        dist.close()
+
+
+def train(args, dist: Distributed) -> None:
+    device = dist.device
     vcfg, tcfg = load_configs(args)
-    build_env(args.config, args.checkpoint_path)
+    if dist.main:
+        build_env(args.config, args.checkpoint_path)
+    local_batch = dist.local_batch(tcfg.batch_size)
     state, start_step = ckpt.restore_latest(args.checkpoint_path, "do_")
     warm = state is None and args.init_generator
-    trainer = VocoderGANTrainer(vcfg, tcfg, seed=args.seed, device=device,
+    trainer = VocoderGANTrainer(vcfg, tcfg, seed=args.seed, device=None if dist.mesh else device,
+                                mesh=dist.mesh,
                                 gen_params=load_generator(args.init_generator) if warm else None)
     if state is not None:
         trainer.load_state_dict(state)
@@ -162,13 +174,13 @@ def main(argv=None):
     unseen_sets = [(f"unseen_{set_name(fl)}", read_filelist(fl, wd))
                    for wd, fl in zip(args.list_input_unseen_wavs_dir,
                                      args.list_input_unseen_validation_file)]
-    logger = TrainLogger(os.path.join(args.checkpoint_path, "logs"))
+    logger = TrainLogger(os.path.join(args.checkpoint_path, "logs") if dist.main else None)
 
     @torch.no_grad()
     def validate(step: int, files: list[str], mode: str) -> None:
         """One validation set: loss-band mel L1 and MRSTFT, figures and
-        audio of every ``--eval_subsample``-th item."""
-        if not files:
+        audio of every ``--eval_subsample``-th item (rank 0 only)."""
+        if not files or not dist.main:
             return
         valset = AudioSegmentDataset(files, tcfg.segment_size, tcfg.sampling_rate,
                                      tcfg.hop_size, split=False, shuffle=False, seed=args.seed)
@@ -218,8 +230,9 @@ def main(argv=None):
         return
 
     def save(steps: int) -> None:
-        ckpt.save_step(args.checkpoint_path, "g_", steps, trainer.generator_state_dict())
-        ckpt.save_step(args.checkpoint_path, "do_", steps, trainer.state_dict())
+        if dist.main:
+            ckpt.save_step(args.checkpoint_path, "g_", steps, trainer.generator_state_dict())
+            ckpt.save_step(args.checkpoint_path, "do_", steps, trainer.state_dict())
 
     audio_scale = args.audio_scale
     if audio_scale is None:
@@ -229,7 +242,7 @@ def main(argv=None):
         validate_all(steps)  # a resumed run starts with a validation pass
     steps_per_epoch = max(1, len(trainset) // tcfg.batch_size)
     t0 = time.time()
-    for audio, mel_ft in trainset.batches(tcfg.batch_size):
+    for audio, mel_ft in trainset.batches(local_batch, host_id=dist.rank, num_hosts=dist.world):
         trainer.set_epoch(steps // steps_per_epoch)
         metrics = scalars(trainer.step_on_audio(audio * audio_scale, mel_ft))
         steps += 1

@@ -32,3 +32,12 @@ def set_parity_mode() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: a bare ``'cuda'`` is the current card, so
+    that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -189,8 +189,9 @@ class CodecDaemon:
                  sndbuf: int | None = None):
         """codec: a live port ``BVRNNCodecModel``, or a ``ServingBundle``
         exported with ``engine_batch=N`` (then ``max_streams`` is None or
-        N, else ValueError); anything else is a TypeError.  mesh
-        (multi-card serving) raises in the engines.
+        N, else ValueError); anything else is a TypeError.  mesh: a
+        ``parallel.mesh.Mesh`` whose devices the engines split their slots
+        over (``serve.engine``).
 
         handshake_timeout bounds how long an accepted connection may take
         to complete HELLO (before it owns a slot).  send_timeout bounds a

@@ -38,6 +38,17 @@ engines run on their codec's device; the only way onto the CPU is a
 ``fused_cell='auto'`` picks the BVRNN cell by batch (``models.bvrnn``), so
 an engine of 32 or more slots runs the standard cell whatever a solo
 stream of the same codec runs.
+
+``mesh=`` (a ``parallel.mesh.Mesh``) serves the slots over several devices
+from this one process, as the reference's mesh shards the slot batch: each
+device of the mesh holds a replica of the codec's weights (the codec's own
+tensors where the device is the codec's) and a contiguous block of the
+slots, with its own state (:attr:`ServingEngine.states`, one tree a
+block).  A tick enqueues every block's step on its device before it reads
+any back, then assembles the host outputs in slot order; one slot is the
+same function of its inputs as in an unsharded engine, with the products
+summed over a block's rows instead of all of them.  ``max_streams`` must
+divide over the mesh's devices.
 """
 
 from __future__ import annotations
@@ -48,9 +59,8 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch import streaming as S
-from bvsc_tpu_torch.codec import _not_ported
-
-_MESH = "ROADMAP.md, queue 1, item 11 (the parallel paths)"
+from bvsc_tpu_torch.device import canonical
+from bvsc_tpu_torch.parallel.mesh import Mesh, row_blocks
 
 
 class EngineStateLost(RuntimeError):
@@ -130,6 +140,79 @@ def _zero_rows(tree, sid: int) -> None:
         tree[sid] = 0
 
 
+def slot_blocks(slots: int, mesh, device) -> list[tuple[slice, torch.device]]:
+    """The engine's slot blocks and their devices: all slots on ``device``
+    without a mesh, else one contiguous block a device of the mesh."""
+    if mesh is None:
+        return [(slice(0, slots), canonical(device))]
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a bvsc_tpu_torch.parallel.mesh.Mesh, got {type(mesh)}")
+    devices = [canonical(d) for d in mesh.devices.reshape(-1)]
+    if slots % len(devices):
+        raise ValueError("max_streams must divide evenly over the mesh")
+    return list(zip(row_blocks(slots, len(devices)), devices))
+
+
+def _weights_on(codec, device):
+    """The codec's weights (``codec.CodecWeights``) on ``device``: its own
+    on its device, else a copy of every tensor."""
+    w = codec.weights
+    if device == canonical(codec.device):
+        return w
+    return w.with_tree(_map_tree(w.tree(), lambda t: t.to(device)))
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+class _Sharded:
+    """What the serving and decode engines share over slot blocks: the
+    blocks (:func:`slot_blocks`), one state tree a block, a slot's block
+    and row, and a single-block engine's ``state``."""
+
+    def _set_blocks(self, mesh) -> None:
+        self._blocks = slot_blocks(self.B, mesh, self.device)
+
+    @property
+    def state(self) -> dict:
+        """The state tree of an engine without a mesh (a sharded engine has
+        one a block: :attr:`states`)."""
+        if len(self.states) != 1:
+            raise AttributeError("a sharded engine holds one state tree a device: .states")
+        return self.states[0]
+
+    @state.setter
+    def state(self, tree: dict) -> None:
+        if len(self.states) != 1:
+            raise AttributeError("a sharded engine holds one state tree a device: .states")
+        self.states[0] = tree
+
+    def _init_states(self) -> None:
+        self.states = [self._init_device_state(sl.stop - sl.start, dev)
+                       for sl, dev in self._blocks]
+
+    def _slot(self, sid: int) -> tuple[int, int]:
+        """(block, row) of slot ``sid``."""
+        for k, (sl, _) in enumerate(self._blocks):
+            if sl.start <= sid < sl.stop:
+                return k, sid - sl.start
+        raise IndexError(f"slot {sid} outside 0..{self.B - 1}")
+
+    def _zero_slot(self, sid: int) -> None:
+        k, row = self._slot(sid)
+        _zero_rows(self.states[k], row)
+
+    def _block_inputs(self, *arrays) -> list[tuple]:
+        """Each block's rows of the host arrays, on its device."""
+        return [tuple(torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev) for a in arrays)
+                for sl, dev in self._blocks]
+
+
 def _fused_tick(w, state: dict, chunk: torch.Tensor, bits: torch.Tensor,
                 active: torch.Tensor):
     """Every slot by one 256-sample frame on the codec's weights ``w``
@@ -153,15 +236,13 @@ def _decode_tick(w, state: dict, codes: torch.Tensor, lost: torch.Tensor,
     return _merge_active(active, new, state), wav
 
 
-class ServingEngine:
+class ServingEngine(_Sharded):
     """Batched full-duplex serving: samples in, codes and resynthesised
     samples out, one frame per stream per :meth:`tick`."""
 
     def __init__(self, codec, max_streams: int = 128, mesh=None):
-        """codec: a port ``BVRNNCodecModel``; the engine runs on its device.
-        mesh (multi-card serving) is not ported and raises."""
-        if mesh is not None:
-            raise _not_ported("mesh= (multi-card serving)", _MESH)
+        """codec: a port ``BVRNNCodecModel``; the engine runs on its device,
+        or with ``mesh`` over the mesh's devices (module docstring)."""
         self.codec = codec
         conf = codec.conf
         self.B = max_streams
@@ -170,17 +251,19 @@ class ServingEngine:
         self.pad_left = conf.mel_pad_left
         self.z_dim = conf.z_dim
         self.device = codec.device
-        self.state = self._init_device_state()
+        self._set_blocks(mesh)
+        self._weights = [_weights_on(codec, dev) for _, dev in self._blocks]
+        self._init_states()
         self._init_host_slots()
         self._warm()
 
-    def _init_device_state(self) -> dict:
-        """Fresh zeroed device state (also the recovery path after
-        :class:`EngineStateLost`)."""
+    def _init_device_state(self, rows: int, device) -> dict:
+        """Fresh zeroed state of ``rows`` slots on ``device`` (also the
+        recovery path after :class:`EngineStateLost`)."""
         return {
-            "window": torch.zeros(self.B, self.win, device=self.device),
-            "h": self.codec._h0(self.B),
-            "voc": S.generator_stream_init(self.codec.conf.vocoder_config, self.B, self.device),
+            "window": torch.zeros(rows, self.win, device=device),
+            "h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
+            "voc": S.generator_stream_init(self.codec.conf.vocoder_config, rows, device),
         }
 
     def _init_host_slots(self) -> None:
@@ -198,16 +281,16 @@ class ServingEngine:
     @torch.no_grad()
     def _warm(self) -> None:
         """One tick with no slot active (the state keeps every row)."""
-        none = torch.zeros(self.B, dtype=torch.bool, device=self.device)
-        self.state, codes, _ = self._tick_call(
-            self.state, torch.zeros(self.B, self.hop, device=self.device),
-            torch.zeros(self.B, device=self.device), none)
-        codes.cpu()
+        inputs = self._block_inputs(np.zeros((self.B, self.hop), np.float32),
+                                    np.zeros(self.B, np.float32), np.zeros(self.B, bool))
+        for k, args in enumerate(inputs):
+            self.states[k], codes, _ = self._tick_call(self.states[k], *args, k)
+            codes.cpu()
 
-    def _tick_call(self, state, chunk, bits, active):
-        """The device step of one tick (a test replaces it to inject a
-        failure)."""
-        return _fused_tick(self.codec.weights, state, chunk, bits, active)
+    def _tick_call(self, state, chunk, bits, active, block: int = 0):
+        """The device step of one tick on one block of slots (a test
+        replaces it to inject a failure)."""
+        return _fused_tick(self._weights[block], state, chunk, bits, active)
 
     # -- stream management ----------------------------------------------------
 
@@ -221,7 +304,7 @@ class ServingEngine:
         self._tail[sid] = np.zeros(0, np.float32)
         self._flushing[sid] = False
         self.bits[sid] = self.codec.bits_per_frame(bitrate)
-        _zero_rows(self.state, sid)
+        self._zero_slot(sid)
         return sid
 
     def close_stream(self, sid: int) -> None:
@@ -306,20 +389,20 @@ class ServingEngine:
             advanced.append(sid)
         if not advanced:
             return {}
-        dev = self.device
-        if preload:  # only on stream-start ticks
-            sids = torch.tensor([p[0] for p in preload], device=dev)
-            self.state["window"][sids] = torch.from_numpy(np.stack([p[1] for p in preload])).to(dev)
+        for sid, window in preload:  # only on stream-start ticks
+            k, row = self._slot(sid)
+            self.states[k]["window"][row] = torch.from_numpy(window).to(self._blocks[k][1])
         active = np.zeros(self.B, bool)
         active[advanced] = True
         try:
-            self.state, codes, wav = self._tick_call(
-                self.state, torch.from_numpy(chunk).to(dev), torch.from_numpy(self.bits).to(dev),
-                torch.from_numpy(active).to(dev))
-            out = torch.cat([codes.float(), wav.float()], 1).cpu().numpy()[advanced]  # one read-back
+            outs = []  # every block's step enqueued before any read-back
+            for k, args in enumerate(self._block_inputs(chunk, self.bits, active)):
+                self.states[k], codes, wav = self._tick_call(self.states[k], *args, k)
+                outs.append(torch.cat([codes.float(), wav.float()], 1))
+            out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
         except Exception as e:
             # the engine survives; every stream's state is gone
-            self.state = self._init_device_state()
+            self._init_states()
             self._started[:] = False
             raise EngineStateLost(
                 "tick failed; device state rebuilt: close and reopen all active streams"
@@ -328,7 +411,7 @@ class ServingEngine:
         return {sid: (row[:z], row[z:]) for sid, row in zip(advanced, out)}
 
 
-class DecodeEngine:
+class DecodeEngine(_Sharded):
     """Batched decode-only serving: code streams in, audio out.
 
     The receiver-side counterpart of :class:`ServingEngine` (e.g. a relay
@@ -341,24 +424,24 @@ class DecodeEngine:
     """
 
     def __init__(self, codec, max_streams: int = 128, mesh=None):
-        if mesh is not None:
-            raise _not_ported("mesh= (multi-card serving)", _MESH)
+        """As :class:`ServingEngine`'s: the codec's device, or ``mesh``."""
         self.codec = codec
         conf = codec.conf
         self.B = max_streams
         self.hop = conf.hopsize
         self.z_dim = conf.z_dim
         self.device = codec.device
-        self.state = self._init_device_state()
+        self._set_blocks(mesh)
+        self._weights = [_weights_on(codec, dev) for _, dev in self._blocks]
+        self._init_states()
         self._init_host_slots()
         self._warm()
 
-    def _init_device_state(self) -> dict:
-        """Fresh zeroed device state (recovery path after
-        :class:`EngineStateLost`)."""
-        return {"h": self.codec._h0(self.B),
-                "voc": S.generator_stream_init(self.codec.conf.vocoder_config, self.B,
-                                               self.device)}
+    def _init_device_state(self, rows: int, device) -> dict:
+        """Fresh zeroed state of ``rows`` slots on ``device`` (recovery path
+        after :class:`EngineStateLost`)."""
+        return {"h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
+                "voc": S.generator_stream_init(self.codec.conf.vocoder_config, rows, device)}
 
     def _init_host_slots(self) -> None:
         self._free = list(range(self.B))
@@ -371,15 +454,16 @@ class DecodeEngine:
     @torch.no_grad()
     def _warm(self) -> None:
         """One tick with no slot active (the state keeps every row)."""
-        B, dev = self.B, self.device
-        self.state, wav = self._tick_call(
-            self.state, torch.full((B, self.z_dim), 0.5, device=dev), torch.zeros(B, device=dev),
-            torch.from_numpy(self.cbits).to(dev), torch.zeros(B, dtype=torch.bool, device=dev))
-        wav.cpu()
+        B = self.B
+        inputs = self._block_inputs(np.full((B, self.z_dim), 0.5, np.float32),
+                                    np.zeros(B, np.float32), self.cbits, np.zeros(B, bool))
+        for k, args in enumerate(inputs):
+            self.states[k], wav = self._tick_call(self.states[k], *args, k)
+            wav.cpu()
 
-    def _tick_call(self, state, codes, lost, cbits, active):
-        """The device step of one decode tick."""
-        return _decode_tick(self.codec.weights, state, codes, lost, cbits, active)
+    def _tick_call(self, state, codes, lost, cbits, active, block: int = 0):
+        """The device step of one decode tick on one block of slots."""
+        return _decode_tick(self._weights[block], state, codes, lost, cbits, active)
 
     def open_stream(self, conceal_bitrate=None) -> int:
         """conceal_bitrate: bps masking this stream's concealed frames to its
@@ -392,7 +476,7 @@ class DecodeEngine:
         self._inq[sid] = collections.deque()
         self.cbits[sid] = (float(self.z_dim) if conceal_bitrate is None
                            else self.codec.bits_per_frame(conceal_bitrate))
-        _zero_rows(self.state, sid)
+        self._zero_slot(sid)
         return sid
 
     def close_stream(self, sid: int) -> None:
@@ -438,14 +522,14 @@ class DecodeEngine:
             lost[sid] = float(flag)
         active = np.zeros(self.B, bool)
         active[advanced] = True
-        dev = self.device
         try:
-            self.state, wav = self._tick_call(
-                self.state, torch.from_numpy(codes).to(dev), torch.from_numpy(lost).to(dev),
-                torch.from_numpy(self.cbits).to(dev), torch.from_numpy(active).to(dev))
-            out = wav.float().cpu().numpy()[advanced]
+            outs = []  # every block's step enqueued before any read-back
+            for k, args in enumerate(self._block_inputs(codes, lost, self.cbits, active)):
+                self.states[k], wav = self._tick_call(self.states[k], *args, k)
+                outs.append(wav.float())
+            out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
         except Exception as e:
-            self.state = self._init_device_state()
+            self._init_states()
             raise EngineStateLost(
                 "decode tick failed; device state rebuilt: close and reopen all active streams"
             ) from e

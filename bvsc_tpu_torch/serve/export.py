@@ -19,9 +19,11 @@ Bundle contents (``meta.json`` is the manifest, format :data:`FORMAT`):
   (``streaming._fused_packet_step``) and ``packet_decode_step``
   (``streaming._packet_decode_step``: ``decode_plc`` in its traceable
   form, then the streaming vocoder);
-* with ``engine_batch=N``, the engines' ticks at N slots: ``engine_tick``
+* with ``engine_batch=N``, the engines' ticks for N slots: ``engine_tick``
   (``serve.engine._fused_tick``) and ``engine_decode_tick``
-  (``_decode_tick``);
+  (``_decode_tick``), traced with a symbolic slot count (the manifest's
+  ``engine.slots`` range), so that an engine with ``mesh=`` runs them on
+  blocks of N / devices slots;
 * the weights once, as program inputs (``params/weights.npz``, keyed by
   their path in ``codec.CodecWeights.tree()``): the mel frontend's window
   and DFT/mel bases, the scan's prepared weights and the residual stacks'
@@ -62,11 +64,13 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch.codec import (_decode_impl, _encode_impl, _forward_impl, _generator_impl,
-                                  _host_array, _not_ported, bits_per_frame, frame_bits)
+                                  _host_array, bits_per_frame, frame_bits)
 from bvsc_tpu_torch.config import CodecConfig
-from bvsc_tpu_torch.device import resolve_device, set_parity_mode
+from bvsc_tpu_torch.device import canonical, resolve_device, set_parity_mode
 from bvsc_tpu_torch.ops import amp_resblock  # noqa: F401  (registers the ops the programs call)
-from bvsc_tpu_torch.serve.engine import _MESH, DecodeEngine, ServingEngine, _decode_tick, _fused_tick
+from bvsc_tpu_torch.models.bvrnn import FUSED_AUTO_MAX_B
+from bvsc_tpu_torch.serve.engine import (DecodeEngine, ServingEngine, _decode_tick, _fused_tick,
+                                         slot_blocks)
 from bvsc_tpu_torch.streaming import (FusedPacketCodec, _fused_packet_step, _packet_decode_step,
                                       generator_stream_init)
 
@@ -129,6 +133,28 @@ def _zeros(specs, device) -> dict:
                       for k, shape, dtype in specs)
 
 
+def _batch_dims(tree, dim):
+    """``{0: dim}`` for every tensor of a tree: a ``dynamic_shapes`` entry
+    with the batch symbolic on every leaf."""
+    if isinstance(tree, dict):
+        return {k: _batch_dims(v, dim) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_batch_dims(v, dim) for v in tree]
+    return {0: dim}
+
+
+def _slot_range(codec, slots: int) -> tuple[int, int]:
+    """The slot counts an engine program traced at ``slots`` serves: any
+    with a pinned ``fused_cell``; with ``'auto'``, which picks the cell by
+    batch, those on the same side of its threshold.  One slot traces
+    static (torch.export specialises a traced size of 1)."""
+    if slots == 1:
+        return 1, 1
+    if codec.fused_cell != "auto":
+        return 1, MAX_BATCH
+    return (1, FUSED_AUTO_MAX_B - 1) if slots < FUSED_AUTO_MAX_B else (FUSED_AUTO_MAX_B, MAX_BATCH)
+
+
 def _weights_npz(items) -> bytes:
     """The weights as an npz, bf16 as its 16 bits."""
     arrays = {}
@@ -170,7 +196,8 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
     traces the one-shot programs with a symbolic batch (1 to
     :data:`MAX_BATCH`); that needs a pinned ``fused_cell``, since ``'auto'``
     picks the cell by batch size.  The packet programs run at batch 1;
-    ``engine_batch=N`` adds both engines' ticks at N slots."""
+    ``engine_batch=N`` adds both engines' ticks for N slots, traced with a
+    symbolic slot count (:func:`_slot_range`)."""
     if batch is None and codec.fused_cell == "auto":
         raise ValueError("batch=None (a symbolic batch) needs a pinned fused_cell: 'auto' picks "
                          "the cell by batch size; build the codec with fused_cell=True or False")
@@ -184,13 +211,16 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
     blobs: dict[str, bytes] = {}
     seconds: dict[str, float] = {}
 
-    def export(name: str, fn, *inputs, batched=()):
+    def export(name: str, fn, *inputs, batched=(), batch_dim=None):
         """One program: ``fn(weights, *inputs)``, the inputs at positions
-        ``batched`` with the symbolic batch on their first axis."""
+        ``batched`` (every leaf of a tree input) with ``batch_dim`` (the
+        one-shot programs' symbolic batch by default) on their first
+        axis."""
+        bdim = dim if batch_dim is None else batch_dim
         dynamic = None
-        if dim is not None and batched:
-            dynamic = ([None] * len(weights), tuple({0: dim} if i in batched else None
-                                                    for i in range(len(inputs))))
+        if bdim is not None and batched:
+            dynamic = ([None] * len(weights), tuple(
+                _batch_dims(x, bdim) if i in batched else None for i, x in enumerate(inputs)))
         t0 = time.perf_counter()
         with torch.no_grad():
             ep = torch.export.export(_Program(fn, w, keys), (weights, *inputs),
@@ -254,18 +284,22 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
     engine_meta = None
     if engine_batch:
         EB = int(engine_batch)
+        lo, hi = _slot_range(codec, EB)
+        slots = None if lo == hi else torch.export.Dim("slots", min=lo, max=hi)
         s0, d0 = state(EB, True), state(EB, False)
         active = torch.zeros(EB, dtype=torch.bool, device=dev)
         engine_meta = {
             "batch": EB,
+            "slots": [lo, hi],
             "tick": export("engine_tick", _fused_tick, s0,
                            torch.zeros(EB, conf.hopsize, device=dev), torch.zeros(EB, device=dev),
-                           active),
+                           active, batched=(0, 1, 2, 3) if slots else (), batch_dim=slots),
             "decode_tick": export(
                 "engine_decode_tick",
                 lambda w, s, c, lost, cb, a: _decode_tick(w, s, c, lost, cb, a, every_step=True),
                 d0, torch.full((EB, conf.z_dim), 0.5, device=dev), torch.zeros(EB, device=dev),
-                torch.zeros(EB, device=dev), active),
+                torch.zeros(EB, device=dev), active, batched=(0, 1, 2, 3, 4) if slots else (),
+                batch_dim=slots),
             "state": _specs(s0), "decode_state": _specs(d0),
         }
 
@@ -362,7 +396,8 @@ class ServingBundle:
         self.meta = meta
         if precision == "highest":
             set_parity_mode()
-        self._programs: dict[str, torch.nn.Module] = {}
+        self._programs: dict[tuple, torch.nn.Module] = {}
+        self._weights = {canonical(self.device): self.weights}
 
     @classmethod
     def load(cls, path: str, device: str | torch.device | None = None) -> "ServingBundle":
@@ -370,8 +405,9 @@ class ServingBundle:
 
     # -- internals -------------------------------------------------------------
 
-    def _program(self, name: str) -> torch.nn.Module:
-        mod = self._programs.get(name)
+    def _program(self, name: str, device: torch.device | None = None) -> torch.nn.Module:
+        device = canonical(self.device if device is None else device)
+        mod = self._programs.get((name, device))
         if mod is None:
             try:
                 with zipfile.ZipFile(self.path) as zf:
@@ -380,15 +416,21 @@ class ServingBundle:
                 raise ValueError(f"{self.path}: program {name!r} does not load ({e!r})") from e
             from torch.export.passes import move_to_device_pass
 
-            mod = self._programs[name] = move_to_device_pass(ep, self.device).module()
+            mod = self._programs[(name, device)] = move_to_device_pass(ep, device).module()
         return mod
 
     @torch.no_grad()
-    def _call(self, name: str, *inputs):
+    def _call(self, name: str, *inputs, device: torch.device | None = None):
+        """Program ``name`` on ``device`` (default the bundle's), with the
+        weights' copy there."""
+        device = canonical(self.device if device is None else device)
+        w = self._weights.get(device)
+        if w is None:
+            w = self._weights[device] = [t.to(device) for t in self.weights]
         # forward itself: the public methods check the inputs' batch and
         # bucket before a call, so the module's per-call check of every
         # input's shape (its forward pre-hook) is skipped
-        return self._program(name).forward(self.weights, *inputs)
+        return self._program(name, device).forward(w, *inputs)
 
     def _zeros(self, specs) -> dict:
         return _zeros(specs, self.device)
@@ -484,13 +526,13 @@ class ServingBundle:
     def packet_decoder(self, conceal_bitrate=None) -> "ExportedPacketDecoder":
         return ExportedPacketDecoder(self, conceal_bitrate)
 
-    def serving_engine(self) -> "BundleServingEngine":
+    def serving_engine(self, mesh=None) -> "BundleServingEngine":
         """Batched full-duplex serving at the export's ``engine_batch``
-        slots."""
-        return BundleServingEngine(self)
+        slots, over ``mesh``'s devices if given."""
+        return BundleServingEngine(self, mesh)
 
-    def decode_engine(self) -> "BundleDecodeEngine":
-        return BundleDecodeEngine(self)
+    def decode_engine(self, mesh=None) -> "BundleDecodeEngine":
+        return BundleDecodeEngine(self, mesh)
 
 
 def _require(bundle: ServingBundle, part: str, how: str) -> dict:
@@ -573,54 +615,71 @@ class ExportedPacketDecoder:
         return self.feed(codes, lost=np.ones((self.batch, n_frames), np.float32))
 
 
+def _engine_blocks(bundle: ServingBundle, mesh) -> tuple[dict, int, list]:
+    """The engine manifest, its slot count and the slot blocks over
+    ``mesh``; a block must lie in the range the programs were traced for
+    (a bundle traced before that range was recorded serves no mesh)."""
+    eng = _require(bundle, "engine", "engine_batch=N")
+    B = int(eng["batch"])
+    blocks = slot_blocks(B, mesh, bundle.device)
+    lo, hi = eng.get("slots", (B, B))
+    for sl, _ in blocks:
+        if not lo <= sl.stop - sl.start <= hi:
+            raise ValueError(f"the bundle's engine programs take {lo}..{hi} slots, a block of the "
+                             f"mesh has {sl.stop - sl.start}; export with another engine_batch")
+    return eng, B, blocks
+
+
+def _state_zeros(specs, rows: int, device) -> dict:
+    """A manifest state tree's zeros at ``rows`` slots on ``device``."""
+    return _zeros([[k, [rows, *shape[1:]], dtype] for k, shape, dtype in specs], device)
+
+
 class BundleServingEngine(ServingEngine):
     """``serve.engine.ServingEngine`` with its device step the bundle's
     ``engine_tick`` and its zero state from the manifest; the slot count is
-    the export's ``engine_batch``."""
+    the export's ``engine_batch``, over ``mesh``'s devices if given (each
+    with its own copy of the weights, which are the programs' inputs)."""
 
     def __init__(self, bundle: ServingBundle, mesh=None):
-        if mesh is not None:
-            raise _not_ported("mesh= (multi-card serving)", _MESH)
-        eng = _require(bundle, "engine", "engine_batch=N")
+        eng, self.B, self._blocks = _engine_blocks(bundle, mesh)
         conf = bundle.conf
         self.codec = bundle  # .conf and .bits_per_frame: all the engine reads of it
-        self.B = int(eng["batch"])
         self.hop = conf.hopsize
         self.win = conf.winsize
         self.pad_left = conf.mel_pad_left
         self.z_dim = conf.z_dim
         self.device = bundle.device
         self._tick_name = eng["tick"]
-        self.state = self._init_device_state()
+        self._init_states()
         self._init_host_slots()
         self._warm()
 
-    def _init_device_state(self) -> dict:
-        return self.codec._zeros(self.codec.meta["engine"]["state"])
+    def _init_device_state(self, rows: int, device) -> dict:
+        return _state_zeros(self.codec.meta["engine"]["state"], rows, device)
 
-    def _tick_call(self, state, chunk, bits, active):
-        return self.codec._call(self._tick_name, state, chunk, bits, active)
+    def _tick_call(self, state, chunk, bits, active, block: int = 0):
+        return self.codec._call(self._tick_name, state, chunk, bits, active,
+                                device=self._blocks[block][1])
 
 
 class BundleDecodeEngine(DecodeEngine):
     """``serve.engine.DecodeEngine`` on the bundle's ``engine_decode_tick``."""
 
     def __init__(self, bundle: ServingBundle, mesh=None):
-        if mesh is not None:
-            raise _not_ported("mesh= (multi-card serving)", _MESH)
-        eng = _require(bundle, "engine", "engine_batch=N")
+        eng, self.B, self._blocks = _engine_blocks(bundle, mesh)
         self.codec = bundle
-        self.B = int(eng["batch"])
         self.hop = bundle.conf.hopsize
         self.z_dim = bundle.conf.z_dim
         self.device = bundle.device
         self._tick_name = eng["decode_tick"]
-        self.state = self._init_device_state()
+        self._init_states()
         self._init_host_slots()
         self._warm()
 
-    def _init_device_state(self) -> dict:
-        return self.codec._zeros(self.codec.meta["engine"]["decode_state"])
+    def _init_device_state(self, rows: int, device) -> dict:
+        return _state_zeros(self.codec.meta["engine"]["decode_state"], rows, device)
 
-    def _tick_call(self, state, codes, lost, cbits, active):
-        return self.codec._call(self._tick_name, state, codes, lost, cbits, active)
+    def _tick_call(self, state, codes, lost, cbits, active, block: int = 0):
+        return self.codec._call(self._tick_name, state, codes, lost, cbits, active,
+                                device=self._blocks[block][1])

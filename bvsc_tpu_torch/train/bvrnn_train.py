@@ -19,6 +19,16 @@ draws what an unbroken one would and the card draws what the CPU draws.
 :class:`StepDraws` holds them; a caller (the tests, with the reference's
 ``jax.random`` draws) may pass its own.
 
+Data parallelism (``mesh=``, an SPMD ``parallel.mesh.Mesh``): every rank
+runs this trainer on its own rows of the global batch (contiguous blocks
+over the mesh's ``data`` axis), draws the global batch's draws from
+``(seed, step)`` and keeps its rows, as the reference's replicated key
+draws over its sharded batch.  Each rank's gradient of its rows' loss is
+averaged over the ranks by one flattened all-reduce before the optimizer,
+so the clip sees the global batch's gradient as optax does there; the
+metrics are averaged the same way.  The parameters start equal (the same
+seed or tree) and stay equal on every rank.
+
 ``compute_dtype='bf16'`` runs the forward on a bf16 cast of the float32
 masters (gradients flow back through the cast), with NLL and KLD reduced
 in float32; the optimizer state stays float32.  The float32 mode is the
@@ -35,8 +45,10 @@ import torch
 
 from bvsc_tpu_torch.config import CodecConfig
 from bvsc_tpu_torch.convert import flatten_tree, to_torch, unflatten_tree
-from bvsc_tpu_torch.device import resolve_device, set_parity_mode
+from bvsc_tpu_torch.device import canonical, resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
+from bvsc_tpu_torch.parallel.collectives import all_mean
+from bvsc_tpu_torch.parallel.mesh import DATA_AXIS
 from bvsc_tpu_torch.train.checkpoint import FORMAT, check_kind
 from bvsc_tpu_torch.train.optim import ClippedAdam
 
@@ -103,6 +115,15 @@ class StepDraws:
         return StepDraws(move(self.bits), self.use_gen, move(self.bin_noise),
                          move(self.spec_mask))
 
+    def rows(self, rows: slice) -> "StepDraws":
+        """The draws of the batch rows ``rows`` (``use_gen`` is per frame,
+        shared by every row)."""
+        def take(t, lead=0):
+            return None if t is None else t[(slice(None),) * lead + (rows,)]
+
+        return StepDraws(take(self.bits), self.use_gen, take(self.bin_noise, 1),
+                         take(self.spec_mask))
+
 
 def step_generators(seed: int, step: int) -> list[torch.Generator]:
     """Three CPU generators (bitrates, model, mask) seeded from (seed, step)."""
@@ -141,22 +162,34 @@ def loss_fn(params: dict, cfg: bvrnn_mod.BVRNNConfig, mel: torch.Tensor, draws: 
                   "log_sigma": log_sigma}
 
 
+def data_axis(mesh, device):
+    """(this rank's device, the mesh's data axis or None): a trainer's
+    ``mesh`` and ``device`` arguments resolved."""
+    if mesh is None:
+        return resolve_device(device), None
+    if device is not None and canonical(device) != canonical(mesh.device):
+        raise ValueError(f"device {device} is not this rank's device of the mesh, {mesh.device}")
+    return mesh.device, mesh.axis(DATA_AXIS)
+
+
 class BVRNNTrainer:
-    """The BVRNN trainer on one device (``bvsc_tpu``'s ``BVRNNTrainer``
-    without the mesh: data parallelism is ROADMAP item 11)."""
+    """The BVRNN trainer (``bvsc_tpu``'s ``BVRNNTrainer``), on one device or
+    data-parallel over a mesh (module docstring)."""
 
     def __init__(self, conf: CodecConfig, params: dict | None = None, seed: int = 0,
                  mean_std_mel=None, mel_mask: dict | None = None, fused_cell: bool = False,
-                 compute_dtype: str | None = None, device: str | torch.device | None = None):
+                 compute_dtype: str | None = None, device: str | torch.device | None = None,
+                 mesh=None):
         """``params``: a float32 BVRNN tree (numpy or tensors; fresh from
         ``seed`` when None, with ``mean_std_mel`` frozen in).  ``mel_mask``:
         keyword arguments of :func:`draw_spec_mask` (an empty dict for its
         defaults) to train on masked encoder inputs.  ``fused_cell`` and
         ``compute_dtype`` (None / ``'f32'`` or ``'bf16'``) are the
-        reference's throughput knobs.  ``device`` defaults to CUDA."""
+        reference's throughput knobs.  ``device`` defaults to CUDA, or with
+        ``mesh`` to this rank's device of it."""
         if compute_dtype not in (None, "f32", "bf16"):
             raise ValueError(f"compute_dtype must be 'f32'/'bf16', got {compute_dtype!r}")
-        self.device = resolve_device(device)
+        self.device, self.dp = data_axis(mesh, device)
         self.conf = conf
         self.seed = seed
         self.mel_mask = mel_mask
@@ -185,16 +218,26 @@ class BVRNNTrainer:
                          self.dtype)
 
     def step(self, mel: torch.Tensor, draws: StepDraws | None = None) -> dict:
-        """One optimizer step on a (B, T, num_mels) mel batch; returns the
-        metrics (0-d tensors): loss, nll, kld, mse, log_sigma, grad_norm."""
+        """One optimizer step on a (B, T, num_mels) mel batch, this rank's
+        rows of the global batch under a mesh; ``draws`` (default this
+        step's) are the global batch's.  Returns the metrics (0-d tensors,
+        global-batch means): loss, nll, kld, mse, log_sigma, grad_norm."""
         mel = mel.to(self.device, torch.float32)
+        B, T = mel.shape[:2]
+        n, i = (1, 0) if self.dp is None else (self.dp.size, self.dp.index)
         if draws is None:
-            draws = self.draws(mel.shape[0], mel.shape[1])
-        loss, metrics = loss_fn(self.params, self.cfg, mel, draws.to(self.device), self.dtype)
-        grads = torch.autograd.grad(loss, self.leaves)
-        metrics["grad_norm"] = self.opt.step(list(grads))
+            draws = self.draws(B * n, T)
+        loss, metrics = loss_fn(self.params, self.cfg, mel,
+                                draws.rows(slice(i * B, (i + 1) * B)).to(self.device), self.dtype)
+        grads = list(torch.autograd.grad(loss, self.leaves))
+        # copies: log_sigma is a view of a parameter the update moves
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        if self.dp is not None:
+            grads = all_mean(grads, self.dp)
+            metrics = dict(zip(metrics, all_mean(list(metrics.values()), self.dp)))
+        metrics["grad_norm"] = self.opt.step(grads)
         self.step_count += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     # -- checkpoints ----------------------------------------------------------
 

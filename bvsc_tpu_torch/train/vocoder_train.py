@@ -23,6 +23,13 @@ trainers differentiate the plain JAX one: the residual-block kernel has no
 backward there either.  The JAX package's ``split_programs`` form (the same
 step cut into a dozen XLA programs for a TPU compile helper's memory cap)
 is not ported.
+
+Data parallelism (``mesh=``, an SPMD ``parallel.mesh.Mesh``): each rank
+steps on its rows of the global batch; each update's gradients (D's, then
+G's) are averaged over the ranks by one flattened all-reduce before the
+clip, and the metrics likewise.  The spectral-norm buffers' power
+iteration reads no data, so they stay equal on every rank, as the
+parameters do.
 """
 
 from __future__ import annotations
@@ -34,13 +41,15 @@ import torch
 
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.convert import flatten_tree, to_torch, unflatten_tree
-from bvsc_tpu_torch.device import resolve_device, set_parity_mode
+from bvsc_tpu_torch.device import set_parity_mode
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.models.discriminators import (init_mpd_params, init_mrd_params, mpd_apply,
                                                    mrd_apply)
 from bvsc_tpu_torch.models.losses import discriminator_loss, feature_loss, generator_loss
 from bvsc_tpu_torch.ops.conv import spectral_norm_power_iteration, spectral_norm_trainable_mask
 from bvsc_tpu_torch.ops.mel import MelFrontend
+from bvsc_tpu_torch.parallel.collectives import all_mean
+from bvsc_tpu_torch.train.bvrnn_train import data_axis
 from bvsc_tpu_torch.train.checkpoint import FORMAT, check_kind
 from bvsc_tpu_torch.train.optim import ClippedAdam
 
@@ -92,19 +101,21 @@ class _Leaves:
 
 
 class VocoderGANTrainer:
-    """The GAN trainer on one device (``bvsc_tpu``'s ``VocoderGANTrainer``
-    without the mesh: data parallelism is ROADMAP item 11)."""
+    """The GAN trainer (``bvsc_tpu``'s ``VocoderGANTrainer``), on one device
+    or data-parallel over a mesh (module docstring)."""
 
     def __init__(self, vcfg: VocoderConfig, tcfg: GANTrainConfig = GANTrainConfig(),
                  seed: int = 0, gen_params: dict | None = None, mpd_params: list | None = None,
-                 mrd_params: list | None = None, device: str | torch.device | None = None):
+                 mrd_params: list | None = None, device: str | torch.device | None = None,
+                 mesh=None):
         """``gen_params``: a weight-normed generator tree (folded trees are
         re-parametrised, ``models.vocoder.unfold_generator_params``);
         ``mpd_params`` / ``mrd_params``: discriminator trees.  Whatever is
         not given is initialised from ``seed``.  ``device`` defaults to
-        CUDA.  Float32 products throughout: the trainer turns TF32 off
+        CUDA, or with ``mesh`` to this rank's device of it.  Float32
+        products throughout: the trainer turns TF32 off
         (``device.set_parity_mode``, process-wide)."""
-        self.device = resolve_device(device)
+        self.device, self.dp = data_axis(mesh, device)
         set_parity_mode()
         self.vcfg, self.tcfg = vcfg, tcfg
         self.epoch = 0
@@ -152,13 +163,26 @@ class VocoderGANTrainer:
         loss_f, _, _ = discriminator_loss(y_df_r, y_df_g)
         y_ds_r, y_ds_g, _, _ = mrd_apply(self.mrd, self.vcfg, y, y_hat)
         loss_s, _, _ = discriminator_loss(y_ds_r, y_ds_g)
-        grads = list(torch.autograd.grad(loss_f + loss_s, self._d.tensors, allow_unused=True))
+        grads = self._mean(torch.autograd.grad(loss_f + loss_s, self._d.tensors,
+                                               allow_unused=True), self._d.tensors)
+        metrics = self._mean_metrics({"disc_loss_mpd": loss_f, "disc_loss_mrd": loss_s})
         if self.frozen:
             norm = ClippedAdam.global_norm(grads)
         else:
             norm = self.opt_d.step(grads)
-        return {"disc_loss_mpd": loss_f.detach(), "disc_loss_mrd": loss_s.detach(),
-                "grad_norm_d": norm}
+        return {**metrics, "grad_norm_d": norm}
+
+    def _mean(self, grads, params) -> list:
+        """The gradients (None as zeros) averaged over the data-parallel
+        ranks; as they are on one device."""
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return grads if self.dp is None else all_mean(grads, self.dp)
+
+    def _mean_metrics(self, metrics: dict) -> dict:
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.dp is None:
+            return metrics
+        return dict(zip(metrics, all_mean(list(metrics.values()), self.dp)))
 
     def g_step(self, mel_in: torch.Tensor, y: torch.Tensor, y_mel: torch.Tensor) -> dict:
         """Generator update against the current discriminators; the mel
@@ -177,12 +201,13 @@ class VocoderGANTrainer:
             loss_gen_s, _ = generator_loss(y_ds_g)
             adv = loss_gen_s + loss_gen_f + loss_fm_s + loss_fm_f
         loss = loss_mel if frozen else loss_mel + adv
-        norm = self.opt_g.step(list(torch.autograd.grad(loss, self._g.tensors, allow_unused=True)))
+        norm = self.opt_g.step(self._mean(torch.autograd.grad(loss, self._g.tensors,
+                                                              allow_unused=True), self._g.tensors))
         self.step_count += 1
-        return {"gen_loss_total": loss.detach(), "mel_spec_error": loss_mel.detach() / w,
-                "fm_loss_mpd": loss_fm_f.detach(), "gen_loss_mpd": loss_gen_f.detach(),
-                "fm_loss_mrd": loss_fm_s.detach(), "gen_loss_mrd": loss_gen_s.detach(),
-                "grad_norm_g": norm}
+        return {**self._mean_metrics({
+            "gen_loss_total": loss, "mel_spec_error": loss_mel / w, "fm_loss_mpd": loss_fm_f,
+            "gen_loss_mpd": loss_gen_f, "fm_loss_mrd": loss_fm_s, "gen_loss_mrd": loss_gen_s}),
+            "grad_norm_g": norm}
 
     def mels(self, y: torch.Tensor, mel_in: torch.Tensor | None = None):
         """(input mel, loss-band mel) of (B, segment) audio, each cropped to

@@ -220,6 +220,31 @@ Phases, each printing one JSON line with its seconds:
     a resume to 4.  Printed: the card-against-CPU gaps and ms a step of
     each mode beside ``nvidia-smi``'s line.
 
+14. ``parallel``: ``bvsc_tpu_torch.parallel`` with two ranks sharing the
+    one card over gloo (NCCL refuses two ranks on one card), spawned by
+    ``parallel.dryrun.run_ranks``; a failed rank or a collective that times
+    out fails the phase.  On the ranks, at full width on the trained pair
+    and the main path's batch (B = 4, 256 frames, 3 kbps): ``encode_tp``
+    and ``decode_tp`` against the one-device ``encode`` / ``decode`` of the
+    standard cell (codes bitwise, each flipped code listed with its
+    distance from 0.5; mel and h within 2e-5); ``generator_apply_sp`` over
+    2 shards of the decoded mel against ``generator_apply_kernel`` (1e-5;
+    12 K1 launches a shard); ``pipeline_resynth`` on 3 microbatches of 64
+    frames against the unpipelined run (codes bitwise, waveform 1e-6, 12 K1
+    launches a microbatch on stage 1); one data-parallel step of each
+    trainer at full width (BVRNN on 4 x 0.5-s mels, the GAN twice on 4 x
+    8 192 crops, D frozen at step 0) against one rank's step on the global
+    batch (metrics 1e-5 relative, parameters 1e-5, those whose gradient is
+    within float noise of 0 left out and counted).  In this process: the
+    four engines at 128 slots with ``mesh`` over [card, card] (64 slots a
+    block, streams alternating between the blocks) against unsharded ones
+    (codes bitwise, audio 1e-5; 12 K1 launches a block a tick), the bundle
+    ones on phase ``export``'s parity bundle (kept for this); at the same time
+    ``cli.train_bvrnn`` as two processes of one run (2 steps): equal losses
+    on both ranks and rank 0's checkpoint loading.  Printed beside
+    ``nvidia-smi``'s line: ms per TP frame and per SP call next to one
+    device's, labelled as two ranks on one card (no scaling claim).
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -227,6 +252,7 @@ and no ``ok`` line.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -2133,9 +2159,10 @@ def op_host_us(codec: BVRNNCodecModel, windows: list) -> dict:
 
 
 def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
-                 smi: str) -> None:
+                 smi: str, keep: str) -> str:
     """AOT serving bundles (``bvsc_tpu_torch.serve.export``) on the trained
-    pair; see the module docstring."""
+    pair; see the module docstring.  Moves the parity bundle into ``keep``
+    (phase ``parallel`` serves it sharded) and returns its path."""
     import shutil
 
     from bvsc_tpu_torch.serve.export import ServingBundle, export_serving_bundle
@@ -2233,6 +2260,7 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
                 gates.append(f"{key}: op and direct launch differ")
         if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
             gates.append("the TF32 flags changed")
+        kept = shutil.move(paths["parity"], os.path.join(keep, "parity.bvscx"))
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -2242,6 +2270,7 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
     emit("export", t0, **report, gates_failed=gates)
     if gates:
         raise AssertionError(f"export phase: {gates}")
+    return kept
 
 
 def train_filelist(tmp: str) -> str:
@@ -2531,6 +2560,400 @@ def train_phase(wav: np.ndarray, smi: str) -> None:
         raise AssertionError(f"train: {len(failed)} gates failed: {failed}")
 
 
+PAR_RANKS = 2  # ranks of the parallel phase, all on the one card
+PAR_DEVICE = "cuda:0"  # every rank's device: gloo, since NCCL refuses two ranks on one card
+PAR_MICRO, PAR_MICRO_FRAMES = 3, 64  # pipeline microbatches: 64-frame slices of the batch
+PAR_TIMED_FRAMES = 64  # frames of the timed (warm) TP and one-device scans
+PAR_TRAIN_BATCH = 4  # the data-parallel steps' global batch, split over the ranks
+PAR_STREAMS = 6  # schedule streams through the sharded 128-slot engines
+PAR_STREAM_SAMPLES = 8192  # each stream's crop of its serving-phase input
+PAR_DECODE_FRAMES = 48  # frames of each stream through the sharded decode engines
+PAR_TIMEOUT = 300  # seconds the ranks, or a trainer CLI process, may take
+TP_MEL_TOL = 2e-5  # tensor-parallel mel and h against one device (tests/test_tp.py's bound)
+SP_TOL = 1e-5  # sequence-parallel vocoder against one-shot (the overlap adds' sums)
+PP_WAV_TOL = 1e-6  # pipelined waveform against the unpipelined run (tests/test_pp.py's)
+DP_TOL = 1e-5  # a data-parallel step against one rank's: metrics relative, params absolute
+ILL_CONDITIONED_G = 1e-7  # an Adam step of a weight whose gradient is this near 0 is noise
+
+
+def par_k1() -> dict:
+    """K1 launch counts since the last reset (no synchronisation: counted
+    in Python at launch)."""
+    return {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+
+
+def dp_gaps(dp, one, dp_m: dict, one_m: dict, params, opt) -> dict:
+    """A data-parallel trainer against one rank's after the same steps: the
+    largest relative metric gap, the largest parameter gap outside the
+    weights whose first Adam moment says their gradient was within
+    ``ILL_CONDITIONED_G`` of 0 (their move is float noise), and how many
+    were left out."""
+    rel = max(rel_gap(float(dp_m[k]), float(one_m[k])) for k in one_m)
+    worst, worst_all, ill = 0.0, 0.0, 0
+    for a, b, mu in zip(params(dp), params(one), opt(one).mu):
+        keep = (mu / (1 - opt(one).b1)).abs() >= ILL_CONDITIONED_G
+        gap = (a - b).detach().abs()
+        ill += int((~keep).sum())
+        worst_all = max(worst_all, float(gap.max()))
+        if keep.any():
+            worst = max(worst, float(gap[keep].max()))
+    return {"metric_rel": rel, "param_abs": worst, "param_abs_all": worst_all,
+            "ill_conditioned": ill}
+
+
+def parallel_ranks(n: int, inp: dict) -> dict:
+    """One rank's part of phase ``parallel`` (``parallel.dryrun.run_ranks``
+    spawns it on every rank; all on ``PAR_DEVICE``): TP encode and decode,
+    the SP vocoder, the pipeline, and a data-parallel step of each trainer;
+    rank 0 also runs the one-rank steps the DP steps are held against."""
+    from bvsc_tpu_torch.convert import load_vocoder_npz, to_torch
+    from bvsc_tpu_torch.parallel import pp as PPL
+    from bvsc_tpu_torch.parallel import sp as SPL
+    from bvsc_tpu_torch.parallel import tp as TPL
+    from bvsc_tpu_torch.parallel.mesh import make_mesh
+
+    set_parity_mode()
+    devices = [PAR_DEVICE] * n
+    mesh = make_mesh(devices=devices)
+    dev, rank = mesh.device, mesh.rank
+    conf = load_config(DEFAULT_CONFIG)
+    cfg = bvrnn_mod.BVRNNConfig(x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim)
+    bvrnn = load_bvrnn_npz(NPZ)
+    out = {}
+
+    # tensor parallelism: encode, then decode of the one-device codes
+    tmesh = TPL.make_tp_mesh(devices=devices)
+    tpp = TPL.shard_tp_params(TPL.prepare_tp_params(bvrnn), tmesh)
+    y, bits, codes = (torch.from_numpy(inp[k]).to(dev) for k in ("y", "bits", "codes"))
+    h0 = torch.zeros(y.shape[0], conf.h_dim, device=dev)
+    z_tp, h_enc = TPL.encode_tp(tpp, cfg, y, bits, h0, tmesh)
+    mel_tp, h_dec = TPL.decode_tp(tpp, cfg, codes, h0, tmesh)
+    k = PAR_TIMED_FRAMES  # warm calls, timed
+    _, enc_ms = timed(lambda: TPL.encode_tp(tpp, cfg, y[:, :k], bits[:, :k], h0, tmesh))
+    _, dec_ms = timed(lambda: TPL.decode_tp(tpp, cfg, codes[:, :k], h0, tmesh))
+    out["tp"] = {"codes": z_tp.cpu().numpy(), "h_enc": h_enc.cpu().numpy(),
+                 "mel": mel_tp.cpu().numpy(), "h_dec": h_dec.cpu().numpy(),
+                 "encode_ms_per_frame": enc_ms / k, "decode_ms_per_frame": dec_ms / k}
+
+    # sequence parallelism on the trained vocoder: the first call counted,
+    # the second timed
+    vcfg = conf.vocoder_config
+    voc = to_torch(load_vocoder_npz(VOC_NPZ), dev)
+    blocks = voc_mod.prepare_kernel_params(voc, vcfg)
+    smesh = SPL.make_sp_mesh(devices=devices)
+    mel = torch.from_numpy(inp["mel"]).to(dev)
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    wav_sp = SPL.generator_apply_sp(voc, vcfg, mel, smesh, kernel_blocks=blocks)
+    launches = par_k1()
+    _, sp_ms = timed(lambda: SPL.generator_apply_sp(voc, vcfg, mel, smesh, kernel_blocks=blocks))
+    out["sp"] = {"wav": wav_sp.cpu().numpy(), "launches": launches, "ms": sp_ms}
+
+    # the two-stage pipeline
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    (codes_pp, wav_pp), pp_ms = timed(lambda: PPL.pipeline_resynth(
+        bvrnn, cfg, voc, vcfg, inp["mel_mb"], inp["bits_mb"], PPL.make_pp_mesh(devices)))
+    out["pp"] = {"codes": codes_pp.cpu().numpy(), "wav": wav_pp.cpu().numpy(),
+                 "launches": par_k1(), "ms": pp_ms}
+
+    # a data-parallel step of each trainer, at full width
+    B = PAR_TRAIN_BATCH // n
+    rows = slice(rank * B, (rank + 1) * B)
+    tmel = torch.from_numpy(inp["train_mel"]).to(dev)
+    dp = BT.BVRNNTrainer(conf, seed=SEED, mesh=mesh)
+    dp_m, bv_ms = timed(lambda: dp.step(tmel[rows]))
+    vtcfg, gen, ys = inp["gan"]
+    gan = VT.VocoderGANTrainer(vcfg, vtcfg, seed=SEED, gen_params=gen, mesh=mesh)
+    gan_m = [timed(lambda y=y: gan.step_on_audio(y[rows])) for y in ys]
+    out["dp"] = {"bvrnn": {k: float(v) for k, v in dp_m.items()}, "bvrnn_ms": bv_ms,
+                 "gan": [{k: float(v) for k, v in m.items()} for m, _ in gan_m],
+                 "gan_ms": [t for _, t in gan_m]}
+    if rank == 0:
+        one = BT.BVRNNTrainer(conf, seed=SEED, device=dev)
+        one_m = one.step(tmel)
+        out["dp"]["bvrnn_gaps"] = dp_gaps(dp, one, dp_m, one_m, lambda t: t.leaves,
+                                          lambda t: t.opt)
+        ref = VT.VocoderGANTrainer(vcfg, vtcfg, seed=SEED, gen_params=gen, device=dev)
+        ref_m = [ref.step_on_audio(y) for y in ys]
+        gm = dict(gan_m[-1][0])
+        out["dp"]["gan_gaps"] = {
+            "d": dp_gaps(gan, ref, gm, ref_m[-1], lambda t: t._d.tensors, lambda t: t.opt_d),
+            "g": dp_gaps(gan, ref, gm, ref_m[-1], lambda t: t._g.tensors, lambda t: t.opt_g),
+            "metric_rel_step0": max(rel_gap(float(gan_m[0][0][k]), float(ref_m[0][k]))
+                                    for k in ref_m[0])}
+    return out
+
+
+class ParallelCLI:
+    """``cli.train_bvrnn`` as two processes of one data-parallel run on the
+    card (gloo: the ranks share it), 2 steps at batch 4, output to log
+    files; ``finish`` gates equal losses on both ranks and a checkpoint,
+    written by rank 0, that loads."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.run = tmp, os.path.join(tmp, "bvrnn_dp")
+        filelist = os.path.join(tmp, "dp_train.txt")  # the demo once a rank: its shard
+        with open(filelist, "w") as f:
+            f.write((os.path.splitext(os.path.basename(WAV))[0] + "|demo\n") * PAR_RANKS)
+        common = ["--config", DEFAULT_CONFIG, "--input_wavs_dir", os.path.dirname(WAV),
+                  "--input_training_file", filelist, "--checkpoint_path", self.run,
+                  "--max_steps", "2", "--batch_size", str(PAR_TRAIN_BATCH),
+                  "--stdout_interval", "1", "--stats_batches", "1", "--device", PAR_DEVICE,
+                  "--dist_backend", "gloo", "--coordinator_address",
+                  f"file://{os.path.join(tmp, 'cli_store')}", "--num_processes", str(PAR_RANKS)]
+        self.t0, self.procs = time.time(), []
+        for r in range(PAR_RANKS):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, "-m", "bvsc_tpu_torch.cli.train_bvrnn", *common,
+                 "--process_id", str(r)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log))
+
+    def finish(self, gates: list) -> dict:
+        losses, rcs = [], []
+        try:
+            for proc, log in self.procs:
+                proc.wait(timeout=PAR_TIMEOUT)
+                rcs.append(proc.returncode)
+        finally:
+            self.close()
+        tails = []
+        for _, log in self.procs:
+            text = open(log.name).read()
+            lines = [ln for ln in text.splitlines() if ln.startswith("Steps : 2,")]
+            losses.append(lines[-1].split(", s/b")[0] if lines else None)
+            tails.append(text.strip().splitlines()[-3:])
+        state, step = ckpt.restore_latest(self.run, "bvrnn_")
+        loads = False
+        if state is not None:
+            tr = BT.BVRNNTrainer(load_config(DEFAULT_CONFIG), device=DEV)
+            tr.load_state_dict(state)
+            loads = tr.step_count == 2
+        gates += [(f"trainer CLI ranks exit 0 ({rcs})", rcs == [0] * PAR_RANKS),
+                  (f"trainer CLI losses equal on both ranks {losses}",
+                   losses[0] is not None and len(set(losses)) == 1),
+                  (f"rank 0's checkpoint (step {step}) loads", loads and step == 2)]
+        return {"rcs": rcs, "losses": losses, "tails": tails, "checkpoint_step": step,
+                "seconds": time.time() - self.t0}
+
+    def close(self) -> None:
+        for proc, log in self.procs:
+            proc.kill()
+            proc.wait()
+            log.close()
+
+
+def alternating(eng):
+    """``eng`` with its free slots handed out alternately from the first and
+    the second half, so that consecutive streams land in both blocks of a
+    two-device mesh."""
+    half = eng.B // 2
+    eng._free = [s for pair in zip(range(half), range(half, eng.B)) for s in pair]
+    return eng
+
+
+def parallel_engines(codec: BVRNNCodecModel, wav: np.ndarray, codes: np.ndarray, bundle_path: str,
+                     gates: list) -> dict:
+    """The four engines at 128 slots with ``mesh`` over [card, card] (a
+    block of 64 slots on each) against unsharded ones: 6 streams of the
+    serving phase's schedule, cropped, through the serving engines; the
+    main path's codes twice with ``plc``-style losses through the decode
+    engines; the bundle ones on phase ``export``'s parity bundle.  Streams
+    alternate between the blocks."""
+    from bvsc_tpu_torch.parallel.mesh import make_mesh
+    from bvsc_tpu_torch.serve.export import ServingBundle
+
+    mesh = make_mesh(devices=[PAR_DEVICE] * PAR_RANKS)
+    inputs = [x[:PAR_STREAM_SAMPLES] for x in serve_inputs(wav[0])[:PAR_STREAMS]]
+
+    def serve(eng):
+        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        sids = []
+        for i, x in enumerate(inputs):
+            sids.append(eng.open_stream(SERVE_BITRATES[i % 3]))
+            eng.push(sids[-1], x)
+            eng.begin_flush(sids[-1])
+        out, ticks = {sid: ([], []) for sid in sids}, 0
+        while res := eng.tick():
+            ticks += 1
+            for sid, (c, w) in res.items():
+                out[sid][0].append(c)
+                out[sid][1].append(w)
+        return ([(np.stack(out[s][0]), np.concatenate(out[s][1])) for s in sids],
+                par_k1(), ticks)
+
+    n = PAR_DECODE_FRAMES  # the batch's codes twice
+    dcodes = np.concatenate([codes, codes])[:, :n]
+    lost = loss_pattern(dcodes.shape[0], n)
+    bundle = ServingBundle(bundle_path, DEV)
+    ref, _, ticks = serve(alternating(ServingEngine(codec, SERVE_SLOTS)))
+    dref, _, _ = decode_engine_run(codec, dcodes, lost,
+                                   alternating(DecodeEngine(codec, SERVE_SLOTS)))
+    rep = {"slots": bundle.meta["engine"]["slots"], "ticks": ticks}
+    for name, make_s, make_d in (
+            ("live", lambda: ServingEngine(codec, SERVE_SLOTS, mesh=mesh),
+             lambda: DecodeEngine(codec, SERVE_SLOTS, mesh=mesh)),
+            ("bundle", lambda: bundle.serving_engine(mesh=mesh),
+             lambda: bundle.decode_engine(mesh=mesh))):
+        got, launches, _ = serve(alternating(make_s()))
+        dgot, _, dlaunches = decode_engine_run(codec, dcodes, lost, alternating(make_d()))
+        codes_eq = all(np.array_equal(a[0], b[0]) for a, b in zip(got, ref))
+        gap = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(got, ref))
+        dgap = float(np.abs(dgot - dref).max())
+        rep[name] = {"codes_bitwise": codes_eq, "audio_gap": gap, "decode_gap": dgap,
+                     "launches": launches, "decode_launches": dlaunches}
+        blocks = {"f32": 12 * PAR_RANKS, "bf16": 0}
+        gates += [(f"sharded {name} serving codes bitwise unsharded", codes_eq),
+                  (f"sharded {name} serving audio {gap} <= {STREAM_TOL}", gap <= STREAM_TOL),
+                  (f"sharded {name} decode audio {dgap} <= {STREAM_TOL}", dgap <= STREAM_TOL),
+                  (f"sharded {name} K1 launches {launches}, {dlaunches}: 12 a block a tick",
+                   launches == {k: v * ticks for k, v in blocks.items()}
+                   and dlaunches == {k: v * n for k, v in blocks.items()})]
+    return rep
+
+
+def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str, bundle: str) -> None:
+    """The parallel paths on the card, two ranks sharing it over gloo: see
+    the module docstring.  The numbers are printed before any gate is
+    applied; a rank that fails, or a collective that times out, raises."""
+    from bvsc_tpu_torch.parallel.dryrun import run_ranks
+
+    t0 = time.time()
+    conf, gates = codec.conf, []
+    report = {"nvidia_smi": smi, "ranks": f"{PAR_RANKS} ranks sharing one card over gloo; "
+              "their times say nothing about scaling"}
+    cfg = dataclasses.replace(codec.bvrnn_cfg, fused_cell=False)  # TP's cell, the standard one
+    params = codec.weights.scan.std
+    x = torch.from_numpy(wav).to(DEV)
+    L = x.shape[1]
+    Lp = codec._pad_length(L)
+    with torch.no_grad():
+        y = codec._mel(torch.nn.functional.pad(x, (0, Lp - L)))
+        bits = codec._frame_bits(BITRATE, x.shape[0], L, Lp, codec.frontend.num_frames(L))
+        h0 = codec._h0(x.shape[0])
+        codes, h_seq = bvrnn_mod.encode(params, cfg, y, bits, h0)
+        h_enc = bvrnn_mod.encode_with_state(params, cfg, y, bits, h0)[1]
+        mel_ref, h_dec = bvrnn_mod.decode(params, cfg, codes, h0)
+        k = PAR_TIMED_FRAMES  # warm calls, timed
+        _, enc_ms = timed(lambda: bvrnn_mod.encode_with_state(params, cfg, y[:, :k], bits[:, :k],
+                                                             h0))
+        _, dec_ms = timed(lambda: bvrnn_mod.decode(params, cfg, codes[:, :k], h0))
+        voc_in = mel_ref.transpose(1, 2).contiguous()
+        vlen = voc_in.shape[-1] * conf.hopsize
+
+        def vocode():
+            return voc_mod.generator_apply_kernel(codec.weights.vocoder, codec.weights.blocks,
+                                                  conf.vocoder_config, voc_in, vlen)
+
+        wav_ref = vocode()
+        _, voc_ms = timed(vocode)
+        enc_p = bvrnn_mod.enc_apply(params, torch.cat([bvrnn_mod.phi_x_apply(
+            params, bvrnn_mod._normalize(params, y)), h_seq], -1))
+        mel_mb = torch.stack([y[:, i * PAR_MICRO_FRAMES:(i + 1) * PAR_MICRO_FRAMES]
+                              for i in range(PAR_MICRO)])
+        bits_mb = bits[None, :, :PAR_MICRO_FRAMES].expand(PAR_MICRO, -1, -1).contiguous()
+        pp_codes, pp_wav = [], []
+        for i in range(PAR_MICRO):
+            z, m, _ = bvrnn_mod.encode_decode(params, cfg, mel_mb[i], bits_mb[i],
+                                              codec._h0(x.shape[0]))
+            pp_codes.append(z)
+            pp_wav.append(voc_mod.generator_apply_kernel(
+                codec.weights.vocoder, codec.weights.blocks, conf.vocoder_config,
+                m.transpose(1, 2).contiguous(), PAR_MICRO_FRAMES * conf.hopsize))
+    seg = int(TRAIN_CHECK_SECONDS * conf.fs) // conf.hopsize * conf.hopsize
+    train_mel = bvrnn_frontend(conf, DEV)(x[:PAR_TRAIN_BATCH, :seg]).transpose(1, 2)
+    vcfg = conf.vocoder_config
+    gtcfg = VT.GANTrainConfig(freeze_step=1, batch_size=PAR_TRAIN_BATCH, sampling_rate=conf.fs,
+                              n_fft=conf.winsize, hop_size=conf.hopsize, win_size=conf.winsize,
+                              fmin=conf.fmin, fmax=conf.fmax, mel_pad_left=conf.mel_pad_left)
+    crops = [wav[:PAR_TRAIN_BATCH, o:o + gtcfg.segment_size] for o in (0, 12000)]
+    inp = {"y": y.cpu().numpy(), "bits": bits.cpu().numpy(), "codes": codes.cpu().numpy(),
+           "mel": voc_in.cpu().numpy(), "mel_mb": mel_mb.cpu().numpy(),
+           "bits_mb": bits_mb.cpu().numpy(), "train_mel": train_mel.cpu().numpy(),
+           "gan": (gtcfg, train_vocoder.load_generator(VOC_NPZ), crops)}
+    t = time.time()
+    ranks = run_ranks(PAR_RANKS, parallel_ranks, inp, device=PAR_DEVICE, backend="gloo",
+                      timeout_s=PAR_TIMEOUT)
+    report["ranks_seconds"] = time.time() - t
+    r0 = ranks[0]
+
+    # tensor parallelism against one device
+    tp = r0["tp"]
+    flips = np.argwhere(tp["codes"] != codes.cpu().numpy())
+    enc_np = enc_p.cpu().numpy()
+    report["tp"] = {
+        "frames": y.shape[1], "batch": y.shape[0], "flipped": len(flips),
+        "flips": [{"stream": int(b), "frame": int(f), "bit": int(k),
+                   "enc_minus_half": float(abs(enc_np[b, f, k] - 0.5))} for b, f, k in flips[:8]],
+        "mel_gap": float(np.abs(tp["mel"] - mel_ref.cpu().numpy()).max()),
+        "h_dec_gap": float(np.abs(tp["h_dec"] - h_dec.cpu().numpy()).max()),
+        "h_enc_gap": float(np.abs(tp["h_enc"] - h_enc.cpu().numpy()).max()),
+        "ranks_equal": all(np.array_equal(r["tp"]["mel"], tp["mel"]) for r in ranks),
+        "timed_frames": PAR_TIMED_FRAMES,
+        "decode_ms_per_frame": tp["decode_ms_per_frame"],
+        "one_device_decode_ms_per_frame": dec_ms / PAR_TIMED_FRAMES,
+        "encode_ms_per_frame": tp["encode_ms_per_frame"],
+        "one_device_encode_ms_per_frame": enc_ms / PAR_TIMED_FRAMES}
+    rt = report["tp"]
+    gates += [(f"TP codes bitwise one device's ({rt['flipped']} flipped: {rt['flips']})",
+               rt["flipped"] == 0),
+              (f"TP mel {rt['mel_gap']} <= {TP_MEL_TOL}", rt["mel_gap"] <= TP_MEL_TOL),
+              (f"TP h {rt['h_dec_gap']} <= {TP_MEL_TOL}", rt["h_dec_gap"] <= TP_MEL_TOL),
+              ("TP outputs equal on every rank", rt["ranks_equal"])]
+
+    # sequence parallelism against one-shot
+    sp_gap = max(float(np.abs(r["sp"]["wav"] - wav_ref.cpu().numpy()).max()) for r in ranks)
+    report["sp"] = {"frames": voc_in.shape[-1], "shards": PAR_RANKS, "gap": sp_gap,
+                    "launches": [r["sp"]["launches"] for r in ranks], "ms": r0["sp"]["ms"],
+                    "one_device_ms": voc_ms}
+    gates += [(f"SP vocoder {sp_gap} <= {SP_TOL}", sp_gap <= SP_TOL),
+              (f"SP K1 launches {report['sp']['launches']}: 12 a shard",
+               all(r["sp"]["launches"] == {"f32": 12, "bf16": 0} for r in ranks))]
+
+    # the pipeline against the unpipelined composition
+    pp_ref_codes = torch.stack(pp_codes).cpu().numpy()
+    pp_ref_wav = torch.stack(pp_wav).cpu().numpy()
+    pp_gap = max(float(np.abs(r["pp"]["wav"] - pp_ref_wav).max()) for r in ranks)
+    pp_eq = all(np.array_equal(r["pp"]["codes"], pp_ref_codes) for r in ranks)
+    report["pp"] = {"micro": PAR_MICRO, "frames": PAR_MICRO_FRAMES, "codes_bitwise": pp_eq,
+                    "wav_gap": pp_gap, "launches": [r["pp"]["launches"] for r in ranks],
+                    "ms": r0["pp"]["ms"]}
+    gates += [("PP codes bitwise the unpipelined run's", pp_eq),
+              (f"PP waveform {pp_gap} <= {PP_WAV_TOL}", pp_gap <= PP_WAV_TOL),
+              (f"PP K1 launches {report['pp']['launches']}: 12 a microbatch on stage 1",
+               [r["pp"]["launches"]["f32"] for r in ranks] == [0, 12 * PAR_MICRO])]
+
+    # data-parallel steps against one rank's on the global batch
+    dp = r0["dp"]
+    report["dp"] = {"bvrnn": dp["bvrnn_gaps"], "gan": dp["gan_gaps"], "bvrnn_ms": dp["bvrnn_ms"],
+                    "gan_ms": dp["gan_ms"], "batch": PAR_TRAIN_BATCH,
+                    "ranks_equal": all(r["dp"]["bvrnn"] == dp["bvrnn"] and
+                                       r["dp"]["gan"] == dp["gan"] for r in ranks)}
+    bg, gg = dp["bvrnn_gaps"], dp["gan_gaps"]
+    gates += [(f"DP BVRNN step metrics {bg['metric_rel']} <= {DP_TOL}",
+               bg["metric_rel"] <= DP_TOL),
+              (f"DP BVRNN step params {bg['param_abs']} <= {DP_TOL}", bg["param_abs"] <= DP_TOL),
+              (f"DP GAN metrics {gg['metric_rel_step0']}, {gg['d']['metric_rel']} <= {DP_TOL}",
+               max(gg["metric_rel_step0"], gg["d"]["metric_rel"]) <= DP_TOL),
+              (f"DP GAN params D {gg['d']['param_abs']}, G {gg['g']['param_abs']} <= {DP_TOL}",
+               max(gg["d"]["param_abs"], gg["g"]["param_abs"]) <= DP_TOL),
+              ("DP metrics equal on every rank", report["dp"]["ranks_equal"])]
+
+    # the trainer CLI as two processes, beside the sharded engines in here
+    with tempfile.TemporaryDirectory(prefix="bvsc-parallel-") as tmp:
+        cli = ParallelCLI(tmp)
+        try:
+            t = time.time()
+            report["engines"] = parallel_engines(codec, wav, codes.cpu().numpy(), bundle, gates)
+            report["engines"]["seconds"] = time.time() - t
+            report["cli"] = cli.finish(gates)
+        finally:
+            cli.close()
+    set_parity_mode()
+    failed = [what for what, ok in gates if not ok]
+    emit("parallel", t0, **report, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"parallel: {len(failed)} gates failed: {failed}")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     """Least milliseconds on an H100, and what bounds them."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2777,8 +3200,10 @@ def main() -> None:
     streaming_phase(codec, fast, wav, smi)
     serving_phase(codec, fast, wav, smi)
     entropy_phase(codec, wav[0], smi)
-    export_phase(codec, fast, wav, smi)
-    train_phase(wav, smi)
+    with tempfile.TemporaryDirectory(prefix="bvsc-bundle-") as keep:
+        bundle = export_phase(codec, fast, wav, smi, keep)
+        train_phase(wav, smi)
+        parallel_phase(codec, wav, smi, bundle)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):

@@ -366,8 +366,14 @@ def test_engine_respects_config_winsize():
 
 @pytest.mark.parametrize("cls", [ServingEngine, DecodeEngine], ids=lambda c: c.__name__)
 def test_mesh_raises(codec, cls):
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    """``mesh=`` takes a ``parallel.mesh.Mesh`` whose devices divide the
+    slots (sharded engines: tests/test_torch_parallel_serving.py)."""
+    from bvsc_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         cls(codec, max_streams=4, mesh=object())
+    with pytest.raises(ValueError, match="divide evenly"):
+        cls(codec, max_streams=4, mesh=make_mesh(devices=["cpu"] * 3))
 
 
 def test_devices_and_outputs(codec):

@@ -144,11 +144,14 @@ def test_train_vocoder_fine_tuning(env, capsys):
 
 @pytest.mark.parametrize("module", [train_bvrnn, train_vocoder], ids=["bvrnn", "vocoder"])
 def test_distributed_flags_raise(env, module, tmp_path):
+    """Incomplete distributed flags are refused before any connection (the
+    two-process run: tests/test_torch_distributed.py)."""
     args = ["--config", str(env / "tiny.toml"), "--input_training_file", str(env / "train.txt"),
-            "--checkpoint_path", str(tmp_path), "--device", "cpu",
-            "--coordinator_address", "localhost:1234"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        module.main(args)
+            "--checkpoint_path", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(ValueError, match="needs --num_processes and --process_id"):
+        module.main([*args, "--coordinator_address", "localhost:1234"])
+    with pytest.raises(ValueError, match="need --coordinator_address"):
+        module.main([*args, "--num_processes", "2", "--process_id", "1"])
 
 
 @pytest.mark.parametrize("module", [train_bvrnn, train_vocoder], ids=["bvrnn", "vocoder"])
