@@ -14,9 +14,10 @@ checkpoint or a vocoder ``.npz`` (``tools/export_vocoder_npz.py``), folded
 weights re-parametrised as weight norm.  ``--fine_tuning`` trains on
 precomputed ``.npy`` mels (``--input_mels_dir``) with the target audio at
 the codec's -10 dB unless ``--audio_scale`` says otherwise.  Validation
-reports the loss-band mel L1 and the multi-resolution STFT loss per set
-(seen, and each ``unseen_<name>``); STOI and PESQ come with the eval
-metrics (ROADMAP item 12).  Training runs on the card unless ``--device
+reports the loss-band mel L1, the multi-resolution STFT loss, STOI (skipped
+for a clip too short or silent for it) and PESQ-WB (skipped for a
+``nonspeech`` set) per set (seen, and each ``unseen_<name>``), from
+``bvsc_tpu_torch.eval.metrics``.  Training runs on the card unless ``--device
 cpu``; ``--coordinator_address`` / ``--num_processes`` / ``--process_id``
 train data-parallel as ``cli.train_bvrnn`` does (each rank its shard at the
 global batch over the world size; rank 0 logs, validates, saves audio and
@@ -40,6 +41,7 @@ from bvsc_tpu_torch.config import CodecConfig, VocoderConfig
 from bvsc_tpu_torch.convert import load_vocoder_npz
 from bvsc_tpu_torch.data.audio import save_wav
 from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
+from bvsc_tpu_torch.eval.metrics import pesq_wb_16k, stoi
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops.stft_loss import multi_resolution_stft_loss
 from bvsc_tpu_torch.train import checkpoint as ckpt
@@ -178,8 +180,9 @@ def train(args, dist: Distributed) -> None:
 
     @torch.no_grad()
     def validate(step: int, files: list[str], mode: str) -> None:
-        """One validation set: loss-band mel L1 and MRSTFT, figures and
-        audio of every ``--eval_subsample``-th item (rank 0 only)."""
+        """One validation set: loss-band mel L1, MRSTFT, STOI and PESQ
+        (reference ``train.py:150-227``), figures and audio of every
+        ``--eval_subsample``-th item (rank 0 only)."""
         if not files or not dist.main:
             return
         valset = AudioSegmentDataset(files, tcfg.segment_size, tcfg.sampling_rate,
@@ -188,7 +191,7 @@ def train(args, dist: Distributed) -> None:
         if args.save_audio:
             os.makedirs(os.path.join(samples, f"gt_{mode}"), exist_ok=True)
             os.makedirs(os.path.join(samples, f"{mode}_{step:08d}"), exist_ok=True)
-        errs, stfts = [], []
+        errs, stfts, stois, pesqs = [], [], [], []
         for i in range(len(valset)):
             audio = valset[i][0]
             y = torch.as_tensor(audio[None, :], device=device)
@@ -197,8 +200,14 @@ def train(args, dist: Distributed) -> None:
             errs.append(float(torch.mean(torch.abs(trainer.loss_frontend(y)
                                                    - trainer.loss_frontend(y_hat)))))
             stfts.append(float(multi_resolution_stft_loss(y_hat, y)))
+            y_np = y_hat[0].cpu().numpy()
+            try:
+                stois.append(stoi(audio, y_np, tcfg.sampling_rate))
+            except ValueError:  # a clip too short or silent for STOI's 30 frames
+                pass
+            if "nonspeech" not in mode:  # the reference's PESQ guard (train.py:186)
+                pesqs.append(pesq_wb_16k(audio, y_np, tcfg.sampling_rate))
             if i % args.eval_subsample == 0:
-                y_np = y_hat[0].cpu().numpy()
                 logger.audio(f"gt_{mode}/y_{i}", audio, step, tcfg.sampling_rate)
                 logger.audio(f"generated_{mode}/y_hat_{i}", y_np, step, tcfg.sampling_rate)
                 mel_hat = trainer.input_frontend(y_hat)
@@ -215,8 +224,14 @@ def train(args, dist: Distributed) -> None:
                              tcfg.sampling_rate)
         logger.scalar(f"validation_{mode}/mel_spec_error", np.mean(errs), step)
         logger.scalar(f"validation_{mode}/mrstft", np.mean(stfts), step)
+        if stois:
+            logger.scalar(f"validation_{mode}/stoi", np.mean(stois), step)
+        if pesqs:
+            logger.scalar(f"validation_{mode}/pesq", np.mean(pesqs), step)
         print(f"validation @ {step} [{mode}]: mel_l1={np.mean(errs):.4f} "
-              f"mrstft={np.mean(stfts):.4f}", flush=True)
+              f"mrstft={np.mean(stfts):.4f}"
+              + (f" stoi={np.mean(stois):.4f}" if stois else "")
+              + (f" pesq={np.mean(pesqs):.3f}" if pesqs else " (pesq unavailable)"), flush=True)
 
     def validate_all(step: int) -> None:
         if not args.skip_seen:

@@ -159,8 +159,8 @@ Phases, each printing one JSON line with its seconds:
     float64 pass on the host) and read back: the codes bitwise
     ``encode``'s, and ``decode`` of them bitwise ``decode`` of the encoded
     codes, with 12 K1 launches a call.  The CLI runs as a user runs it, in
-    a subprocess on the card (``encode --entropy``, then ``decode``): its
-    file is the in-process version 3 file and its wav within 1e-6 of the
+    subprocesses on the card beside that work (``encode --entropy``, then
+    ``decode``): its file is the in-process version 3 file and its wav within 1e-6 of the
     in-process decode written the same way.  The version 3 payload of the
     golden codes has the SHA-256 that ``tests/test_torch_entropy.py``
     asserts on the CPU (the same bytes on both machines) and a size within
@@ -216,9 +216,10 @@ Phases, each printing one JSON line with its seconds:
     card against the CPU at B = 2 (<= 1e-4 relative); 3 steps, D unchanged
     at step 0 and changed at step 1, every loss finite; one fine-tuning
     step on the trained BVRNN's ``decode_to_mel`` of the same crops.  Both
-    trainer CLIs in subprocesses on the card at the same time, 2 steps then
-    a resume to 4.  Printed: the card-against-CPU gaps and ms a step of
-    each mode beside ``nvidia-smi``'s line.
+    trainer CLIs in subprocesses on the card at the same time, 2 steps, then
+    each resumed to 4 through its ``main`` in this process.  Printed: the
+    card-against-CPU gaps and ms a step of each mode beside ``nvidia-smi``'s
+    line.
 
 14. ``parallel``: ``bvsc_tpu_torch.parallel`` with two ranks sharing the
     one card over gloo (NCCL refuses two ranks on one card), spawned by
@@ -245,6 +246,33 @@ Phases, each printing one JSON line with its seconds:
     ``nvidia-smi``'s line: ms per TP frame and per SP call next to one
     device's, labelled as two ranks on one card (no scaling claim).
 
+15. ``eval``: the eval metrics (``bvsc_tpu_torch.eval``) and the synthesis,
+    evaluation and daemon CLIs on the card, on the trained pair and the demo
+    utterance (as a one-stimulus layout ``stim_15/ref.wav`` in a temporary
+    directory removed at the end).  ``cli.evaluate_codec`` in this process
+    at 1 378 and 5 512 bps with 10 % seeded losses and entropy coding: 12
+    K1 launches (float32) a vocoding call, two a row; each row's mel-L1 and
+    MRSTFT within 1e-5 relative and MCD within 1e-2 dB of the metrics
+    recomputed on the CPU from the waveforms the CLI scored (STOI and PESQ,
+    host numpy on both sides, printed); the summary printed.
+    ``cli.dump_finetune_mels`` at 3 kbps: its ``.npy`` bitwise
+    ``decode_to_mel(encode(x))`` of the parity codec.
+    ``cli.synthesize`` with the trained vocoder's ``.npz``, in wav mode and on
+    that ``.npy``: one file each, 12 K1 launches a file, each written float
+    waveform within 1e-4 of the plain generator on the same mel (the
+    generator's output scale).  ``cli.select_vocoder_ckpt`` on the trained and
+    a seeded vocoder: the trained one first, 12 launches a candidate.  In
+    subprocesses meanwhile: ``python -m bvsc_tpu_torch.cli.serve_daemon``
+    (trained pair, 8 slots, fast serving by default: K1-bf16) serves a port
+    ``CodecClient`` resynthesising the demo cut to whole hops (finite, of the
+    sent length, within 7e-2 of an 8-slot ``ServingEngine`` of the fast
+    codec in this process on the same input, bitwise printed) and exits 0
+    on SIGTERM with its "served" line: a serving tick a frame, 12 K1-bf16
+    launches a tick, no float32 one (seconds to its serving line printed);
+    ``cli.train_vocoder --fine_tuning --evaluate`` on the dumped
+    mel prints finite STOI and PESQ.  Printed, no gate: the host ms a clip of
+    STOI, PESQ-WB and MCD.  Every process is stopped before the phase ends.
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -252,10 +280,14 @@ and no ``ok`` line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
+import re
+import signal
 import struct
 import subprocess
 import sys
@@ -273,12 +305,17 @@ from bvsc_tpu_torch.benchmarks import (chain_steps, cold_ms, cuda_ms, graph_ms, 
                                         seeded_vocoder)
 from bvsc_tpu_torch.benchmarks import probe_persistent_gru as probe_gru
 from bvsc_tpu_torch.benchmarks import probe_roofline as probe_roof
-from bvsc_tpu_torch.cli import codec_cli, export_bvrnn_npz, train_bvrnn, train_vocoder
+from bvsc_tpu_torch.cli import (codec_cli, dump_finetune_mels, export_bvrnn_npz, train_bvrnn,
+                                train_vocoder)
+from bvsc_tpu_torch.cli import evaluate_codec as EVC
+from bvsc_tpu_torch.cli import select_vocoder_ckpt as SEL
+from bvsc_tpu_torch.cli import synthesize as SY
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, _generator_impl
-from bvsc_tpu_torch.convert import load_bvrnn_npz
-from bvsc_tpu_torch.data.audio import load_wav, save_wav
+from bvsc_tpu_torch.convert import flatten_tree, load_bvrnn_npz
+from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
 from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
 from bvsc_tpu_torch.device import set_parity_mode
+from bvsc_tpu_torch.eval import metrics as EM
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops import _build, _cc, bitpack, rans
@@ -982,14 +1019,23 @@ def rans_rates() -> dict:
     return out
 
 
-def run_cli(*args: str) -> str:
-    """``python -m bvsc_tpu_torch.cli.codec_cli`` on the card, as a user runs it."""
-    proc = subprocess.run([sys.executable, "-m", "bvsc_tpu_torch.cli.codec_cli", *args,
-                           "--bvrnn_checkpoint", NPZ, "--vocoder_checkpoint", VOC_NPZ],
-                          capture_output=True, text=True, timeout=300, cwd=REPO)
+def start_cli(*args: str) -> subprocess.Popen:
+    """``python -m bvsc_tpu_torch.cli.codec_cli`` on the card, as a user runs
+    it, in the background; ``cli_stdout`` waits for it."""
+    return subprocess.Popen([sys.executable, "-m", "bvsc_tpu_torch.cli.codec_cli", *args,
+                             "--bvrnn_checkpoint", NPZ, "--vocoder_checkpoint", VOC_NPZ],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+
+
+def cli_stdout(proc: subprocess.Popen, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     if proc.returncode != 0:
-        raise AssertionError(f"codec_cli {args[0]} failed ({proc.returncode}): {proc.stderr}")
-    return proc.stdout.strip()
+        raise AssertionError(f"codec_cli {what} failed ({proc.returncode}): {err}")
+    return out.strip()
 
 
 def entropy_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
@@ -1005,72 +1051,84 @@ def entropy_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
     n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
     schedules = {"3kbps": float(BITRATE),
                  "vbr": np.asarray(ENTROPY_VBR)[np.minimum(np.arange(n) * 3 // n, 2)]}
-    files, report = {}, {}
+    files, report, procs = {}, {}, []
     with tempfile.TemporaryDirectory(dir=_cc.BUILD_DIR) as tmp:  # inside the checkout
-        for name, bitrate in schedules.items():
-            codes = codec.encode(x, bitrate)
-            codes_np = codes[0].cpu().numpy()
-            bits = codec.bits_per_frame(bitrate)
-            y_enc = codec.decode(codes, L)
-            r = {"frames": codes_np.shape[0], "raw_bits": int(np.sum(np.ceil(
-                np.broadcast_to(bits, (codes_np.shape[0],)))))}
-            for version, c in (("v1", None), ("v3", coder)):
-                path = os.path.join(tmp, f"{name}_{version}.bvsc")
-                t = time.perf_counter()
-                codec_cli.write_bvsc(path, codes_np, bits, fs, coder=c)
-                t_write = time.perf_counter() - t
-                t = time.perf_counter()
-                got, got_bits, _ = codec_cli.read_bvsc(path, lambda: coder)
-                t_read = time.perf_counter() - t
-                AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
-                y_read = codec.decode(torch.from_numpy(got)[None].to(DEV), L)
-                launches = k1_launches()
-                files[(name, version)] = open(path, "rb").read()
-                r[version] = {"bytes": os.path.getsize(path),
-                              "codes_bitwise": bool(np.array_equal(got, codes_np)),
-                              "bits_equal": bool(np.array_equal(got_bits, bits)),
-                              "decode_bitwise": bool(torch.equal(y_read, y_enc)),
-                              "launches": launches,
-                              "write_ms_per_frame": t_write * 1e3 / codes_np.shape[0],
-                              "read_ms_per_frame": t_read * 1e3 / codes_np.shape[0]}
-                for key in ("codes_bitwise", "bits_equal", "decode_bitwise"):
-                    gates.append((f"{name} {version} {key}", r[version][key]))
-                gates.append((f"{name} {version}: decode launches {launches}",
-                              launches == {"f32": n_blocks, "bf16": 0}))
-            report[name] = r
+        try:
+            # the CLI as a user runs it, encode --entropy then decode, in
+            # processes of their own beside this one's files
+            t1 = time.time()
+            cli_file, cli_wav, ref_wav = (os.path.join(tmp, f) for f in
+                                          ("cli.bvsc", "cli.wav", "ref.wav"))
+            procs.append(start_cli("encode", WAV, cli_file, "--bitrate", str(BITRATE),
+                                   "--entropy"))
+            for name, bitrate in schedules.items():
+                codes = codec.encode(x, bitrate)
+                codes_np = codes[0].cpu().numpy()
+                bits = codec.bits_per_frame(bitrate)
+                y_enc = codec.decode(codes, L)
+                r = {"frames": codes_np.shape[0], "raw_bits": int(np.sum(np.ceil(
+                    np.broadcast_to(bits, (codes_np.shape[0],)))))}
+                for version, c in (("v1", None), ("v3", coder)):
+                    path = os.path.join(tmp, f"{name}_{version}.bvsc")
+                    t = time.perf_counter()
+                    codec_cli.write_bvsc(path, codes_np, bits, fs, coder=c)
+                    t_write = time.perf_counter() - t
+                    t = time.perf_counter()
+                    got, got_bits, _ = codec_cli.read_bvsc(path, lambda: coder)
+                    t_read = time.perf_counter() - t
+                    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+                    y_read = codec.decode(torch.from_numpy(got)[None].to(DEV), L)
+                    launches = k1_launches()
+                    files[(name, version)] = open(path, "rb").read()
+                    r[version] = {"bytes": os.path.getsize(path),
+                                  "codes_bitwise": bool(np.array_equal(got, codes_np)),
+                                  "bits_equal": bool(np.array_equal(got_bits, bits)),
+                                  "decode_bitwise": bool(torch.equal(y_read, y_enc)),
+                                  "launches": launches,
+                                  "write_ms_per_frame": t_write * 1e3 / codes_np.shape[0],
+                                  "read_ms_per_frame": t_read * 1e3 / codes_np.shape[0]}
+                    for key in ("codes_bitwise", "bits_equal", "decode_bitwise"):
+                        gates.append((f"{name} {version} {key}", r[version][key]))
+                    gates.append((f"{name} {version}: decode launches {launches}",
+                                  launches == {"f32": n_blocks, "bf16": 0}))
+                report[name] = r
+            cli_out = [cli_stdout(procs[0], "encode")]
+            procs.append(start_cli("decode", cli_file, cli_wav))
 
-        # the CLI as a user runs it: encode --entropy, then decode
-        t1 = time.time()
-        cli_file, cli_wav, ref_wav = (os.path.join(tmp, f) for f in
-                                      ("cli.bvsc", "cli.wav", "ref.wav"))
-        cli_out = [run_cli("encode", WAV, cli_file, "--bitrate", str(BITRATE), "--entropy"),
-                   run_cli("decode", cli_file, cli_wav)]
-        got, _, _ = codec_cli.read_bvsc(cli_file, lambda: coder)
-        save_wav(codec.decode(torch.from_numpy(got)[None].to(DEV), got.shape[0] * hop)[0]
-                 .cpu().numpy(), ref_wav, fs)
-        (a, fs_a), (b, fs_b) = load_wav(cli_wav), load_wav(ref_wav)
-        cli = {"seconds": time.time() - t1, "stdout": cli_out,
-               "file_bitwise": open(cli_file, "rb").read() == files[("3kbps", "v3")],
-               "wav_gap": float(np.abs(a - b).max()) if a.shape == b.shape else None,
-               "samples": a.shape[0], "fs": [fs_a, fs_b]}
+            # the golden codes: cross-machine determinism and the size against
+            # bvsc_tpu's
+            with np.load(GOLDEN) as z:
+                gold = z["codes"].astype(np.float32) / 2
+            t = time.perf_counter()
+            payload = coder.encode(gold, codec.conf.bits_per_frame(BITRATE))
+            golden = {"bytes": len(payload), "bvsc_tpu_v2_bytes": GOLDEN_V2_BYTES,
+                      "sha256": hashlib.sha256(payload).hexdigest(),
+                      "encode_ms_per_frame": (time.perf_counter() - t) * 1e3 / gold.shape[0]}
+            rates = rans_rates()
+
+            cli_out.append(cli_stdout(procs[1], "decode"))
+            got, _, _ = codec_cli.read_bvsc(cli_file, lambda: coder)
+            save_wav(codec.decode(torch.from_numpy(got)[None].to(DEV), got.shape[0] * hop)[0]
+                     .cpu().numpy(), ref_wav, fs)
+            (a, fs_a), (b, fs_b) = load_wav(cli_wav), load_wav(ref_wav)
+            cli = {"seconds": time.time() - t1, "stdout": cli_out,
+                   "file_bitwise": open(cli_file, "rb").read() == files[("3kbps", "v3")],
+                   "wav_gap": float(np.abs(a - b).max()) if a.shape == b.shape else None,
+                   "samples": a.shape[0], "fs": [fs_a, fs_b]}
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     gates.append(("the CLI's file is the in-process v3 file", cli["file_bitwise"]))
     gates.append((f"the CLI's wav against the in-process decode ({cli['wav_gap']})",
                   cli["wav_gap"] is not None and cli["wav_gap"] <= CLI_WAV_TOL))
 
-    # the golden codes: cross-machine determinism and the size against bvsc_tpu's
-    with np.load(GOLDEN) as z:
-        gold = z["codes"].astype(np.float32) / 2
-    t = time.perf_counter()
-    payload = coder.encode(gold, codec.conf.bits_per_frame(BITRATE))
-    golden = {"bytes": len(payload), "bvsc_tpu_v2_bytes": GOLDEN_V2_BYTES,
-              "sha256": hashlib.sha256(payload).hexdigest(),
-              "encode_ms_per_frame": (time.perf_counter() - t) * 1e3 / gold.shape[0]}
     gates.append((f"golden payload sha256 {golden['sha256']}",
                   golden["sha256"] == GOLDEN_V3_SHA256))
     gates.append((f"golden payload {len(payload)} B within {ENTROPY_SIZE_RTOL} of "
                   f"{GOLDEN_V2_BYTES}",
                   abs(len(payload) - GOLDEN_V2_BYTES) <= ENTROPY_SIZE_RTOL * GOLDEN_V2_BYTES))
-    rates = rans_rates()
     gates += [(f"rANS {path} round trip", r["roundtrip"]) for path, r in rates.items()]
     failed = [what for what, ok in gates if not ok]
     emit("entropy", t0, samples=L, frames=n, nvidia_smi=smi, files=report, cli=cli,
@@ -1518,10 +1576,10 @@ def decode_engine_run(codec: BVRNNCodecModel, codes: np.ndarray, lost, eng=None)
     return np.stack([np.concatenate([r[sid] for r in res]) for sid in sids]), len(steps), launches
 
 
-def solo_serve(codec: BVRNNCodecModel, x: np.ndarray, bitrate: float):
-    """A direct ``ServingEngine(max_streams=128)`` run of one stream, flushed
-    as the daemon's CLOSE flushes: (codes (T, z), waveform)."""
-    eng = ServingEngine(codec, max_streams=SERVE_SLOTS)
+def solo_serve(codec: BVRNNCodecModel, x: np.ndarray, bitrate: float, slots: int = SERVE_SLOTS):
+    """A direct ``ServingEngine(max_streams=slots)`` run of one stream,
+    flushed as the daemon's CLOSE flushes: (codes (T, z), waveform)."""
+    eng = ServingEngine(codec, max_streams=slots)
     sid = eng.open_stream(bitrate)
     eng.push(sid, x)
     eng.begin_flush(sid)
@@ -2464,9 +2522,10 @@ def train_gan_card_vs_cpu(conf, corpus: AudioSegmentDataset, gates: list) -> dic
 
 
 class TrainCLIs:
-    """Both trainer CLIs on the card in subprocesses at the same time, each
-    into its own run directory, output to a log file: ``start(steps)``,
-    then ``finish(gates)``."""
+    """Both trainer CLIs on the card, each into its own run directory: in
+    subprocesses at the same time, output to a log file (``start(steps)``,
+    then ``finish(gates)``), and resumed in this process through their
+    ``main`` (``resume(steps, gates)``: no process start to wait for)."""
 
     def __init__(self, filelist: str, wavs: str, tmp: str):
         self.tmp = tmp
@@ -2500,10 +2559,23 @@ class TrainCLIs:
             self.report[f"{m}_{self.steps}"] = {"rc": proc.returncode,
                                                 "tail": out.strip().splitlines()[-3:]}
             gates.append((f"{m} to step {self.steps} (rc {proc.returncode})",
-                          proc.returncode == 0 and f"done at step {self.steps}" in out
-                          and (self.steps == 2 or "resumed from step 2" in out)))
+                          proc.returncode == 0 and f"done at step {self.steps}" in out))
         self.report[f"seconds_{self.steps}"] = time.time() - self.t0
         self.procs = {}
+
+    def resume(self, steps: int, gates: list) -> None:
+        t0 = time.time()
+        for m, mod in (("train_bvrnn", train_bvrnn), ("train_vocoder", train_vocoder)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                mod.main([*self.args[m], "--checkpoint_path", os.path.join(self.tmp, m),
+                          "--max_steps", str(steps)])
+            out = out.getvalue()
+            self.report[f"{m}_{steps}"] = {"in_process": True,
+                                           "tail": out.strip().splitlines()[-3:]}
+            gates.append((f"{m} resumed to step {steps} in this process",
+                          f"done at step {steps}" in out and "resumed from step 2" in out))
+        self.report[f"seconds_{steps}"] = time.time() - t0
 
     def close(self) -> None:
         """Stop whatever still runs (after a failure elsewhere)."""
@@ -2548,8 +2620,7 @@ def train_phase(wav: np.ndarray, smi: str) -> None:
             report["gan"]["card_vs_cpu"] = train_gan_card_vs_cpu(conf, corpus, gates)
             report["gan"]["card_vs_cpu_seconds"] = time.time() - t
             clis.finish(gates)
-            clis.start(4)
-            clis.finish(gates)
+            clis.resume(4, gates)
         finally:
             clis.close()
         report["cli"] = clis.report
@@ -3011,6 +3082,306 @@ def gru_checks(name: str, w, rest, dequant: bool) -> dict:
     return out
 
 
+EVAL_BITRATES = ("1378", "5512")  # the paper's two operating points, bps
+EVAL_LOSS_RATE = "0.1"
+EVAL_METRIC_RTOL = 1e-5  # mel-L1 and MRSTFT on the card against the CPU, same waveforms
+EVAL_MCD_TOL = 1e-2  # dB: MCD on the card's log-mel against the CPU's
+EVAL_SYNTH_TOL = 1e-4  # synthesize's K1 waveform against the plain generator (its output scale)
+EVAL_DAEMON_SLOTS = 8
+EVAL_PROCESS_TIMEOUT = 300  # seconds a CLI process of the phase may take
+
+
+def eval_layout(tmp: str) -> dict:
+    """The demo utterance as a one-stimulus MUSHRA layout
+    (``stimuli/stim_15/ref.wav``), its filelist, and a seeded vocoder as a
+    second selection candidate."""
+    stim = os.path.join(tmp, "stimuli", "stim_15")
+    os.makedirs(stim)
+    ref = os.path.join(stim, "ref.wav")
+    with open(WAV, "rb") as src, open(ref, "wb") as dst:
+        dst.write(src.read())
+    filelist = os.path.join(tmp, "demo.txt")
+    with open(filelist, "w") as f:
+        f.write("ref\n")
+    seeded = os.path.join(tmp, "seeded_vocoder.npz")
+    np.savez(seeded, **flatten_tree(seeded_vocoder(load_config(DEFAULT_CONFIG).vocoder_config,
+                                                   SEED)))
+    return {"stimuli": os.path.dirname(stim), "stim": stim, "ref": ref, "filelist": filelist,
+            "seeded": seeded}
+
+
+def eval_process(tmp: str, name: str, *args: str) -> tuple[subprocess.Popen, str]:
+    """``python -m bvsc_tpu_torch.cli.<name>`` on the card, its stderr (and,
+    but for the daemon, its stdout) to a log file."""
+    log = os.path.join(tmp, f"{name}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", f"bvsc_tpu_torch.cli.{name}", *args],
+                                cwd=REPO, stdout=subprocess.PIPE if name == "serve_daemon" else f,
+                                stderr=f, text=True)
+    return proc, log
+
+
+def serving_line(proc: subprocess.Popen, timeout: float) -> str:
+    """The daemon CLI's first stdout line, or "" if it did not come in time."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    return proc.stdout.readline() if ready else ""
+
+
+def eval_metrics_vs_cpu(captured: list, rows: list, gates: list) -> dict:
+    """Each row's metrics, recomputed on the CPU from the waveforms
+    ``evaluate_codec.score`` was given.  STOI and PESQ are host numpy on
+    both sides, so their gaps are printed, not gated."""
+    cpu = EM.frontend_for(load_config(DEFAULT_CONFIG), "cpu")
+    worst = {"mel_l1": 0.0, "mrstft": 0.0, "mcd_db": 0.0, "stoi": 0.0, "pesq_wb": 0.0}
+    for (x, y), row in zip(captured, rows):
+        got = {"mel_l1": EM.mel_l1(cpu, x[None], y[None]), "mrstft": EM.mrstft(y[None], x[None]),
+               "mcd_db": EM.mcd(cpu, x, y), "stoi": EM.stoi(x, y), "pesq_wb": EM.pesq_wb_16k(x, y)}
+        for k in ("mel_l1", "mrstft"):
+            worst[k] = max(worst[k], abs(row[k] - got[k]) / abs(got[k]))
+        for k in ("mcd_db", "stoi", "pesq_wb"):
+            worst[k] = max(worst[k], abs(row[k] - got[k]))
+    gates += [(f"{k} card vs CPU relative {worst[k]} <= {EVAL_METRIC_RTOL}",
+               worst[k] <= EVAL_METRIC_RTOL) for k in ("mel_l1", "mrstft")]
+    gates += [(f"mcd_db card vs CPU {worst['mcd_db']} <= {EVAL_MCD_TOL} dB",
+               worst["mcd_db"] <= EVAL_MCD_TOL),
+              (f"{len(captured)} waveforms scored for {len(rows)} rows", len(captured) == len(rows))]
+    return worst
+
+
+def metric_host_ms(x: np.ndarray, y: np.ndarray) -> dict:
+    """Host ms of one clip's STOI, PESQ-WB at 16 kHz and MCD (the card's
+    frontend, the DCT on the host)."""
+    card = EM.frontend_for(load_config(DEFAULT_CONFIG), DEV)
+    out = {}
+    for name, fn in (("stoi", lambda: EM.stoi(x, y)), ("pesq_wb_16k", lambda: EM.pesq_wb_16k(x, y)),
+                     ("mcd", lambda: EM.mcd(card, x, y))):
+        t = time.perf_counter()
+        fn()
+        out[name] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def eval_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
+    """The eval metrics and the synthesis, evaluation and daemon CLIs on the
+    card, on the trained pair and the demo utterance; see the module
+    docstring.  The numbers are printed before any gate is applied."""
+    t0 = time.time()
+    gates, report = [], {"nvidia_smi": smi}
+    conf = codec.conf
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="bvsc-eval-") as tmp:
+        try:
+            lay = eval_layout(tmp)
+            daemon, daemon_log = eval_process(
+                tmp, "serve_daemon", "--bvrnn", NPZ, "--vocoder", VOC_NPZ, "--port", "0",
+                "--max_streams", str(EVAL_DAEMON_SLOTS))
+            procs.append(daemon)
+            daemon_t0 = time.time()
+
+            # dump_finetune_mels: bitwise the in-process decode of the encode
+            before = k1_launches()
+            dump_finetune_mels.main(["--bvrnn_checkpoint", NPZ, "--input_wavs_dir", lay["stim"],
+                                     "--input_training_file", lay["filelist"], "--output_dir",
+                                     os.path.join(tmp, "mels"), "--bitrate", str(BITRATE)])
+            report["dump_launches"] = {k: v - before[k] for k, v in k1_launches().items()}
+            mel = np.load(os.path.join(tmp, "mels", "ref.npy"))
+            x_raw = load_wav(WAV, conf.fs)[0]
+            want = codec.decode_to_mel(codec.encode(x_raw, BITRATE)).cpu().numpy()
+            report["dump_shape"] = list(mel.shape)
+            gates.append(("dump_finetune_mels bitwise decode_to_mel(encode(x))",
+                          mel.dtype == np.float32 and np.array_equal(mel, want)))
+
+            trainer, trainer_log = eval_process(
+                tmp, "train_vocoder", "--config", DEFAULT_CONFIG, "--input_wavs_dir", lay["stim"],
+                "--input_training_file", lay["filelist"], "--input_validation_file",
+                lay["filelist"], "--input_mels_dir", os.path.join(tmp, "mels"), "--fine_tuning",
+                "--evaluate", "--init_generator", VOC_NPZ, "--checkpoint_path",
+                os.path.join(tmp, "voc"))
+            procs.append(trainer)
+
+            # evaluate_codec in this process, the waveforms of each row kept
+            captured, score = [], EVC.score
+
+            def keep(frontend, x, y):
+                captured.append((x.copy(), y.cpu().numpy()))
+                return score(frontend, x, y)
+
+            EVC.score = keep
+            try:
+                before = k1_launches()
+                t = time.time()
+                ev = EVC.main(["--stimuli_dir", lay["stimuli"], "--bvrnn_checkpoint", NPZ,
+                               "--vocoder_checkpoint", VOC_NPZ, "--bitrates", *EVAL_BITRATES,
+                               "--loss_rate", EVAL_LOSS_RATE, "--entropy", "--out_json",
+                               os.path.join(tmp, "eval.json")])
+                report["evaluate_seconds"] = time.time() - t
+            finally:
+                EVC.score = score
+            launched = {k: v - before[k] for k, v in k1_launches().items()}
+            vocodings = 2 * len(ev["rows"])  # a resynthesis and a concealed decode a row
+            report["evaluate"] = {"summary": ev["summary"], "launches": launched,
+                                  "vocoding_calls": vocodings}
+            gates.append((f"evaluate_codec K1 launches {launched} == 12 x {vocodings}",
+                          launched == {"f32": 12 * vocodings, "bf16": 0}))
+            t = time.time()
+            report["evaluate_vs_cpu"] = eval_metrics_vs_cpu(captured, ev["rows"], gates)
+            report["evaluate_vs_cpu_seconds"] = time.time() - t
+            report["metric_host_ms"] = metric_host_ms(*captured[0])
+
+            # synthesize: wav -> mel -> wav and the dumped .npy -> wav, on K1
+            report["synthesize"] = synthesize_checks(codec, lay, tmp, gates)
+
+            # select_vocoder_ckpt: the trained vocoder before a seeded one
+            before = k1_launches()
+            ranked = SEL.main(["--bvrnn_checkpoint", NPZ, "--candidates", lay["seeded"], VOC_NPZ,
+                               "--stimuli", lay["ref"]])
+            launched = {k: v - before[k] for k, v in k1_launches().items()}
+            report["select"] = {"ranked": [(l1, os.path.basename(p)) for l1, p in ranked],
+                                "launches": launched}
+            gates += [("select_vocoder_ckpt ranks the trained vocoder first",
+                       ranked[0][1] == VOC_NPZ),
+                      (f"select_vocoder_ckpt K1 launches {launched} == 12 x 2",
+                       launched == {"f32": 24, "bf16": 0})]
+
+            report["daemon"] = daemon_checks(codec, daemon, daemon_log, daemon_t0, wav[0], gates)
+            report["train_vocoder"] = train_vocoder_eval(trainer, trainer_log, gates)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                if proc.stdout is not None:
+                    proc.stdout.close()
+    set_parity_mode()
+    failed = [what for what, ok in gates if not ok]
+    emit("eval", t0, **report, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"eval: {len(failed)} gates failed: {failed}")
+
+
+def synthesize_checks(codec: BVRNNCodecModel, lay: dict, tmp: str, gates: list) -> dict:
+    """``synthesize.main`` in wav mode and in ``.npy`` mode on the dumped
+    mel: 12 K1 launches a file, and each float waveform it writes against
+    the plain generator on the same mel on the card."""
+    vcfg = codec.conf.vocoder_config
+    out = {}
+    for mode, src, suffix in (("wavs", lay["stim"], "_generated.wav"),
+                              ("mels", os.path.join(tmp, "mels"), "_generated_e2e.wav")):
+        written, write = [], SY._write
+
+        def keep(args, path, sfx, w, fs):
+            written.append(w)
+            return write(args, path, sfx, w, fs)
+
+        SY._write = keep
+        try:
+            before = k1_launches()
+            paths = SY.main([f"--input_{mode}_dir", src, "--output_dir",
+                             os.path.join(tmp, f"synth_{mode}"), "--checkpoint_file", VOC_NPZ,
+                             "--config", DEFAULT_CONFIG])
+            launched = {k: v - before[k] for k, v in k1_launches().items()}
+        finally:
+            SY._write = write
+        with torch.no_grad():
+            if mode == "wavs":
+                x = load_wav(lay["ref"], codec.conf.fs)[0]
+                x = torch.as_tensor(peak_normalize(x) * 0.95, device=DEV)
+                mel = codec.frontend(x[None] * SCALING)
+                plain = voc_mod.generator_apply(codec.vocoder_params, vcfg, mel, x.shape[0])
+                plain = plain[0, 0].cpu().numpy() / SCALING
+                scale = SCALING
+            else:
+                mel = torch.as_tensor(np.load(os.path.join(src, "ref.npy"))[None], device=DEV)
+                plain, scale = voc_mod.generator_apply(codec.vocoder_params, vcfg, mel)[0, 0], 1.0
+                plain = plain.cpu().numpy()
+        err = float(np.abs(written[0] - plain).max() * scale)
+        out[mode] = {"files": [os.path.basename(p) for p in paths], "launches": launched,
+                     "samples": int(written[0].shape[0]), "kernel_vs_plain": err}
+        gates += [(f"synthesize {mode}: one file ending {suffix}",
+                   len(paths) == 1 and paths[0].endswith(suffix)),
+                  (f"synthesize {mode} K1 launches {launched} == 12", launched == {"f32": 12,
+                                                                                   "bf16": 0}),
+                  (f"synthesize {mode} kernel vs plain generator {err} <= {EVAL_SYNTH_TOL}",
+                   err <= EVAL_SYNTH_TOL)]
+    return out
+
+
+def daemon_checks(codec: BVRNNCodecModel, proc: subprocess.Popen, log: str, t0: float,
+                  speech: np.ndarray, gates: list) -> dict:
+    """The daemon CLI's subprocess: its "serving on" line, one resynthesis
+    client on the demo cut to whole hops (a stream's output ends with its
+    last whole frame, as the one-shot frame count does), then SIGTERM, its
+    exit code and its "served" line: a serving tick a frame, 12 K1-bf16
+    launches a tick and no float32 one, counted in the daemon's process
+    from its serving line on.  The audio is held against an
+    ``EVAL_DAEMON_SLOTS``-slot engine of the fast codec in this process on
+    the same input."""
+    from bvsc_tpu_torch.serve.client import CodecClient
+
+    hop = codec.conf.hopsize
+    speech = speech[: speech.shape[0] // hop * hop]
+
+    line = serving_line(proc, EVAL_PROCESS_TIMEOUT)
+    out = {"line": line.strip(), "seconds_to_serving": time.time() - t0}
+    if not line.startswith("BVSP/1 serving on "):
+        gates.append((f"serve_daemon printed its serving line (log: "
+                      f"{open(log).read()[-2000:]})", False))
+        return out
+    port = int(line.split()[3].rsplit(":", 1)[1])
+    t = time.time()
+    with CodecClient("127.0.0.1", port, mode="resynth", bitrate=BITRATE, timeout=120) as c:
+        c.send_audio(speech)
+        c.close_input()
+        audio = c.drain()["audio"]
+    out["resynth_seconds"] = time.time() - t
+    out["resynth_samples"] = int(audio.shape[0])
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out["rc"] = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        out["rc"] = None
+    served = [ln for ln in proc.stdout.read().splitlines() if ln.startswith("BVSP/1 served ")]
+    out["served"] = json.loads(served[0][len("BVSP/1 served "):]) if served else None
+    frames = speech.shape[0] // hop
+    want = {"ticks": {"serve": frames, "decode": 0},
+            "k1_launches": {"float32": 0, "bf16": 12 * frames}}
+
+    fast = BVRNNCodecModel(config=codec.conf, bvrnn_params=codec.bvrnn_params,
+                           vocoder_params=codec.vocoder_params, precision="default", device=DEV)
+    _, ref = solo_serve(fast, speech, BITRATE, EVAL_DAEMON_SLOTS)
+    same = audio.shape == ref.shape
+    out["gap_vs_engine"] = float(np.abs(audio - ref).max()) if same else None
+    out["bitwise_vs_engine"] = same and bool(np.array_equal(audio, ref))
+    gates += [(f"serve_daemon {EVAL_DAEMON_SLOTS} slots", f"({EVAL_DAEMON_SLOTS} stream slots"
+               in line),
+              (f"daemon resynthesis {audio.shape} of {speech.shape}, finite",
+               audio.shape == speech.shape and bool(np.isfinite(audio).all())),
+              (f"daemon audio against the in-process fast engine {out['gap_vs_engine']} <= "
+               f"{STREAM_FAST_TOL}", same and out["gap_vs_engine"] <= STREAM_FAST_TOL),
+              (f"serve_daemon exit code on SIGTERM {out['rc']} == 0", out["rc"] == 0),
+              (f"serve_daemon served {out['served']} == {want}", out["served"] == want)]
+    return out
+
+
+def train_vocoder_eval(proc: subprocess.Popen, log: str, gates: list) -> dict:
+    """``cli.train_vocoder --fine_tuning --evaluate``: its validation line
+    with finite STOI and PESQ."""
+    try:
+        rc = proc.wait(timeout=EVAL_PROCESS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    text = open(log).read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("validation @")]
+    values = dict(re.findall(r"(\w+)=(-?[\d.]+|nan|inf)", lines[0])) if lines else {}
+    out = {"rc": rc, "line": lines[0] if lines else text[-2000:]}
+    gates.append((f"train_vocoder --fine_tuning --evaluate (rc {rc}) printed finite stoi and "
+                  f"pesq", rc == 0 and all(k in values and np.isfinite(float(values[k]))
+                                           for k in ("stoi", "pesq"))))
+    return out
+
+
 def probes_phase() -> list[dict]:
     """Both probes through their entry points, with the three kernels'
     launch counts read around them; then each kernel against its plain
@@ -3204,6 +3575,7 @@ def main() -> None:
         bundle = export_phase(codec, fast, wav, smi, keep)
         train_phase(wav, smi)
         parallel_phase(codec, wav, smi, bundle)
+    eval_phase(codec, wav, smi)
     probe_entries = probes_phase()
 
     def k1_entry(name, source, replaces, n, tot):
