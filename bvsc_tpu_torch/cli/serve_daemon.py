@@ -16,9 +16,11 @@ It serves a live ``BVRNNCodecModel`` (fast serving, K1-bf16, by default;
 ``--device cpu``.  Once the engines are built and have run their first tick
 it prints ``BVSP/1 serving on host:port (...)``; SIGTERM closes the daemon,
 prints what it served since that line as ``BVSP/1 served {...}`` (one JSON
-object: the ticks of each engine that advanced a stream, and the K1
-kernels' launches, ``float32`` and ``bf16``, which stay 0 on the CPU) and
-exits 0.  Clients: ``bvsc_tpu_torch.serve.client.CodecClient``.
+object: the ticks of each engine that advanced a stream, the K1 kernels'
+launches, ``float32`` and ``bf16``, which stay 0 on the CPU and on the
+direct path, and the process's TF32 flags, ``matmul`` and ``cudnn``, which
+the codec's convolutions do not depend on: ``ops.conv`` pins cuDNN's TF32
+off for each float32 call) and exits 0.  Clients: ``bvsc_tpu_torch.serve.client.CodecClient``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import argparse
 import json
 import signal
 import threading
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,8 +108,9 @@ def main(argv=None) -> None:
         daemon.close()
     print("BVSP/1 served " + json.dumps({
         "ticks": daemon.ticks,
-        "k1_launches": {"float32": amp_resblock.launches, "bf16": amp_resblock.launches_bf16}}),
-        flush=True)
+        "k1_launches": {"float32": amp_resblock.launches, "bf16": amp_resblock.launches_bf16},
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32}}), flush=True)
 
 
 if __name__ == "__main__":

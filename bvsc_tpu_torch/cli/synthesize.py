@@ -13,7 +13,9 @@ the checkpoint is used (reference ``inference.py:83``), else
 ``configs/varbitrate.toml``; a JSON is a BigVGAN-style vocoder config.  The
 generator runs on the first CUDA card with its residual stacks through the
 K1 kernel (12 launches a file), float32 with TF32 off, unless ``--device
-cpu``, where it runs the plain stack.  wav mode scales the peak-normalised
+cpu``, where it runs the plain stack; a config the kernel does not cover
+(a vocoder variant, or a dilation count other than three) runs the direct
+path (``models.vocoder.generator_apply``).  wav mode scales the peak-normalised
 input by the codec's -10 dB before the mel and divides the output by it;
 ``.npy`` mels (``cli.dump_finetune_mels``) are in that domain already and
 their output is written as it comes.
@@ -38,6 +40,7 @@ from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.eval.metrics import frontend_for
 from bvsc_tpu_torch.models import vocoder as voc_mod
+from bvsc_tpu_torch.ops.amp_resblock import supported
 from bvsc_tpu_torch.ops.mel import MelFrontend
 
 
@@ -129,12 +132,20 @@ def main(argv=None) -> list[str]:
         print(f"using config {config_path}")
     vcfg, fs, frontend = load_vocoder_config(config_path, device)
     params = to_torch(load_vocoder(args.checkpoint_file), device)
-    blocks = voc_mod.prepare_kernel_params(params, vcfg)
+    # the kernels where they cover the config (the codec's default), else
+    # the direct path
+    if supported(vcfg):
+        blocks = voc_mod.prepare_kernel_params(params, vcfg)
+    else:
+        params, blocks = voc_mod.prepare_direct_params(params, vcfg), None
     os.makedirs(args.output_dir, exist_ok=True)
 
     def vocode(mel: torch.Tensor, length: int | None) -> np.ndarray:
         with torch.no_grad():
-            y = voc_mod.generator_apply_kernel(params, blocks, vcfg, mel, length)
+            if blocks is None:
+                y = voc_mod.generator_apply(params, vcfg, mel, length)
+            else:
+                y = voc_mod.generator_apply_kernel(params, blocks, vcfg, mel, length)
         return y[0, 0].cpu().numpy()
 
     written = []

@@ -1,17 +1,34 @@
 """The codec's public API in PyTorch: ``BVRNNCodecModel``.
 
 Port of ``bvsc_tpu/codec.py``: mel frontend -> BVRNN encode scan -> BVRNN
-decode -> causal vocoder.  The vocoder's residual stacks always go through
-``ops.amp_resblock``: on a CUDA device that is a hand-written kernel, and no
-option sends CUDA tensors to the plain path.  So the port is the counterpart
-of the reference built with ``use_pallas=True``, and resolves its knobs as
-that does:
+decode -> vocoder.  The vocoder runs one of two paths, chosen once, when the
+codec is built, from the config and the arguments (``use_pallas``):
+
+* the kernel path (``use_pallas`` resolved True): the residual stacks go
+  through ``ops.amp_resblock``, on a CUDA device a hand-written kernel (K1
+  at parity, K1-bf16 in fast serving), the counterpart of the reference's
+  ``use_pallas=True``.  It covers the causal log-scale SnakeBeta family with
+  three dilations a block; a kernel that fails to build or launch raises;
+* the direct path (``use_pallas`` resolved False), the reference's default:
+  the whole generator as convs (cuDNN on a card) and elementwise torch
+  (``models.vocoder.generator_apply``), any vocoder variant of the config,
+  with ``approx_snake`` (the polynomial sin^2) and ``voc_dtype='bf16'``
+  (vocoder weights and mel cast to bf16, the waveform back to float32
+  before the -10 dB scaling is undone).
+
+Knobs, resolved as the reference resolves them:
 
 * ``precision='highest'``: reference parity, float32 with TF32 off;
 * ``precision='default'`` (fast serving): every BVRNN product and the
-  vocoder's direct convs take bf16 operands with float32 sums, the residual
-  stacks run the bf16 kernel, and ``fused_cell`` defaults to ``'auto'``;
-* ``quantize='int8'`` / ``'int8_mixed'``: weight-only int8 BVRNN weights.
+  vocoder's convs take bf16 operands with float32 sums, ``fused_cell``
+  defaults to ``'auto'``; on the direct path ``approx_snake`` and
+  ``voc_dtype='bf16'`` default on;
+* ``quantize='int8'`` / ``'int8_mixed'``: weight-only int8 BVRNN weights;
+* ``use_pallas``: True is the kernel path, False the direct one; None (the
+  default) is the kernel path where it covers the config and neither
+  ``approx_snake=True`` nor a ``voc_dtype`` was asked for, and the direct
+  path otherwise.  That None is the port's one departure from the
+  reference, whose None is always the direct path.
 
 Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
 package, so both packages see the same padded input; the padded frames
@@ -42,6 +59,7 @@ from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops import quant
+from bvsc_tpu_torch.ops.amp_resblock import supported
 from bvsc_tpu_torch.ops.mel import MelFrontend
 from bvsc_tpu_torch.ops.precision import resolve as resolve_precision
 
@@ -54,8 +72,6 @@ DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
 _VOCODER_NPZ = ("a flat .npz written by tools/export_vocoder_npz.py on a host with JAX "
                 "(ROADMAP.md, queue 1, item 3a)")
 _BVRNN_CHECKPOINTS = "BVRNN checkpoints other than the flat .npz (ROADMAP.md, queue 1, item 3)"
-_XLA_VOCODER = ("the direct-conv vocoder without the kernels (ROADMAP.md, "
-                "'approx_snake and the bf16 vocoder segment')")
 _BF16_STORAGE = "the bf16 storage dtype (ROADMAP.md, 'The bf16 storage dtype')"
 
 
@@ -136,20 +152,30 @@ VOCODER_KEYS = ("conv_pre", "ups", "act_post", "conv_post")
 class CodecWeights:
     """Every tensor the codec's programs read, prepared as they read it
     (the mel frontend's constants, the scan's cast weights, the vocoder's
-    convs and the residual stacks' packed kernel weights), with the static
-    numerics they were prepared for."""
+    convs, and on the kernel path the residual stacks' packed kernel
+    weights), with the static numerics they were prepared for.
+
+    ``blocks`` is None on the direct path, whose ``vocoder`` is the whole
+    folded generator (``models.vocoder.prepare_direct_params``) in
+    ``voc_dtype``, run with ``approx_snake``."""
 
     frontend: MelFrontend
     scan: bvrnn_mod.ScanParams
     vocoder: dict
-    blocks: list  # per vocoder stage, its ResblockParams
+    blocks: list | None  # per vocoder stage, its ResblockParams; None on the direct path
     bvrnn_cfg: bvrnn_mod.BVRNNConfig
     vocoder_cfg: VocoderConfig
     voc_compute_dtype: torch.dtype
+    approx_snake: bool = False
+    voc_dtype: torch.dtype = torch.float32  # the direct path's vocoder segment
 
     @property
     def precision(self) -> str:
         return self.bvrnn_cfg.precision
+
+    @property
+    def direct(self) -> bool:
+        return self.blocks is None
 
     def tree(self) -> dict:
         """The tensors alone, as a tree of dicts and lists: what a serving
@@ -157,8 +183,10 @@ class CodecWeights:
         scan = {"std": self.scan.std}
         if self.scan.fused is not None:
             scan["fused"] = self.scan.fused
-        return {"mel": self.frontend.tensors(), "scan": scan,
-                "vocoder": {k: self.vocoder[k] for k in VOCODER_KEYS},
+        tree = {"mel": self.frontend.tensors(), "scan": scan}
+        if self.direct:
+            return {**tree, "vocoder": self.vocoder}
+        return {**tree, "vocoder": {k: self.vocoder[k] for k in VOCODER_KEYS},
                 "blocks": [[rb.op_tensors(self.voc_compute_dtype) for rb in stage]
                            for stage in self.blocks]}
 
@@ -167,12 +195,13 @@ class CodecWeights:
         layout) in place of their own; ``traced`` runs the scans' frames
         under torch's scan operator (``models.bvrnn.ScanParams``)."""
         mode = self.voc_compute_dtype
+        blocks = None if self.direct else [
+            [rb.for_mode(mode, t) for rb, t in zip(stage, ts)]
+            for stage, ts in zip(self.blocks, tree["blocks"])]
         return dataclasses.replace(
             self, frontend=self.frontend.with_tensors(tree["mel"]),
             scan=bvrnn_mod.ScanParams(tree["scan"]["std"], tree["scan"].get("fused"), traced),
-            vocoder=tree["vocoder"],
-            blocks=[[rb.for_mode(mode, t) for rb, t in zip(stage, ts)]
-                    for stage, ts in zip(self.blocks, tree["blocks"])])
+            vocoder=tree["vocoder"], blocks=blocks)
 
 
 def _h_init(w: CodecWeights, batch, device) -> torch.Tensor:
@@ -185,8 +214,15 @@ def _mel_impl(w: CodecWeights, x: torch.Tensor) -> torch.Tensor:
 
 
 def _generator_impl(w: CodecWeights, mel: torch.Tensor, length: int) -> torch.Tensor:
-    """Mel (B, M, T) -> the vocoder's waveform (B, length), residual stacks
-    through the kernels, unscaled (the standalone vocoder's output)."""
+    """Mel (B, M, T) -> the vocoder's float32 waveform (B, length),
+    unscaled (the standalone vocoder's output): the residual stacks through
+    the kernels, or on the direct path the whole generator in
+    ``w.voc_dtype``."""
+    if w.direct:
+        return voc_mod.generator_apply(
+            w.vocoder, w.vocoder_cfg, mel.to(w.voc_dtype), length, precision=w.precision,
+            compute_dtype=w.voc_compute_dtype,
+            approx_snake=w.approx_snake)[:, 0, :].to(torch.float32)
     return voc_mod.generator_apply_kernel(
         w.vocoder, w.blocks, w.vocoder_cfg, mel, length, precision=w.precision,
         compute_dtype=w.voc_compute_dtype)[:, 0, :]
@@ -216,6 +252,29 @@ def _forward_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor, n_frames
     _, dec_mel, _ = bvrnn_mod.encode_decode(w.scan, w.bvrnn_cfg, mel, bits,
                                             _h_init(w, B, x.device), frame_valid=valid.expand(B, T))
     return _generator_impl(w, dec_mel.transpose(1, 2), length) / SCALING
+
+
+def resolve_vocoder_path(vcfg: VocoderConfig, fast: bool, use_pallas, approx_snake,
+                         voc_dtype) -> tuple[bool, bool, str]:
+    """(use_pallas, approx_snake, voc_dtype) as they run, from the
+    constructor's arguments (``BVRNNCodecModel``); ``fast`` is
+    ``precision='default'``.  Raises the reference's ValueErrors."""
+    if voc_dtype not in (None, "f32", "bf16"):
+        raise ValueError(f"voc_dtype must be 'f32' or 'bf16', got {voc_dtype!r}")
+    if use_pallas is None:
+        use_pallas = supported(vcfg) and not approx_snake and voc_dtype is None
+    if not use_pallas:
+        return (False, fast if approx_snake is None else bool(approx_snake),
+                voc_dtype or ("bf16" if fast else "f32"))
+    if approx_snake:
+        raise ValueError("approx_snake=True is not supported with use_pallas (the kernels "
+                         "compute exact snake); drop one")
+    if voc_dtype is not None:
+        raise ValueError("voc_dtype is not supported with use_pallas (the kernel path's "
+                         "compute dtype follows `precision`); drop one")
+    if not supported(vcfg):
+        raise ValueError(voc_mod.KERNEL_CONFIGS)
+    return True, False, "f32"
 
 
 class BVRNNCodecModel:
@@ -254,11 +313,18 @@ class BVRNNCodecModel:
         ``'int8_mixed'``.  fused_cell: True, False or ``'auto'`` (fused
         below ``models.bvrnn.FUSED_AUTO_MAX_B``); None is ``'auto'`` at
         ``'default'`` without ``quantize`` and False otherwise.
-        approx_snake and voc_dtype belong to the reference's direct-conv
-        vocoder: as with its ``use_pallas=True``, an explicit
-        ``approx_snake=True`` or any ``voc_dtype`` raises ValueError.
-        use_pallas: None or True (the kernel path, the only one ported);
-        False raises NotImplementedError.
+        use_pallas: True runs the residual stacks through the kernels
+        (raising ValueError outside the config family they cover, and, as
+        the reference's does, for an explicit ``approx_snake=True`` or any
+        ``voc_dtype``); False runs the direct path; None (the default) is
+        True where the kernels cover the config and neither
+        ``approx_snake=True`` nor a ``voc_dtype`` was passed, else False.
+        approx_snake (direct path): the polynomial sin^2 in every snake;
+        None is on at ``'default'``, off at ``'highest'``.
+        voc_dtype (direct path): ``'f32'`` or ``'bf16'``, the vocoder
+        segment's type; None is ``'bf16'`` at ``'default'``, ``'f32'`` at
+        ``'highest'``.  ``use_pallas``, ``approx_snake`` and ``voc_dtype``
+        hold what runs once the codec is built.
         dtype: the weights' storage type; float32 (``torch.float32``,
         ``np.float32`` or ``"float32"``) is the one ported, any other raises
         NotImplementedError.
@@ -269,12 +335,8 @@ class BVRNNCodecModel:
         if int(scan_unroll) != scan_unroll or scan_unroll < 1:
             raise ValueError(f"scan_unroll must be an int >= 1, got {scan_unroll!r}")
         self.dtype = torch.float32
-        if use_pallas is not None and not use_pallas:
-            raise _not_ported("use_pallas=False", _XLA_VOCODER)
         self.precision = resolve_precision(precision)
         fast = self.precision == "default"
-        if voc_dtype not in (None, "f32", "bf16"):
-            raise ValueError(f"voc_dtype must be 'f32' or 'bf16', got {voc_dtype!r}")
         if fused_cell not in (None, True, False, "auto"):
             raise ValueError(f"fused_cell must be True/False/'auto', got {fused_cell!r}")
         if fused_cell is None:
@@ -288,10 +350,12 @@ class BVRNNCodecModel:
             raise NotImplementedError(
                 f"vocoder checkpoint {vocoder_chkpt_path!r}: the port reads only {_VOCODER_NPZ}")
         self.device = resolve_device(device)
-        if not fast:
-            set_parity_mode()
         self.conf = config if config is not None else load_config(config_path)
         conf = self.conf
+        self.use_pallas, self.approx_snake, self.voc_dtype = resolve_vocoder_path(
+            conf.vocoder_config, fast, use_pallas, approx_snake, voc_dtype)
+        if not fast:
+            set_parity_mode()
         self.length_bucket = length_bucket
         self.bvrnn_cfg = bvrnn_mod.BVRNNConfig(
             x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim, var_bit=conf.var_bit,
@@ -323,28 +387,23 @@ class BVRNNCodecModel:
         elif quantize is not None:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantize = quantize
-        # the kernel path's rules (the reference's use_pallas=True): its
-        # residual stacks compute exact snake in the precision's dtype
-        if approx_snake:
-            raise ValueError(
-                "approx_snake=True is not supported with use_pallas (the "
-                "kernels compute exact snake); drop one")
-        if voc_dtype is not None:
-            raise ValueError(
-                "voc_dtype is not supported with use_pallas (the kernel path's "
-                "compute dtype follows `precision`); drop one")
-        self.approx_snake = False
-        self.voc_dtype = "f32"
         self.voc_compute_dtype = torch.bfloat16 if fast else torch.float32
         # weights cast once to the precision's type (and the fused cell's)
         self.scan_params = bvrnn_mod.prepare(self.bvrnn_params, self.bvrnn_cfg)
         self.vocoder_params = to_torch(vocoder_params, self.device)
-        self.kernel_blocks = voc_mod.prepare_kernel_params(
-            self.vocoder_params, conf.vocoder_config
-        )
-        self.weights = CodecWeights(self.frontend, self.scan_params, self.vocoder_params,
-                                    self.kernel_blocks, self.bvrnn_cfg, conf.vocoder_config,
-                                    self.voc_compute_dtype)
+        if self.use_pallas:
+            self.kernel_blocks = voc_mod.prepare_kernel_params(self.vocoder_params,
+                                                               conf.vocoder_config)
+            voc = self.vocoder_params
+        else:
+            self.kernel_blocks = None
+            voc = voc_mod.prepare_direct_params(
+                self.vocoder_params, conf.vocoder_config,
+                torch.bfloat16 if self.voc_dtype == "bf16" else torch.float32)
+        self.weights = CodecWeights(
+            self.frontend, self.scan_params, voc, self.kernel_blocks, self.bvrnn_cfg,
+            conf.vocoder_config, self.voc_compute_dtype, self.approx_snake,
+            torch.bfloat16 if self.voc_dtype == "bf16" else torch.float32)
 
     # -- helpers ------------------------------------------------------------
 
@@ -381,8 +440,7 @@ class BVRNNCodecModel:
         return _mel_impl(self.weights, x)
 
     def _vocode(self, mel: torch.Tensor, length: int) -> torch.Tensor:
-        """Mel (B, M, T) -> waveform (B, length), residual stacks through the
-        kernel."""
+        """Mel (B, M, T) -> waveform (B, length) on the codec's vocoder path."""
         return _generator_impl(self.weights, mel, length) / SCALING
 
     def _h0(self, batch: int) -> torch.Tensor:

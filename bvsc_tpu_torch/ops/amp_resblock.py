@@ -105,7 +105,7 @@ class ResblockParams:
     def op_tensors(self, compute_dtype: torch.dtype) -> dict:
         """The tensors the mode's op takes: the mode's packed conv weights
         as ``w1``/``w2``, then the biases and snake parameters."""
-        bf16 = _precision(compute_dtype) == "default"
+        bf16 = conv_precision(compute_dtype) == "default"
         return {"w1": self.wk1 if bf16 else self.wf1, "b1": self.b1,
                 "w2": self.wk2 if bf16 else self.wf2, "b2": self.b2,
                 "alpha": self.alpha, "inv_beta": self.inv_beta}
@@ -113,7 +113,7 @@ class ResblockParams:
     def for_mode(self, compute_dtype: torch.dtype, t: dict) -> "ResblockParams":
         """This block holding only ``t``, tensors of the mode's
         :meth:`op_tensors` layout."""
-        bf16 = _precision(compute_dtype) == "default"
+        bf16 = conv_precision(compute_dtype) == "default"
         w1, w2 = t["w1"], t["w2"]
         return ResblockParams(
             block=None, kernel_size=self.kernel_size, dilations=self.dilations, w1=None,
@@ -222,13 +222,15 @@ def smem_bytes(rb: ResblockParams, compute_dtype: torch.dtype = torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def _precision(compute_dtype: torch.dtype) -> str:
+def conv_precision(compute_dtype: torch.dtype) -> str:
+    """The ``ops.conv`` precision of a residual stack's mode: ``'highest'``
+    for float32, ``'default'`` (bf16 operands, float32 sums) for bf16."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     return "highest" if compute_dtype == torch.float32 else "default"
 
 
-def _stream_times(x: torch.Tensor, ctx: int, start: torch.Tensor | None, lo: int = 0,
+def stream_times(x: torch.Tensor, ctx: int, start: torch.Tensor | None, lo: int = 0,
                   n: int | None = None) -> torch.Tensor:
     """(B, 1, n) stream times of input columns ``lo`` to ``lo + n``
     (default: all of them): column ``ctx`` is row b's time ``start[b]``."""
@@ -249,9 +251,9 @@ def _block_plain(x, w1, b1, w2, b2, alpha, inv_beta, kernel_size: int, dilations
                  compute_dtype: torch.dtype, ctx: int, start) -> torch.Tensor:
     """The plain block on (3, C_out, C_in, k) conv weights, (3, C) biases
     and (6, C) linear-scale snake parameters."""
-    prec = _precision(compute_dtype)
+    prec = conv_precision(compute_dtype)
     p2 = kernel_size - 1
-    keep = None if ctx == 0 and start is None else _stream_times(x, ctx, start) >= 0
+    keep = None if ctx == 0 and start is None else stream_times(x, ctx, start) >= 0
 
     def mask(v):
         return v if keep is None else torch.where(keep, v, 0.0)
@@ -304,7 +306,7 @@ def amp_block_packed_plain(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_siz
     weights): the ops' CPU implementation, bitwise the plain block of the
     raw params (unpacking is exact, and bf16 mode rounds the weights to
     bf16 either way)."""
-    bf16 = _precision(compute_dtype) == "default"
+    bf16 = conv_precision(compute_dtype) == "default"
     unpack = (lambda w: unpack_bf16(w, kernel_size)) if bf16 else unpack_f32
     return _block_plain(x, unpack(w1), b1, unpack(w2), b2, alpha, inv_beta, kernel_size,
                         dilations, compute_dtype, ctx, start)
@@ -340,7 +342,7 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
     column 0, zeros elsewhere and before each row's stream began; each conv
     reads the mode's packed weights (:func:`_conv_packed`, or the bf16 GEMM
     :func:`_conv_gemm`) and each snake its prepared parameters."""
-    bf16 = _precision(compute_dtype) == "default"
+    bf16 = conv_precision(compute_dtype) == "default"
     B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     k, dils = rb.kernel_size, rb.dilations
     H, tile = halo(k, dils), tile or tile_for(C, compute_dtype)
@@ -354,7 +356,7 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
         return _conv_packed(xt, wf[j], b[j], k, d)
 
     for t0 in range(0, T, tile):
-        g = _stream_times(x, ctx, start, ctx + t0 - H, H + tile)
+        g = stream_times(x, ctx, start, ctx + t0 - H, H + tile)
         xw = xpad[..., ctx + t0 : ctx + t0 + H + tile] * (g >= 0).to(x.dtype)
         for j, d in enumerate(dils):
             xt = _snake(xw, rb.alpha[2 * j], rb.inv_beta[2 * j])
@@ -601,7 +603,7 @@ def amp_resblock(x: torch.Tensor, rb: ResblockParams,
     op (:data:`OPS`).  CUDA tensors launch that mode's kernel with ``tile``
     outputs per thread block (:func:`launch_tile`'s by default); CPU
     tensors take the plain block; anything else raises."""
-    _precision(compute_dtype)
+    conv_precision(compute_dtype)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"amp_resblock runs on cuda or cpu, not {x.device}")
     t = rb.op_tensors(compute_dtype)
@@ -628,7 +630,8 @@ def amp_stack(x: torch.Tensor, stage: list[ResblockParams],
 
 def causal_family(cfg) -> bool:
     """The shipped config family: causal, no anti-alias, snakebeta with
-    log-scale parameters (the plain generator's, any dilation count)."""
+    log-scale parameters (the direct path runs the config's other
+    variants)."""
     return (
         not any(cfg.layers_sym)
         and not any(cfg.layers_antialias)

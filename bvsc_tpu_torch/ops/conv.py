@@ -19,24 +19,33 @@ on every call, so that a gradient reaches the leaves the form holds:
   (:func:`spectral_norm_trainable_mask`).
 
 ``precision='default'`` rounds both operands to bf16 and keeps a float32
-output (``ops.precision``); the bias is added in float32.  The inits draw
+output (``ops.precision``); the bias is added in float32.  Float32 convs
+on a card run with cuDNN's TF32 off for the call
+(``ops.precision.cudnn_fp32``), so their sums do not depend on the
+process's flag.  A bf16 input
+(the direct vocoder's bf16 segment) convolves bf16 operands into a bf16
+output, bias included, as the JAX package's bf16 convs do.  The inits draw
 from a numpy ``Generator`` (the JAX package's draw from ``jax.random``, so
 the two inits agree in distribution, not in value).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bvsc_tpu_torch.ops.precision import round_bf16
+from bvsc_tpu_torch.ops.precision import cudnn_fp32, round_bf16
 
 SN_EPS = 1e-12  # torch.nn.functional.normalize's eps
 SN_BUFFERS = ("sn_u", "sn_v")
 
 
 def _operands(x: torch.Tensor, w: torch.Tensor, precision: str):
+    if x.dtype == torch.bfloat16:  # a bf16 segment: bf16 operands at either precision
+        return x, w.to(torch.bfloat16)
     if precision == "highest":
         return x, w
     return round_bf16(x), round_bf16(w)
@@ -124,11 +133,20 @@ def pad1d(x: torch.Tensor, left: int, right: int = 0) -> torch.Tensor:
     return F.pad(x, (left, right))
 
 
+def _fp32(x: torch.Tensor):
+    """:func:`ops.precision.cudnn_fp32` for a float32 CUDA input: its sums
+    do not depend on the process's TF32 flag."""
+    if x.dtype == torch.float32 and x.device.type == "cuda":
+        return cudnn_fp32()
+    return contextlib.nullcontext()
+
+
 def conv1d(x: torch.Tensor, p: dict, *, stride: int = 1, dilation: int = 1,
            precision: str = "highest") -> torch.Tensor:
     """``F.conv1d`` with padding 0: (B, C_in, T) -> (B, C_out, T')."""
     x, w = _operands(x, conv_weight(p), precision)
-    return F.conv1d(x, w, p.get("b"), stride=stride, dilation=dilation)
+    with _fp32(x):
+        return F.conv1d(x, w, p.get("b"), stride=stride, dilation=dilation)
 
 
 def conv_transpose1d(x: torch.Tensor, p: dict, *, stride: int,
@@ -136,7 +154,8 @@ def conv_transpose1d(x: torch.Tensor, p: dict, *, stride: int,
     """``F.conv_transpose1d`` with padding 0 on the (in, out, k) weight;
     output length (T - 1) * stride + k."""
     x, w = _operands(x, conv_weight(p), precision)
-    return F.conv_transpose1d(x, w, p.get("b"), stride=stride)
+    with _fp32(x):
+        return F.conv_transpose1d(x, w, p.get("b"), stride=stride)
 
 
 def conv2d(x: torch.Tensor, p: dict, *, stride: tuple[int, int] = (1, 1),

@@ -9,11 +9,15 @@ package's ``jax.lax.Precision`` knob).
 
 The bf16 products come from explicit casts, never from the process-wide
 TF32 flags, so a parity model and a fast model can share a process.  A
-bf16-rounded float32 value is exact in TF32 as well, so the result does not
-depend on those flags either.
+bf16-rounded float32 value is exact in TF32, but cuDNN's TF32 algorithms
+sum in another order than its float32 ones, so the port's float32
+convolutions run under :func:`cudnn_fp32`, which turns cuDNN's TF32 off for
+the call whatever the process's flag says (``ops.conv``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -45,3 +49,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
         y = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), wb, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(round_bf16(x), wb.to(torch.float32))
+
+
+@contextlib.contextmanager
+def cudnn_fp32():
+    """cuDNN's float32 convolutions in float32 inside the block, TF32 off,
+    the process's flag restored after it.  The flag is process-wide, so a
+    thread that convolves at the same time sees it off too."""
+    on = torch.backends.cudnn.allow_tf32
+    if on:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if on:
+            torch.backends.cudnn.allow_tf32 = True

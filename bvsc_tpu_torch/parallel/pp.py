@@ -2,7 +2,8 @@
 style (port of ``bvsc_tpu/parallel/pp.py``).
 
   stage 0  mel -> the BVRNN's ``encode_decode`` scan -> (codes, decoded mel)
-  stage 1  decoded mel -> the causal generator (K1 / K1-bf16 on a card)
+  stage 1  decoded mel -> the causal generator (K1 / K1-bf16 on a card, or
+           the direct path with ``use_pallas=False`` or ``approx_snake``)
 
 With microbatches flowing through, stage 0's scan of microbatch t runs
 beside stage 1's vocoder pass of microbatch t - 1.  The schedule is the
@@ -24,9 +25,11 @@ import torch
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.convert import to_torch
 from bvsc_tpu_torch.models import bvrnn as B
-from bvsc_tpu_torch.models.vocoder import generator_apply_kernel, prepare_kernel_params
+from bvsc_tpu_torch.models.vocoder import (generator_apply, generator_apply_kernel,
+                                           prepare_direct_params, prepare_kernel_params)
 from bvsc_tpu_torch.parallel.collectives import all_gather, broadcast
 from bvsc_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_2d_mesh, make_mesh, row_blocks
+from bvsc_tpu_torch.parallel.sp import direct_path
 
 PIPE_AXIS = "pipe"
 N_STAGES = 2
@@ -48,7 +51,8 @@ def make_dp_pp_mesh(n_data: int, devices=None, data_axis: str = DATA_AXIS,
 def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: VocoderConfig,
                      mel_mb, bits_mb, mesh: Mesh, *, axis_name: str = PIPE_AXIS,
                      precision: str = "highest",
-                     compute_dtype: torch.dtype = torch.float32
+                     compute_dtype: torch.dtype = torch.float32,
+                     approx_snake: bool = False, use_pallas: bool | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Microbatched, pipelined resynthesis.
 
@@ -59,7 +63,11 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
     Returns (codes (n_micro, M, T, z_dim), wav (n_micro, M, 1, T * up)) on
     every rank: each microbatch's ``encode_decode`` from a zero state and
     ``generator_apply_kernel`` of its decoded mel.  Vocoder params are
-    folded inference convs; ``precision`` / ``compute_dtype`` as there."""
+    folded inference convs; ``precision`` / ``compute_dtype`` as there.
+    ``use_pallas=False`` or ``approx_snake`` run stage 1 on the direct path
+    (``models.vocoder.generator_apply``, float32, ``approx_snake`` the
+    polynomial sin^2; ``parallel.sp.direct_path``)."""
+    direct = direct_path(use_pallas, approx_snake)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
     if ax.size != N_STAGES:
         raise ValueError(f"pipeline mesh axis '{axis_name}' must have size {N_STAGES}, "
@@ -83,7 +91,10 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
         bparams = B.prepare(to_torch(bvrnn_params, dev), bcfg)
     else:
         vparams = to_torch(voc_params, dev)
-        blocks = prepare_kernel_params(vparams, vcfg)
+        if direct:
+            vparams = prepare_direct_params(vparams, vcfg)
+        else:
+            blocks = prepare_kernel_params(vparams, vcfg)
     payload = torch.zeros(m_loc, frames, x_dim, device=dev)
     codes = torch.zeros(n_micro, m_loc, frames, bcfg.z_dim, device=dev)
     wav = torch.zeros(n_micro, m_loc, 1, frames * up, device=dev)
@@ -94,8 +105,13 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
                 bparams, bcfg, mel_mb[t], bits_mb[t] if bcfg.var_bit else None,
                 torch.zeros(m_loc, bcfg.h_dim, device=dev))
         elif stage == 1 and t >= 1:
-            wav[t - 1] = generator_apply_kernel(
-                vparams, blocks, vcfg, recv.transpose(1, 2).contiguous(), frames * up,
-                precision=precision, compute_dtype=compute_dtype)
+            mel = recv.transpose(1, 2).contiguous()
+            if direct:
+                wav[t - 1] = generator_apply(vparams, vcfg, mel, frames * up, precision,
+                                             compute_dtype, approx_snake=approx_snake)
+            else:
+                wav[t - 1] = generator_apply_kernel(vparams, blocks, vcfg, mel, frames * up,
+                                                    precision=precision,
+                                                    compute_dtype=compute_dtype)
     codes, wav = broadcast(codes, ax, 0), broadcast(wav, ax, 1)
     return all_gather(codes, dax, 1), all_gather(wav, dax, 1)

@@ -12,7 +12,10 @@ left instead of from the previous packet (``parallel.collectives``):
   finished to the right neighbour, which adds them into its first samples;
   the bias goes in after that add (``streaming._stream_conv_transpose``);
 * each stage's residual stack runs through K1 (``ops.amp_resblock.amp_stack``,
-  or K1-bf16) once, as a streaming stage does: the stage input's last
+  or K1-bf16), or on the direct path (``use_pallas=False``, or
+  ``approx_snake=True``) through the plain blocks
+  (``models.vocoder.amp_block``), once, as a streaming stage does: the
+  stage input's last
   ``streaming.stage_context(cfg)`` samples before this shard (120 at
   k = 11) come from the shards to the left, as ``ctx``, and ``start`` is
   this shard's true stream time.  Shard 0's start of 0 lets K1 zero the
@@ -36,10 +39,11 @@ import torch
 
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.convert import to_torch
-from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
-from bvsc_tpu_torch.ops.amp_resblock import amp_stack
+from bvsc_tpu_torch.models.vocoder import (activation, amp_block, prepare_direct_params,
+                                           prepare_kernel_params)
+from bvsc_tpu_torch.ops.amp_resblock import amp_stack, average, conv_precision
 from bvsc_tpu_torch.ops.conv import conv1d, conv_transpose1d, conv_weight
-from bvsc_tpu_torch.ops.snake import snake_beta
+from bvsc_tpu_torch.ops.snake import leaky_relu
 from bvsc_tpu_torch.parallel.collectives import all_gather, from_left, left_context
 from bvsc_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_2d_mesh, make_mesh, row_blocks
 from bvsc_tpu_torch.streaming import stage_context
@@ -97,22 +101,37 @@ def _sp_conv_transpose(x, p, stride, ax, precision):
     return out + p["b"][None, :, None]
 
 
+def direct_path(use_pallas: bool | None, approx_snake: bool) -> bool:
+    """Whether a parallel vocoder runs the direct path: ``use_pallas=False``,
+    or None with ``approx_snake`` (the kernels compute exact snake, so
+    ``use_pallas=True`` with it raises, as the codec does)."""
+    if use_pallas and approx_snake:
+        raise ValueError("approx_snake=True is not supported with use_pallas (the kernels "
+                         "compute exact snake); drop one")
+    return bool(approx_snake) if use_pallas is None else not use_pallas
+
+
 @torch.no_grad()
 def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
                        axis_name: str = SEQ_AXIS, precision: str = "highest",
                        compute_dtype: torch.dtype = torch.float32,
-                       kernel_blocks: list | None = None) -> torch.Tensor:
+                       kernel_blocks: list | None = None, approx_snake: bool = False,
+                       use_pallas: bool | None = None) -> torch.Tensor:
     """Sequence-parallel causal generator: mel (B, num_mels, T), T divisible
     by the ``seq`` axis, the same on every rank -> waveform (B, 1,
     T * prod(upsample_rates)) on every rank.  ``params`` are folded
     inference convs (numpy or tensors); ``precision`` sets conv_pre, the
-    upsamplers and conv_post, ``compute_dtype`` the residual stacks' mode,
+    upsamplers and conv_post, ``compute_dtype`` the residual stacks' convs,
     as in ``models.vocoder.generator_apply_kernel``; ``kernel_blocks`` from
-    ``prepare_kernel_params`` (prepared here when None)."""
+    ``prepare_kernel_params`` (prepared here when None).  The residual
+    stacks run K1 unless ``use_pallas=False`` or ``approx_snake``
+    (:func:`direct_path`), which run the direct path's blocks in float32,
+    ``approx_snake`` the polynomial sin^2."""
     if any(cfg.layers_sym) or cfg.pre_sym or cfg.post_sym:
         raise ValueError("sequence parallelism requires a fully causal config")
     if any(cfg.layers_antialias) or cfg.antialias_post:
         raise ValueError("sequence parallelism is incompatible with anti-aliased activations")
+    direct = direct_path(use_pallas, approx_snake)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
     mel = torch.as_tensor(mel).to(mesh.device, torch.float32)
     T = mel.shape[-1]
@@ -121,16 +140,35 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
     Tl = T // ax.size
     _check_halos(cfg, Tl)
     params = to_torch(params, mesh.device)
-    blocks = kernel_blocks if kernel_blocks is not None else prepare_kernel_params(params, cfg)
+    num_k = len(cfg.resblock_kernel_sizes)
+    if direct:
+        params = prepare_direct_params(params, cfg)
+        block_prec = conv_precision(compute_dtype)
+
+        def stack(i, window, ctx, start):
+            return average([
+                amp_block(window, params["resblocks"][i * num_k + j], cfg, ksz, dils,
+                          precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
+                for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                                    cfg.resblock_dilation_sizes))])
+    else:
+        blocks = kernel_blocks if kernel_blocks is not None else prepare_kernel_params(params,
+                                                                                         cfg)
+
+        def stack(i, window, ctx, start):
+            return amp_stack(window, blocks[i], compute_dtype, ctx=ctx, start=start)
+
     x = mel[row_blocks(mel.shape[0], dax.size)[dax.index], :, ax.index * Tl:(ax.index + 1) * Tl]
     x = _sp_conv(x.contiguous(), params["conv_pre"], ax, precision)
     ctx = stage_context(cfg)
     for i, u in enumerate(cfg.upsample_rates):
+        if cfg.activation == "lrelu":
+            x = leaky_relu(x)
         x = _sp_conv_transpose(x, params["ups"][i], u, ax, precision)
         start = torch.full((x.shape[0],), ax.index * x.shape[-1], dtype=torch.int32,
                            device=x.device)
         window = torch.cat([left_context(x, ctx, ax), x], -1)
-        x = amp_stack(window, blocks[i], compute_dtype, ctx=ctx, start=start)
-    x = snake_beta(x, params["act_post"], logscale=cfg.snake_logscale)
+        x = stack(i, window, ctx, start)
+    x = activation(x, params["act_post"], cfg, approx_snake)
     wav = torch.tanh(_sp_conv(x, params["conv_post"], ax, precision))
     return all_gather(all_gather(wav, ax, -1), dax, 0)

@@ -14,7 +14,8 @@ concurrent streams on one card):
   by one frame in one call of ``streaming._fused_packet_step`` over all B
   rows (window roll -> ``MelFrontend.log_mel`` -> the BVRNN's
   ``encode_decode`` at T = 1 -> ``generator_stream_step``, whose stages run
-  K1 or K1-bf16 on a CUDA codec), then keeps the rows of the slots that did
+  K1 or K1-bf16 on a CUDA codec on the kernel path, or the plain blocks on
+  the direct path), then keeps the rows of the slots that did
   not advance (:func:`_merge_active`); so one slot is a ``FusedPacketCodec``
   by construction;
 * per-stream bitrates are a (B,) vector (the bit-priority mask takes bits
@@ -263,7 +264,7 @@ class ServingEngine(_Sharded):
         return {
             "window": torch.zeros(rows, self.win, device=device),
             "h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
-            "voc": S.generator_stream_init(self.codec.conf.vocoder_config, rows, device),
+            "voc": S.vocoder_state(self.codec, rows, device),
         }
 
     def _init_host_slots(self) -> None:
@@ -441,7 +442,7 @@ class DecodeEngine(_Sharded):
         """Fresh zeroed state of ``rows`` slots on ``device`` (recovery path
         after :class:`EngineStateLost`)."""
         return {"h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
-                "voc": S.generator_stream_init(self.codec.conf.vocoder_config, rows, device)}
+                "voc": S.vocoder_state(self.codec, rows, device)}
 
     def _init_host_slots(self) -> None:
         self._free = list(range(self.B))

@@ -26,11 +26,16 @@ Bundle contents (``meta.json`` is the manifest, format :data:`FORMAT`):
   blocks of N / devices slots;
 * the weights once, as program inputs (``params/weights.npz``, keyed by
   their path in ``codec.CodecWeights.tree()``): the mel frontend's window
-  and DFT/mel bases, the scan's prepared weights and the residual stacks'
-  packed kernel weights, each in the dtype its program reads (bf16 stored
-  as its 16 bits, the dtype in the manifest), so loading does no relayout.
-  An int8 codec's weights are stored as ``models.bvrnn.prepare`` widens
-  them (exact).
+  and DFT/mel bases, the scan's prepared weights and, on the kernel path,
+  the residual stacks' packed kernel weights, or on the direct path the
+  whole prepared generator (``models.vocoder.prepare_direct_params``), each
+  in the dtype its program reads (bf16 stored as its 16 bits, the dtype in
+  the manifest), so loading does no relayout.  An int8 codec's weights are
+  stored as ``models.bvrnn.prepare`` widens them (exact).  The manifest's
+  ``serving`` entry records the numerics, ``use_pallas``, ``approx_snake``
+  and ``voc_dtype`` among them; a bundle without ``use_pallas`` ran the
+  kernels.  An anti-aliased config's filters would be baked into a trace,
+  so its codec does not export.
 
 The BVRNN's frame loops are traced as ``torch._higher_order_ops.scan`` over
 the live path's own step function (``models.bvrnn._frames``), so a program
@@ -68,11 +73,12 @@ from bvsc_tpu_torch.codec import (_decode_impl, _encode_impl, _forward_impl, _ge
 from bvsc_tpu_torch.config import CodecConfig
 from bvsc_tpu_torch.device import canonical, resolve_device, set_parity_mode
 from bvsc_tpu_torch.ops import amp_resblock  # noqa: F401  (registers the ops the programs call)
+from bvsc_tpu_torch.ops.precision import cudnn_fp32
 from bvsc_tpu_torch.models.bvrnn import FUSED_AUTO_MAX_B
 from bvsc_tpu_torch.serve.engine import (DecodeEngine, ServingEngine, _decode_tick, _fused_tick,
                                          slot_blocks)
 from bvsc_tpu_torch.streaming import (FusedPacketCodec, _fused_packet_step, _packet_decode_step,
-                                      generator_stream_init)
+                                      vocoder_state)
 
 FORMAT = "bvsc-serve-torch-1"
 BVSC_TPU_FORMAT = "bvsc-serve-1"
@@ -259,12 +265,10 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
         }
         buckets.append({"length": Lp, "frames": Tp, "programs": names})
 
-    vcfg = conf.vocoder_config
-
     def state(rows, window: bool) -> dict:
         tree = {"window": torch.zeros(rows, conf.winsize, device=dev)} if window else {}
         return {**tree, "h": torch.zeros(rows, conf.h_dim, device=dev),
-                "voc": generator_stream_init(vcfg, rows, dev)}
+                "voc": vocoder_state(codec, rows)}
 
     packet_meta = None
     if packet:
@@ -311,7 +315,8 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
         # the numerics every program of the bundle was traced with
         "serving": {"precision": codec.precision, "voc_compute_dtype":
                     _dtype_name(codec.voc_compute_dtype), "voc_dtype": codec.voc_dtype,
-                    "fused_cell": codec.fused_cell, "quantize": codec.quantize},
+                    "fused_cell": codec.fused_cell, "quantize": codec.quantize,
+                    "use_pallas": codec.use_pallas, "approx_snake": codec.approx_snake},
         "config": dataclasses.asdict(conf),
         "buckets": buckets,
         "packet": packet_meta,
@@ -394,6 +399,11 @@ class ServingBundle:
         except (*_MALFORMED, ValueError) as e:
             raise ValueError(f"{path}: not a valid .bvscx bundle ({e!r})") from e
         self.meta = meta
+        # the vocoder path the programs were traced on; a bundle written
+        # before the manifest recorded it ran the kernels
+        self.use_pallas = bool(meta["serving"].get("use_pallas", True))
+        self.approx_snake = bool(meta["serving"].get("approx_snake", False))
+        self.voc_dtype = meta["serving"].get("voc_dtype", "f32")
         if precision == "highest":
             set_parity_mode()
         self._programs: dict[tuple, torch.nn.Module] = {}
@@ -429,8 +439,11 @@ class ServingBundle:
             w = self._weights[device] = [t.to(device) for t in self.weights]
         # forward itself: the public methods check the inputs' batch and
         # bucket before a call, so the module's per-call check of every
-        # input's shape (its forward pre-hook) is skipped
-        return self._program(name, device).forward(w, *inputs)
+        # input's shape (its forward pre-hook) is skipped; a traced graph's
+        # convs run under cuDNN's process flag, pinned here as the live
+        # path pins them (ops.conv)
+        with cudnn_fp32():
+            return self._program(name, device).forward(w, *inputs)
 
     def _zeros(self, specs) -> dict:
         return _zeros(specs, self.device)

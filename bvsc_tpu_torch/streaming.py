@@ -13,19 +13,23 @@ hop = 34.8 ms at 22.05 kHz), so it streams with explicit carried state:
 * streaming vocoder: conv_pre and conv_post carry their left context and
   the four transposed convs their overlap-add tail, as the reference does
   (the bias is added after the overlap, to emitted samples only); each
-  stage's residual stack runs the offline path's kernel
-  (``ops.amp_resblock.amp_stack``: K1, or K1-bf16 in fast mode) over a
-  carried stage context.
+  stage's residual stack runs the offline path's blocks over a carried
+  stage context: on the kernel path the kernel
+  (``ops.amp_resblock.amp_stack``: K1, or K1-bf16 in fast mode), on the
+  direct path the plain blocks (``models.vocoder.amp_block``, with
+  ``approx_snake`` and in the codec's ``voc_dtype``), which never reach a
+  kernel.
 
 **The stage context.**  The reference streams its residual stacks as XLA
 convs, one left-context buffer per conv (18 a stage).  K1 takes a stage's
 input, not a conv's: it computes a whole block, halo included, from the
-block's input.  So each stage carries the last ``CTX`` samples of its
-input, ``CTX`` the largest of its blocks' halos (``ops.amp_resblock.halo``:
-24, 72 and 120 for k = 3, 7 and 11), and the count of samples each row's
-stream fed it (``fed``, saturating at ``CTX``, past which the start mask
-passes everything).  A step runs ``amp_stack`` on [context | new samples]
-with ``ctx=CTX, start=fed``, which returns only the new outputs, then rolls
+block's input.  So each stage, on either path, carries the last ``CTX``
+samples of its input, ``CTX`` the largest of its blocks' halos
+(``ops.amp_resblock.halo``: 24, 72 and 120 for k = 3, 7 and 11), and the
+count of samples each row's stream fed it (``fed``, saturating at
+``CTX``, past which the start mask passes everything).  A step runs the
+stage's blocks on [context | new samples] with ``ctx=CTX, start=fed``,
+which returns only the new outputs, then rolls
 the context.  The outputs are the per-conv buffers' outputs; only the
 state's layout differs.  A per-row ``start`` lets rows of one state begin
 at different ticks, as a batched serving engine's slots do.
@@ -41,10 +45,13 @@ a multiple of the bucket.  ``fused_cell='auto'`` picks the cell by batch
 batch run the same cell, and a serving engine at B >= 32 runs the standard
 one.  Nothing here changes the process-wide TF32 flags.
 
-The state is float32 in both modes: K1-bf16 takes float32 in and out
-(:func:`voc_state_dtype`).  Every class runs on its codec's device and
-returns tensors there; a CUDA codec launches the kernels, a ``device='cpu'``
-codec takes their plain versions.
+The kernel path's state is float32 in both modes, since K1-bf16 takes
+float32 in and out; the direct path's is bf16 when its ``voc_dtype`` is
+(:func:`voc_state_dtype`).  The symmetric and anti-aliased vocoder variants
+look ahead, so they do not stream (ValueError, as in the reference).  Every
+class runs on its codec's device and returns tensors there; a CUDA codec on
+the kernel path launches the kernels, a ``device='cpu'`` codec takes their
+plain versions.
 """
 
 from __future__ import annotations
@@ -56,9 +63,11 @@ from bvsc_tpu_torch.codec import SCALING, CodecWeights, _host_array
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.device import resolve_device
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
-from bvsc_tpu_torch.ops.amp_resblock import ResblockParams, amp_stack, halo
+from bvsc_tpu_torch.models.vocoder import activation, amp_block
+from bvsc_tpu_torch.ops.amp_resblock import (ResblockParams, amp_stack, average,
+                                             conv_precision, halo)
 from bvsc_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from bvsc_tpu_torch.ops.snake import snake_beta
+from bvsc_tpu_torch.ops.snake import leaky_relu
 
 # ---------------------------------------------------------------------------
 # Streaming vocoder: state init + step
@@ -72,9 +81,10 @@ def voc_compute_dtype(codec) -> torch.dtype:
 
 
 def voc_state_dtype(codec) -> torch.dtype:
-    """The streaming vocoder state's type: float32 in both modes, since
-    K1-bf16 takes float32 in and out."""
-    return torch.float32
+    """The streaming vocoder state's type: the codec's vocoder segment's,
+    float32 on the kernel path (K1-bf16 takes float32 in and out), bf16 on
+    a direct path with ``voc_dtype='bf16'``."""
+    return codec.weights.voc_dtype
 
 
 def stage_context(cfg: VocoderConfig) -> int:
@@ -83,9 +93,10 @@ def stage_context(cfg: VocoderConfig) -> int:
                                           cfg.resblock_dilation_sizes))
 
 
-def _conv_state(batch: int, ch: int, k: int, dilation: int, device) -> torch.Tensor:
+def _conv_state(batch: int, ch: int, k: int, dilation: int, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Left-context buffer of (k-1)*dilation zeros (== one-shot zero pads)."""
-    return torch.zeros(batch, ch, (k - 1) * dilation, device=device)
+    return torch.zeros(batch, ch, (k - 1) * dilation, device=device, dtype=dtype)
 
 
 def _stream_conv(state: torch.Tensor, x: torch.Tensor, p: dict, dilation: int = 1,
@@ -114,20 +125,22 @@ def _stream_conv_transpose(state: torch.Tensor, x: torch.Tensor, p: dict, stride
     return y[..., emit_len: emit_len + overlap], emit
 
 
-def _stream_stage(state: dict, x: torch.Tensor, blocks: list[ResblockParams],
-                  compute_dtype: torch.dtype):
+def _stream_stage(state: dict, x: torch.Tensor, stack):
     """One stage's residual stack on new samples x (B, C, T) over its
-    carried context (module docstring)."""
+    carried context (module docstring): ``stack(window, ctx, start)`` is the
+    stage's blocks, averaged, on (B, C, ctx + T) -> (B, C, T)."""
     ctx = state["ctx"].shape[-1]
     window = torch.cat([state["ctx"], x], -1)
-    y = amp_stack(window, blocks, compute_dtype, ctx=ctx, start=state["fed"])
+    y = stack(window, ctx, state["fed"])
     fed = torch.clamp(state["fed"] + x.shape[-1], max=ctx)
     return {"ctx": window[..., -ctx:], "fed": fed}, y
 
 
-def generator_stream_init(cfg: VocoderConfig, batch: int, device=None) -> dict:
+def generator_stream_init(cfg: VocoderConfig, batch: int, device=None,
+                          dtype: torch.dtype = torch.float32) -> dict:
     """Zero state for the streaming generator (causal configs only), on
-    ``device`` (default CUDA, which raises without a card)."""
+    ``device`` (default CUDA, which raises without a card), its buffers in
+    ``dtype`` (:func:`voc_state_dtype`)."""
     if any(cfg.layers_sym) or cfg.pre_sym or cfg.post_sym:
         raise ValueError("streaming requires a fully causal vocoder config")
     if any(cfg.layers_antialias) or cfg.antialias_post:
@@ -135,51 +148,80 @@ def generator_stream_init(cfg: VocoderConfig, batch: int, device=None) -> dict:
     device = resolve_device(device)
     C0 = cfg.upsample_initial_channel
     ctx = stage_context(cfg)
-    state: dict = {"conv_pre": _conv_state(batch, cfg.num_mels, 7, 1, device),
+    state: dict = {"conv_pre": _conv_state(batch, cfg.num_mels, 7, 1, device, dtype),
                    "ups": [], "stages": []}
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         out_ch = C0 // (2 ** (i + 1))
-        state["ups"].append(torch.zeros(batch, out_ch, k - u, device=device))
-        state["stages"].append({"ctx": torch.zeros(batch, out_ch, ctx, device=device),
+        state["ups"].append(torch.zeros(batch, out_ch, k - u, device=device, dtype=dtype))
+        state["stages"].append({"ctx": torch.zeros(batch, out_ch, ctx, device=device,
+                                                   dtype=dtype),
                                 "fed": torch.zeros(batch, dtype=torch.int32, device=device)})
     ch = C0 // (2 ** len(cfg.upsample_rates))
-    state["conv_post"] = _conv_state(batch, ch, 7, 1, device)
+    state["conv_post"] = _conv_state(batch, ch, 7, 1, device, dtype)
     return state
 
 
-def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]],
+def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]] | None,
                           cfg: VocoderConfig, state: dict, mel: torch.Tensor, *,
                           precision: str = "highest",
-                          compute_dtype: torch.dtype = torch.float32):
+                          compute_dtype: torch.dtype = torch.float32,
+                          approx_snake: bool = False):
     """Consume (B, num_mels, T) mel frames, emit (B, 1, T * prod(upsample))
     finalized samples (the one-shot output's next ones).  ``precision``
     sets conv_pre, the upsamplers and conv_post, ``compute_dtype`` the
-    residual stacks' mode, as in ``models.vocoder.generator_apply_kernel``;
-    ``kernel_blocks`` from ``prepare_kernel_params``.  Returns (new state,
+    residual stacks' convs, as in ``models.vocoder.generator_apply_kernel``;
+    ``kernel_blocks`` from ``prepare_kernel_params``, or None for the direct
+    path, whose stages run ``params['resblocks']``
+    (``models.vocoder.prepare_direct_params``) with ``approx_snake``, in the
+    dtype of the params, ``mel`` and ``state``.  Returns (new state,
     waveform)."""
+    num_k = len(cfg.resblock_kernel_sizes)
+    block_prec = conv_precision(compute_dtype)
+
+    def stack(i):
+        if kernel_blocks is not None:
+            return lambda w, ctx, start: amp_stack(w, kernel_blocks[i], compute_dtype, ctx=ctx,
+                                                   start=start)
+        return lambda w, ctx, start: average([
+            amp_block(w, params["resblocks"][i * num_k + j], cfg, ksz, dils,
+                      precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
+            for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                                cfg.resblock_dilation_sizes))])
+
     # the new state's keys in generator_stream_init's order (a traced
     # program's state input and output share one tree layout)
     new: dict = {"conv_pre": None, "ups": [], "stages": [], "conv_post": None}
     new["conv_pre"], x = _stream_conv(state["conv_pre"], mel, params["conv_pre"],
                                       precision=precision)
     for i, u in enumerate(cfg.upsample_rates):
+        if cfg.activation == "lrelu":
+            x = leaky_relu(x)
         st, x = _stream_conv_transpose(state["ups"][i], x, params["ups"][i], u, precision)
         new["ups"].append(st)
-        st, x = _stream_stage(state["stages"][i], x, kernel_blocks[i], compute_dtype)
+        st, x = _stream_stage(state["stages"][i], x, stack(i))
         new["stages"].append(st)
-    x = snake_beta(x, params["act_post"], logscale=cfg.snake_logscale)
+    x = activation(x, params["act_post"], cfg, approx_snake)
     new["conv_post"], x = _stream_conv(state["conv_post"], x, params["conv_post"],
                                        precision=precision)
     return new, torch.tanh(x)
 
 
 def _vocode_step(w: CodecWeights, state: dict, mel: torch.Tensor):
-    """Decoded mel (B, T, M) -> (new vocoder state, waveform (B, T * hop)),
-    on the codec's weights ``w`` (``codec.CodecWeights``)."""
+    """Decoded mel (B, T, M) -> (new vocoder state, float32 waveform (B, T *
+    hop)), on the codec's weights ``w`` (``codec.CodecWeights``) and path."""
     state, wav = generator_stream_step(
-        w.vocoder, w.blocks, w.vocoder_cfg, state, mel.transpose(1, 2).contiguous(),
-        precision=w.precision, compute_dtype=w.voc_compute_dtype)
-    return state, wav[:, 0, :] / SCALING
+        w.vocoder, w.blocks, w.vocoder_cfg, state,
+        mel.transpose(1, 2).contiguous().to(w.voc_dtype), precision=w.precision,
+        compute_dtype=w.voc_compute_dtype, approx_snake=w.approx_snake)
+    return state, wav[:, 0, :].to(torch.float32) / SCALING
+
+
+def vocoder_state(codec, batch: int, device=None) -> dict:
+    """The zero streaming vocoder state of ``batch`` rows for ``codec``, on
+    ``device`` (default the codec's) and in :func:`voc_state_dtype`."""
+    return generator_stream_init(codec.conf.vocoder_config, batch,
+                                 codec.device if device is None else device,
+                                 voc_state_dtype(codec))
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +313,7 @@ class StreamingDecoder:
         conf = codec.conf
         self.batch = batch
         self.h = codec._h0(batch)
-        self.voc_state = generator_stream_init(conf.vocoder_config, batch, codec.device)
+        self.voc_state = vocoder_state(codec, batch)
         # conceal_bits == z_dim is "all prior bits" (the mask saturates), so
         # one code path serves both cases
         cb = (float(conf.z_dim) if conceal_bitrate is None
@@ -365,7 +407,7 @@ class FusedPacketCodec:
         self.state = {
             "window": torch.zeros(batch, conf.winsize, device=dev),
             "h": codec._h0(batch),
-            "voc": generator_stream_init(conf.vocoder_config, batch, dev),
+            "voc": vocoder_state(codec, batch),
         }
         self._prefix = np.zeros((batch, 0), np.float32)
         self._tail = np.zeros((batch, 0), np.float32)  # last pad_right + 1 samples

@@ -151,7 +151,29 @@ Phases, each printing one JSON line with its seconds:
     (tick ms).  The TF32 flags
     are unchanged at its end; the phase prints its line, then fails if any
     gate did.
-11. ``entropy``: ``.bvsc`` files (``bvsc_tpu_torch.cli.codec_cli``) on the
+11. ``direct_path``: the codec's direct vocoder path
+    (``BVRNNCodecModel(use_pallas=False)``: cuDNN convs and elementwise
+    torch, no kernel) on the trained pair and the main path's batch, at
+    parity and fast (``approx_snake`` and the bf16 vocoder segment, the
+    reference's fast defaults).  The K1 launch counts of both modes are
+    read around every direct call (``encode``, ``__call__``, ``decode``,
+    the stream, the ticks, the variants): 0.  Codes bitwise the kernel
+    path's codec's at the same precision; the parity waveform within 1e-4
+    of the K1 codec's (TF32 off); the fast ``decode`` of the parity codes
+    within 2e-2 of the parity ``decode`` (the reference's contract); 24
+    packets of the demo through a fast ``FusedPacketCodec``, an 8-slot
+    fast ``ServingEngine``, a ``StreamingDecoder`` and an 8-slot fast
+    ``DecodeEngine``, each within 7e-2 of the offline fast ``decode`` of
+    the same codes (the reference's fast streaming contract; the gaps
+    printed), and the same packets through a parity ``FusedPacketCodec``
+    within 1e-5 of the parity call on the frames inside the input; the
+    symmetric and the
+    anti-aliased full-width generators (the trained vocoder's weights) on
+    the first 32 frames of the batch's decoded mel, card against CPU within
+    1e-4 in float32.  Printed, no gate: the ms of a direct call beside the
+    K1 call, and the variants' ms.  (Phase ``parallel`` runs the direct
+    path under SP and PP.)
+12. ``entropy``: ``.bvsc`` files (``bvsc_tpu_torch.cli.codec_cli``) on the
     trained pair at parity, on the demo utterance encoded on the card at
     3 kbps and with a VBR schedule (1 / 3 / 5.5 kbps, a third of the frames
     each).  Each is written as version 1 (raw packing) and version 3 (rANS
@@ -168,10 +190,11 @@ Phases, each printing one JSON line with its seconds:
     the coder's ms per frame writing and reading, and rANS MB/s native
     against numpy.
 
-12. ``export``: AOT serving bundles (``bvsc_tpu_torch.serve.export``) on
-    the trained pair.  This process exports a parity bundle on the card
-    while two processes of the export CLI (``cli/export_cli.py``) export a
-    fast ``'auto'`` one on the card and a parity one on the CPU; each has
+13. ``export``: AOT serving bundles (``bvsc_tpu_torch.serve.export``) on
+    the trained pair.  Three processes of the export CLI
+    (``cli/export_cli.py``), started before phase ``serving`` to run beside
+    it, ``direct_path`` and ``entropy``, export a parity and a fast
+    ``'auto'`` one on the card and a parity one on the CPU; each has
     the one-shot programs at B = 4 on the bucket of the demo batch's first
     16 384 samples (not the CPU one), the packet programs at batch 1 and
     the engines' ticks at 128 slots, in a temporary directory removed at
@@ -195,7 +218,7 @@ Phases, each printing one JSON line with its seconds:
     implementation (``ops.amp_resblock.launch``), on one tick's windows.
     The daemon is closed and the CLI processes stopped before it ends.
 
-13. ``train``: both trainers at the full width of the default config, on
+14. ``train``: both trainers at the full width of the default config, on
     the demo utterance (a filelist the phase writes; speed and gain
     augmentation, ``cli/train_bvrnn.py``'s ``--augment``), in a temporary
     directory removed at the end.  BVRNN (``train.bvrnn_train``): one step
@@ -216,15 +239,18 @@ Phases, each printing one JSON line with its seconds:
     card against the CPU at B = 2 (<= 1e-4 relative); 3 steps, D unchanged
     at step 0 and changed at step 1, every loss finite; one fine-tuning
     step on the trained BVRNN's ``decode_to_mel`` of the same crops.  Both
-    trainer CLIs in subprocesses on the card at the same time, 2 steps, then
-    each resumed to 4 through its ``main`` in this process.  Printed: the
+    trainer CLIs through their ``main`` in this process (phases
+    ``parallel`` and ``eval`` start them as processes), 2 steps, then each
+    resumed to 4.  Printed: the
     card-against-CPU gaps and ms a step of each mode beside ``nvidia-smi``'s
     line.
 
-14. ``parallel``: ``bvsc_tpu_torch.parallel`` with two ranks sharing the
+15. ``parallel``: ``bvsc_tpu_torch.parallel`` with two ranks sharing the
     one card over gloo (NCCL refuses two ranks on one card), spawned by
-    ``parallel.dryrun.run_ranks``; a failed rank or a collective that times
-    out fails the phase.  On the ranks, at full width on the trained pair
+    ``parallel.dryrun.run_ranks`` from a thread before phase ``train``, so
+    that they run beside it (its line follows ``train``'s; its
+    ``start_seconds``, ``ranks_seconds`` and ``finish_seconds`` split its
+    time); a failed rank or a collective that times out fails the phase.  On the ranks, at full width on the trained pair
     and the main path's batch (B = 4, 256 frames, 3 kbps): ``encode_tp``
     and ``decode_tp`` against the one-device ``encode`` / ``decode`` of the
     standard cell (codes bitwise, each flipped code listed with its
@@ -232,7 +258,11 @@ Phases, each printing one JSON line with its seconds:
     2 shards of the decoded mel against ``generator_apply_kernel`` (1e-5;
     12 K1 launches a shard); ``pipeline_resynth`` on 3 microbatches of 64
     frames against the unpipelined run (codes bitwise, waveform 1e-6, 12 K1
-    launches a microbatch on stage 1); one data-parallel step of each
+    launches a microbatch on stage 1); the same SP and pipeline on the
+    direct path (``use_pallas=False``, and fast with ``approx_snake`` and
+    bf16 products; ``pipeline_resynth(approx_snake=True)``) against the
+    one-device direct generator (SP 1e-5 exact, 2e-2 fast; PP codes
+    bitwise, waveform 1e-6; 0 K1 launches); one data-parallel step of each
     trainer at full width (BVRNN on 4 x 0.5-s mels, the GAN twice on 4 x
     8 192 crops, D frozen at step 0) against one rank's step on the global
     batch (metrics 1e-5 relative, parameters 1e-5, those whose gradient is
@@ -240,13 +270,16 @@ Phases, each printing one JSON line with its seconds:
     four engines at 128 slots with ``mesh`` over [card, card] (64 slots a
     block, streams alternating between the blocks) against unsharded ones
     (codes bitwise, audio 1e-5; 12 K1 launches a block a tick), the bundle
-    ones on phase ``export``'s parity bundle (kept for this); at the same time
-    ``cli.train_bvrnn`` as two processes of one run (2 steps): equal losses
-    on both ranks and rank 0's checkpoint loading.  Printed beside
+    ones on phase ``export``'s parity bundle (kept for this).  From the
+    start of the ranks to the end of the engines, ``cli.train_bvrnn`` as
+    two processes of one run (2 steps): equal losses on both ranks and rank
+    0's checkpoint loading.  The ranks' and phase ``train``'s times are
+    each other's neighbours', so neither says what it costs alone.  Printed
+    beside
     ``nvidia-smi``'s line: ms per TP frame and per SP call next to one
     device's, labelled as two ranks on one card (no scaling claim).
 
-15. ``eval``: the eval metrics (``bvsc_tpu_torch.eval``) and the synthesis,
+16. ``eval``: the eval metrics (``bvsc_tpu_torch.eval``) and the synthesis,
     evaluation and daemon CLIs on the card, on the trained pair and the demo
     utterance (as a one-stimulus layout ``stim_15/ref.wav`` in a temporary
     directory removed at the end).  ``cli.evaluate_codec`` in this process
@@ -265,10 +298,13 @@ Phases, each printing one JSON line with its seconds:
     subprocesses meanwhile: ``python -m bvsc_tpu_torch.cli.serve_daemon``
     (trained pair, 8 slots, fast serving by default: K1-bf16) serves a port
     ``CodecClient`` resynthesising the demo cut to whole hops (finite, of the
-    sent length, within 7e-2 of an 8-slot ``ServingEngine`` of the fast
-    codec in this process on the same input, bitwise printed) and exits 0
-    on SIGTERM with its "served" line: a serving tick a frame, 12 K1-bf16
-    launches a tick, no float32 one (seconds to its serving line printed);
+    sent length, bitwise an 8-slot ``ServingEngine`` of the fast codec in
+    this process on the same input) and exits 0 on SIGTERM with its
+    "served" line: a serving tick a frame, 12 K1-bf16 launches a tick, no
+    float32 one, and its process's TF32 flags (printed; seconds to its
+    serving line printed).  The in-process engine runs twice more with
+    ``ops.conv``'s per-call TF32 pin taken out, cuDNN's flag on and off:
+    its gaps from the pinned run printed (the daemon fault's cause);
     ``cli.train_vocoder --fine_tuning --evaluate`` on the dumped
     mel prints finite STOI and PESQ.  Printed, no gate: the host ms a clip of
     STOI, PESQ-WB and MCD.  Every process is stopped before the phase ends.
@@ -287,6 +323,7 @@ import io
 import json
 import os
 import re
+import shutil
 import signal
 import struct
 import subprocess
@@ -311,7 +348,7 @@ from bvsc_tpu_torch.cli import evaluate_codec as EVC
 from bvsc_tpu_torch.cli import select_vocoder_ckpt as SEL
 from bvsc_tpu_torch.cli import synthesize as SY
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, _generator_impl
-from bvsc_tpu_torch.convert import flatten_tree, load_bvrnn_npz
+from bvsc_tpu_torch.convert import flatten_tree, load_bvrnn_npz, to_torch
 from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
 from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
 from bvsc_tpu_torch.device import set_parity_mode
@@ -1246,8 +1283,9 @@ def stage_stream_vs_oneshot(codec: BVRNNCodecModel, compute_dtype: torch.dtype) 
                  "fed": torch.zeros(BATCH, dtype=torch.int32, device=DEV)}
         parts = []
         for i in range(STREAM_STAGE_STEPS):
-            state, y = S._stream_stage(state, x[..., i * n: (i + 1) * n].contiguous(), blocks,
-                                       compute_dtype)
+            state, y = S._stream_stage(
+                state, x[..., i * n: (i + 1) * n].contiguous(),
+                lambda w, c, st: AR.amp_stack(w, blocks, compute_dtype, ctx=c, start=st))
             parts.append(y)
         got = torch.cat(parts, -1)
         out.append({"stage": stage, "new_per_step": n, "bit_equal": torch.equal(got, one),
@@ -1942,19 +1980,178 @@ def serving_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarra
         raise AssertionError(f"serving: {len(failed)} gates failed: {failed}")
 
 
-def export_cli(out: str, *args: str) -> subprocess.Popen:
-    """``python -m bvsc_tpu_torch.cli.export_cli`` exporting to ``out``, as a
-    user runs it, in a process of its own (its JSON summary on stdout)."""
-    return subprocess.Popen([sys.executable, "-m", "bvsc_tpu_torch.cli.export_cli", "--out", out,
-                             *args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+DIRECT_TOL = 1e-4  # the direct parity waveform against the kernel path's (float32, TF32 off)
+DIRECT_STREAM_PACKETS = 24  # tests/test_streaming.py's fast streaming contract: 24 packets
+DIRECT_VARIANT_FRAMES = 32  # the variants' mel crop: a frame a 256-sample hop
+DIRECT_VARIANTS = {"symmetric": {"layers_sym": (True,) * 4, "pre_sym": True, "post_sym": True},
+                   "antialiased": {"layers_antialias": (True,) * 4, "antialias_post": True}}
 
 
-def cli_summary(proc: subprocess.Popen, what: str) -> dict:
-    out, err = proc.communicate(timeout=EXPORT_CLI_TIMEOUT)
-    if proc.returncode != 0:
-        raise AssertionError(f"the {what} export failed ({proc.returncode}): {err[-3000:]}")
-    return json.loads(out.strip().splitlines()[-1])
+def direct_path_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                      smi: str) -> None:
+    """The codec's direct vocoder path (``use_pallas=False``) on the trained
+    pair and the main batch; see the module docstring.  The numbers are
+    printed before any gate is applied."""
+    t0 = time.time()
+    conf, gates = parity.conf, []
+    report = {"nvidia_smi": smi}
+    x = torch.from_numpy(wav).to(DEV)
+    L = x.shape[1]
+    direct = BVRNNCodecModel(config=conf, bvrnn_params=parity.bvrnn_params,
+                             vocoder_params=parity.vocoder_params, use_pallas=False, device=DEV)
+    dfast = BVRNNCodecModel(config=conf, bvrnn_params=parity.bvrnn_params,
+                            vocoder_params=parity.vocoder_params, use_pallas=False,
+                            precision="default", device=DEV)
+    report["resolved"] = {k: (c.use_pallas, c.approx_snake, c.voc_dtype)
+                          for k, c in (("parity", direct), ("fast", dfast))}
+    gates.append((f"resolved {report['resolved']}", report["resolved"] == {
+        "parity": (False, False, "f32"), "fast": (False, True, "bf16")}))
+
+    def launches_of(fn):
+        """(fn's result, the K1 launches of both modes during it)."""
+        k1_launches()
+        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        out = fn()
+        return out, k1_launches()
+
+    zero = {"f32": 0, "bf16": 0}
+    runs = {}
+    for key, codec, k1 in (("parity", direct, parity), ("fast", dfast, fast)):
+        codes, n_enc = launches_of(lambda: codec.encode(x, BITRATE))
+        y, n_call = launches_of(lambda: codec(x, BITRATE))
+        dec, n_dec = launches_of(lambda: codec.decode(codes, L))
+        _, direct_ms = timed(lambda: codec(x, BITRATE))
+        k1_y, k1_ms = timed(lambda: k1(x, BITRATE))
+        runs[key] = {"codes": codes, "y": y, "decode": dec}
+        same = torch.equal(codes, k1.encode(x, BITRATE))
+        r = report[key] = {"launches": {"encode": n_enc, "call": n_call, "decode": n_dec},
+                           "codes_bitwise_kernel_path": same, "finite": bool(
+                               torch.isfinite(y).all() and torch.isfinite(dec).all()),
+                           "call_ms": direct_ms, "kernel_path_call_ms": k1_ms}
+        gates += [(f"{key}: 0 K1 launches on the direct path {r['launches']}",
+                   all(n == zero for n in r["launches"].values())),
+                  (f"{key}: codes bitwise the kernel path's", same),
+                  (f"{key}: finite {tuple(y.shape)}", r["finite"] and y.shape == x.shape)]
+        if key == "parity":
+            r["gap_vs_kernel_path"] = (y - k1_y).abs().max().item()
+            gates.append((f"parity waveform {r['gap_vs_kernel_path']} <= {DIRECT_TOL} from the "
+                          "kernel path's", r["gap_vs_kernel_path"] <= DIRECT_TOL))
+    # the reference's fast contract: fast decode of the parity codes
+    pc = runs["parity"]["codes"]
+    fd, n = launches_of(lambda: dfast.decode(pc, L))
+    gap = (fd - runs["parity"]["decode"]).abs().max().item()
+    report["fast"]["decode_gap_vs_parity"] = gap
+    gates += [(f"fast decode {gap} <= {FAST_WAVE_TOL} from the parity decode",
+               gap <= FAST_WAVE_TOL), ("fast decode: 0 K1 launches", n == zero)]
+
+    # streaming and serving, fast: 24 packets, and an 8-slot engine's ticks
+    hop = conf.hopsize
+    xs = wav[:1, : DIRECT_STREAM_PACKETS * hop]
+    codes = dfast.encode(xs, BITRATE)
+    ref = dfast.decode(codes, xs.shape[1]).cpu().numpy()
+
+    def packets():
+        fc = S.FusedPacketCodec(dfast, batch=1, bitrate=BITRATE)
+        outs = [fc.process(xs[:, i: i + hop]) for i in range(0, xs.shape[1], hop)]
+        return torch.cat(outs + [fc.flush()], 1).cpu().numpy()
+
+    pkt, n_pkt = launches_of(packets)
+    (_, tick), n_tick = launches_of(lambda: solo_serve(dfast, xs[0], BITRATE, EVAL_DAEMON_SLOTS))
+    dec = S.StreamingDecoder(dfast, batch=1)
+    sdec, n_dec = launches_of(lambda: dec.feed(codes).cpu().numpy())
+    (dtick, _, _), n_dtick = launches_of(lambda: decode_engine_run(
+        dfast, codes.cpu().numpy(), None, DecodeEngine(dfast, EVAL_DAEMON_SLOTS)))
+    m = ref.shape[1]
+    report["stream"] = {
+        "packets": DIRECT_STREAM_PACKETS, "slots": EVAL_DAEMON_SLOTS,
+        "state_dtype": str(S.voc_state_dtype(dfast)),
+        "packet_gap": float(np.abs(pkt[:, :m] - ref[:, : pkt.shape[1]]).max()),
+        "tick_gap": float(np.abs(tick[:m] - ref[0, : tick.shape[0]]).max()),
+        "decoder_gap": float(np.abs(sdec[:, :m] - ref[:, : sdec.shape[1]]).max()),
+        "decode_tick_gap": float(np.abs(dtick[:, :m] - ref[:, : dtick.shape[1]]).max()),
+        "launches": {"packets": n_pkt, "ticks": n_tick, "decoder": n_dec,
+                     "decode_ticks": n_dtick}}
+    rs = report["stream"]
+    for k in ("packet_gap", "tick_gap", "decoder_gap", "decode_tick_gap"):
+        gates.append((f"fast {k} {rs[k]} <= {STREAM_FAST_TOL}", rs[k] <= STREAM_FAST_TOL))
+    # the parity packet codec on the same packets, against the parity call
+    fc = S.FusedPacketCodec(direct, batch=1, bitrate=BITRATE)
+    ppkt, n_ppkt = launches_of(lambda: torch.cat(
+        [fc.process(xs[:, i: i + hop]) for i in range(0, xs.shape[1], hop)] + [fc.flush()], 1))
+    inside = xs.shape[1] - 2 * hop  # the last two frames' windows reach past the input
+    rs["parity_packet_gap"] = (ppkt[:, :inside] - direct(xs, BITRATE)[:, :inside]).abs().max().item()
+    rs["launches"]["parity_packets"] = n_ppkt
+    gates += [(f"parity packet codec {rs['parity_packet_gap']} <= {STREAM_TOL}",
+               rs["parity_packet_gap"] <= STREAM_TOL),
+              (f"streams and ticks: 0 K1 launches {rs['launches']}",
+               all(n == zero for n in rs["launches"].values()))]
+
+    # the symmetric and the anti-aliased generators, card against CPU
+    mel = direct.decode_to_mel(runs["parity"]["codes"])[..., :DIRECT_VARIANT_FRAMES]
+    report["variants"] = {}
+    for name, ov in DIRECT_VARIANTS.items():
+        vcfg = dataclasses.replace(conf.vocoder_config, **ov)
+        with torch.no_grad():
+            (card, ms), n = launches_of(lambda: timed(lambda: voc_mod.generator_apply(
+                parity.vocoder_params, vcfg, mel)))
+            cpu = voc_mod.generator_apply(to_torch(parity.vocoder_params, "cpu"), vcfg,
+                                          mel.cpu())
+        gap = (card.cpu() - cpu).abs().max().item()
+        report["variants"][name] = {"shape": list(card.shape), "gap_vs_cpu": gap, "ms": ms,
+                                    "launches": n, "peak": card.abs().max().item()}
+        gates += [(f"{name} generator card against CPU {gap} <= {DIRECT_TOL}",
+                   gap <= DIRECT_TOL and bool(torch.isfinite(card).all())),
+                  (f"{name}: 0 K1 launches", n == zero)]
+    failed = [what for what, ok in gates if not ok]
+    emit("direct_path", t0, **report, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"direct_path: {len(failed)} gates failed: {failed}")
+
+
+class ExportCLIs:
+    """The three bundles of phase ``export`` through ``python -m
+    bvsc_tpu_torch.cli.export_cli``, as a user runs it, in processes of
+    their own: a parity and a fast one traced on the card and a parity one
+    traced on the CPU, each with its output in a log file.  ``main`` starts
+    them before phase ``serving``, so that they run beside it and phases
+    ``direct_path`` and ``entropy`` (whose times they may lengthen; those
+    phases gate no time); ``summary`` waits for one and reads its JSON
+    summary; ``close`` stops them and removes the directory."""
+
+    def __init__(self, conf):
+        self.tmp = tempfile.mkdtemp(prefix="bvscx-")
+        self.paths = {k: os.path.join(self.tmp, f"{k}.bvscx") for k in ("parity", "fast",
+                                                                        "parity_cpu")}
+        secs = str(EXPORT_CROP / conf.fs)
+        self.t0, self.procs = time.time(), {}
+        for key, args in (("parity", ("--batch", str(BATCH), "--seconds", secs,
+                                      "--engine_batch", str(SERVE_SLOTS))),
+                          ("fast", ("--batch", str(BATCH), "--seconds", secs, "--engine_batch",
+                                    str(SERVE_SLOTS), "--precision", "default")),
+                          ("parity_cpu", ("--device", "cpu", "--seconds", "--engine_batch",
+                                          str(SERVE_SLOTS)))):
+            log = open(os.path.join(self.tmp, f"{key}.log"), "w")
+            self.procs[key] = (subprocess.Popen(
+                [sys.executable, "-m", "bvsc_tpu_torch.cli.export_cli", "--out",
+                 self.paths[key], *args], cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                text=True), log)
+
+    def summary(self, key: str) -> dict:
+        proc, log = self.procs[key]
+        proc.wait(timeout=EXPORT_CLI_TIMEOUT)
+        log.close()
+        out = open(log.name).read()
+        if proc.returncode != 0:
+            raise AssertionError(f"the {key} export failed ({proc.returncode}): {out[-3000:]}")
+        return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+    def close(self) -> None:
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def load_programs(bundle) -> dict:
@@ -2216,40 +2413,41 @@ def op_host_us(codec: BVRNNCodecModel, windows: list) -> dict:
             "op_per_tick_ms": 12 * (mean["op"] - mean["direct"]) / 1e3, "same_bits": same}
 
 
-def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
-                 smi: str, keep: str) -> str:
-    """AOT serving bundles (``bvsc_tpu_torch.serve.export``) on the trained
-    pair; see the module docstring.  Moves the parity bundle into ``keep``
-    (phase ``parallel`` serves it sharded) and returns its path."""
-    import shutil
+def split_seconds(report: dict):
+    """A function that records, under ``report["split_seconds"][name]``, the
+    seconds since its previous call (or since it was made)."""
+    report["split_seconds"], last = {}, [time.time()]
 
-    from bvsc_tpu_torch.serve.export import ServingBundle, export_serving_bundle
+    def mark(name: str) -> None:
+        now = time.time()
+        report["split_seconds"][name] = now - last[0]
+        last[0] = now
+
+    return mark
+
+
+def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                 smi: str, keep: str, clis: ExportCLIs) -> str:
+    """AOT serving bundles (``bvsc_tpu_torch.serve.export``) on the trained
+    pair; see the module docstring.  ``clis`` exported the three bundles
+    meanwhile.  Moves the parity bundle into ``keep`` (phase ``parallel``
+    serves it sharded) and returns its path."""
+    from bvsc_tpu_torch.serve.export import ServingBundle
 
     t0 = time.time()
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    tmp = tempfile.mkdtemp(prefix="bvscx-")
-    paths = {k: os.path.join(tmp, f"{k}.bvscx") for k in ("parity", "fast", "parity_cpu")}
-    secs = str(EXPORT_CROP / parity.conf.fs)
-    procs = {}
+    paths = clis.paths
     report, gates = {"nvidia_smi": smi}, []
     try:
-        # the fast bundle, and a parity bundle traced on the CPU, through the
-        # CLI in processes of their own while this one exports the parity one
-        procs["fast"] = export_cli(paths["fast"], "--batch", str(BATCH), "--seconds", secs,
-                                   "--engine_batch", str(SERVE_SLOTS), "--precision", "default")
-        procs["parity_cpu"] = export_cli(paths["parity_cpu"], "--device", "cpu", "--seconds",
-                                         "--engine_batch", str(SERVE_SLOTS))
-        t = time.perf_counter()
-        man = export_serving_bundle(parity, paths["parity"], batch=BATCH, lengths=(EXPORT_CROP,),
-                                    engine_batch=SERVE_SLOTS)
-        report["export"] = {"parity": {"wall_s": time.perf_counter() - t,
-                                       "export_seconds": man["export_seconds"],
-                                       "program_bytes": man["program_bytes"]}}
-        for key in ("fast", "parity_cpu"):
-            summary = cli_summary(procs[key], key)
+        report["export"] = {}
+        for key in paths:
+            summary = clis.summary(key)
             report["export"][key] = {k: summary[k] for k in ("export_seconds", "program_bytes",
                                                             "traced_on", "serving")}
-        report["export"]["concurrent_wall_s"] = time.time() - t0
+        # the CLIs ran from before phase serving; this phase waited for them
+        report["export"]["concurrent_wall_s"] = time.time() - clis.t0
+        report["export"]["waited_s"] = time.time() - t0
+        mark = split_seconds(report)
         report["bundle_bytes"] = {k: member_bytes(p) for k, p in paths.items()}
 
         bundles, report["load_seconds"] = {}, {}
@@ -2258,6 +2456,7 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
             bundles[key] = ServingBundle(path, device=DEV)
             report["load_seconds"][key] = {"manifest_and_weights": time.perf_counter() - t,
                                            "programs": load_programs(bundles[key])}
+        mark("load")
         if bundles["parity_cpu"].meta["traced_on"] != "cpu":
             gates.append("the CPU bundle was not traced on the CPU")
 
@@ -2274,6 +2473,7 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
             if key == "parity":
                 parity_run, parity_decode = run, decode_engine_run(
                     parity, codes_full, lost_full, bundles["parity"].decode_engine())[0]
+            mark(f"bundle_vs_live_{key}")
 
         # the CPU-traced bundle on the card against the card-traced one
         cpu_b, xp = bundles["parity_cpu"], wav[:1, :EXPORT_PACKET]
@@ -2292,6 +2492,7 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
         for key in ("packet_bitwise", "engine_bitwise", "decode_engine_bitwise"):
             if not report["cpu_traced"][key]:
                 gates.append(f"cpu-traced bundle: {key}")
+        mark("cpu_traced")
 
         wire = {"live": daemon_wire(parity, inputs, codes_full, lost_full),
                 "bundle": daemon_wire(bundles["parity"], inputs, codes_full, lost_full)}
@@ -2306,25 +2507,24 @@ def export_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray
         report["daemon"]["entropy_stats_equal"] = same
         if not same:
             gates.append("daemon entropy wire bytes")
+        mark("daemon_wire")
 
         for key, codec in (("parity", parity), ("fast", fast)):
             report.setdefault("tick_ms_128", {})[key] = tick_pair_ms(
                 {"live": ServingEngine(codec, max_streams=SERVE_SLOTS),
                  "bundle": bundles[key].serving_engine()})
+        mark("tick_ms")
         for key, codec in (("parity", parity), ("fast", fast)):
             windows = tick_windows(codec)
             report.setdefault("op_host_us", {})[key] = op_host_us(codec, windows)
             if not report["op_host_us"][key]["same_bits"]:
                 gates.append(f"{key}: op and direct launch differ")
+        mark("op_host_us")
         if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
             gates.append("the TF32 flags changed")
         kept = shutil.move(paths["parity"], os.path.join(keep, "parity.bvscx"))
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        clis.close()
     emit("export", t0, **report, gates_failed=gates)
     if gates:
         raise AssertionError(f"export phase: {gates}")
@@ -2522,10 +2722,10 @@ def train_gan_card_vs_cpu(conf, corpus: AudioSegmentDataset, gates: list) -> dic
 
 
 class TrainCLIs:
-    """Both trainer CLIs on the card, each into its own run directory: in
-    subprocesses at the same time, output to a log file (``start(steps)``,
-    then ``finish(gates)``), and resumed in this process through their
-    ``main`` (``resume(steps, gates)``: no process start to wait for)."""
+    """Both trainer CLIs on the card, each into its own run directory, run
+    in this process through their ``main`` (no process start to wait for):
+    ``run(steps, gates)`` trains each to ``steps``, resuming where an
+    earlier run stopped."""
 
     def __init__(self, filelist: str, wavs: str, tmp: str):
         self.tmp = tmp
@@ -2537,33 +2737,9 @@ class TrainCLIs:
             "train_bvrnn": common + ["--stats_batches", "1", "--val_interval", "2"],
             "train_vocoder": common + ["--freeze_step", "1", "--validation_interval", "2",
                                        "--init_generator", VOC_NPZ]}
-        self.report, self.procs = {}, {}
+        self.report, self.last = {}, 0
 
-    def start(self, steps: int) -> None:
-        self.steps, self.t0 = steps, time.time()
-        for m, args in self.args.items():
-            log = open(os.path.join(self.tmp, f"{m}_{steps}.log"), "w")
-            self.procs[m] = (subprocess.Popen(
-                [sys.executable, "-m", f"bvsc_tpu_torch.cli.{m}", *args, "--checkpoint_path",
-                 os.path.join(self.tmp, m), "--max_steps", str(steps)],
-                cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log)
-
-    def finish(self, gates: list) -> None:
-        for m, (proc, log) in self.procs.items():
-            try:
-                proc.wait(timeout=TRAIN_CLI_TIMEOUT)
-            finally:
-                proc.kill()
-                log.close()
-            out = open(log.name).read()
-            self.report[f"{m}_{self.steps}"] = {"rc": proc.returncode,
-                                                "tail": out.strip().splitlines()[-3:]}
-            gates.append((f"{m} to step {self.steps} (rc {proc.returncode})",
-                          proc.returncode == 0 and f"done at step {self.steps}" in out))
-        self.report[f"seconds_{self.steps}"] = time.time() - self.t0
-        self.procs = {}
-
-    def resume(self, steps: int, gates: list) -> None:
+    def run(self, steps: int, gates: list) -> None:
         t0 = time.time()
         for m, mod in (("train_bvrnn", train_bvrnn), ("train_vocoder", train_vocoder)):
             out = io.StringIO()
@@ -2573,17 +2749,12 @@ class TrainCLIs:
             out = out.getvalue()
             self.report[f"{m}_{steps}"] = {"in_process": True,
                                            "tail": out.strip().splitlines()[-3:]}
-            gates.append((f"{m} resumed to step {steps} in this process",
-                          f"done at step {steps}" in out and "resumed from step 2" in out))
+            resumed = not self.last or f"resumed from step {self.last}" in out
+            gates.append((f"{m} to step {steps} in this process"
+                          + (f", resumed from step {self.last}" if self.last else ""),
+                          f"done at step {steps}" in out and resumed))
         self.report[f"seconds_{steps}"] = time.time() - t0
-
-    def close(self) -> None:
-        """Stop whatever still runs (after a failure elsewhere)."""
-        for proc, log in self.procs.values():
-            proc.kill()
-            proc.wait()
-            log.close()
-        self.procs = {}
+        self.last = steps
 
 
 def train_phase(wav: np.ndarray, smi: str) -> None:
@@ -2611,18 +2782,14 @@ def train_phase(wav: np.ndarray, smi: str) -> None:
         report["gan"] = train_gan_checks(conf, corpus, codec, gates)
         report["gan"]["seconds"] = time.time() - t
         del trainer, codec
-        # the CLIs' first run beside the card-against-CPU GAN step, which is
-        # the CPU's work (nothing is timed on the card meanwhile)
+        t = time.time()
+        report["gan"]["card_vs_cpu"] = train_gan_card_vs_cpu(conf, corpus, gates)
+        report["gan"]["card_vs_cpu_seconds"] = time.time() - t
+        # both CLIs through their main in this process, then resumed
+        # (phases parallel and eval start them as processes)
         clis = TrainCLIs(filelist, os.path.dirname(WAV), tmp)
-        try:
-            clis.start(2)
-            t = time.time()
-            report["gan"]["card_vs_cpu"] = train_gan_card_vs_cpu(conf, corpus, gates)
-            report["gan"]["card_vs_cpu_seconds"] = time.time() - t
-            clis.finish(gates)
-            clis.resume(4, gates)
-        finally:
-            clis.close()
+        clis.run(2, gates)
+        clis.run(4, gates)
         report["cli"] = clis.report
     set_parity_mode()
     failed = [what for what, ok in gates if not ok]
@@ -2725,6 +2892,18 @@ def parallel_ranks(n: int, inp: dict) -> dict:
         bvrnn, cfg, voc, vcfg, inp["mel_mb"], inp["bits_mb"], PPL.make_pp_mesh(devices)))
     out["pp"] = {"codes": codes_pp.cpu().numpy(), "wav": wav_pp.cpu().numpy(),
                  "launches": par_k1(), "ms": pp_ms}
+
+    # the direct path (no kernel): SP exact and fast, the pipeline with
+    # approx_snake
+    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    sp_d = {"parity": SPL.generator_apply_sp(voc, vcfg, mel, smesh, use_pallas=False),
+            "fast": SPL.generator_apply_sp(voc, vcfg, mel, smesh, precision="default",
+                                           compute_dtype=torch.bfloat16, approx_snake=True)}
+    codes_d, wav_d = PPL.pipeline_resynth(bvrnn, cfg, voc, vcfg, inp["mel_mb"], inp["bits_mb"],
+                                          PPL.make_pp_mesh(devices), approx_snake=True)
+    out["direct"] = {"sp": {k: v.cpu().numpy() for k, v in sp_d.items()},
+                     "pp_codes": codes_d.cpu().numpy(), "pp_wav": wav_d.cpu().numpy(),
+                     "launches": par_k1()}
 
     # a data-parallel step of each trainer, at full width
     B = PAR_TRAIN_BATCH // n
@@ -2881,10 +3060,18 @@ def parallel_engines(codec: BVRNNCodecModel, wav: np.ndarray, codes: np.ndarray,
     return rep
 
 
-def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str, bundle: str) -> None:
+def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str):
     """The parallel paths on the card, two ranks sharing it over gloo: see
-    the module docstring.  The numbers are printed before any gate is
-    applied; a rank that fails, or a collective that times out, raises."""
+    the module docstring.  A generator, so that the ranks and the trainer
+    CLI's processes run beside phase ``train``: ``next()`` computes the
+    one-device references and starts them (the ranks from a thread of this
+    process) and returns; ``send(bundle)``, ``bundle`` phase ``export``'s
+    parity bundle, waits for the ranks, runs the sharded engines, applies
+    the gates and ends the generator.  The numbers are printed before any
+    gate is applied; a rank that fails, or a collective that times out,
+    raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from bvsc_tpu_torch.parallel.dryrun import run_ranks
 
     t0 = time.time()
@@ -2921,7 +3108,7 @@ def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str, bundle: st
         mel_mb = torch.stack([y[:, i * PAR_MICRO_FRAMES:(i + 1) * PAR_MICRO_FRAMES]
                               for i in range(PAR_MICRO)])
         bits_mb = bits[None, :, :PAR_MICRO_FRAMES].expand(PAR_MICRO, -1, -1).contiguous()
-        pp_codes, pp_wav = [], []
+        pp_codes, pp_wav, pp_direct = [], [], []
         for i in range(PAR_MICRO):
             z, m, _ = bvrnn_mod.encode_decode(params, cfg, mel_mb[i], bits_mb[i],
                                               codec._h0(x.shape[0]))
@@ -2929,6 +3116,15 @@ def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str, bundle: st
             pp_wav.append(voc_mod.generator_apply_kernel(
                 codec.weights.vocoder, codec.weights.blocks, conf.vocoder_config,
                 m.transpose(1, 2).contiguous(), PAR_MICRO_FRAMES * conf.hopsize))
+            pp_direct.append(voc_mod.generator_apply(
+                codec.vocoder_params, conf.vocoder_config, m.transpose(1, 2).contiguous(),
+                PAR_MICRO_FRAMES * conf.hopsize, approx_snake=True))
+        # the direct path's one-device generator, exact and fast
+        direct_ref = {"parity": voc_mod.generator_apply(codec.vocoder_params,
+                                                        conf.vocoder_config, voc_in, vlen),
+                      "fast": voc_mod.generator_apply(
+                          codec.vocoder_params, conf.vocoder_config, voc_in, vlen, "default",
+                          torch.bfloat16, approx_snake=True)}
     seg = int(TRAIN_CHECK_SECONDS * conf.fs) // conf.hopsize * conf.hopsize
     train_mel = bvrnn_frontend(conf, DEV)(x[:PAR_TRAIN_BATCH, :seg]).transpose(1, 2)
     vcfg = conf.vocoder_config
@@ -2940,86 +3136,119 @@ def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str, bundle: st
            "mel": voc_in.cpu().numpy(), "mel_mb": mel_mb.cpu().numpy(),
            "bits_mb": bits_mb.cpu().numpy(), "train_mel": train_mel.cpu().numpy(),
            "gan": (gtcfg, train_vocoder.load_generator(VOC_NPZ), crops)}
-    t = time.time()
-    ranks = run_ranks(PAR_RANKS, parallel_ranks, inp, device=PAR_DEVICE, backend="gloo",
-                      timeout_s=PAR_TIMEOUT)
-    report["ranks_seconds"] = time.time() - t
-    r0 = ranks[0]
+    # the trainer CLI as two processes, beside the ranks and the sharded
+    # engines in here; the ranks wait in a thread
+    tmp = tempfile.mkdtemp(prefix="bvsc-parallel-")
+    cli = ParallelCLI(tmp)
+    pool = ThreadPoolExecutor(1)
 
-    # tensor parallelism against one device
-    tp = r0["tp"]
-    flips = np.argwhere(tp["codes"] != codes.cpu().numpy())
-    enc_np = enc_p.cpu().numpy()
-    report["tp"] = {
-        "frames": y.shape[1], "batch": y.shape[0], "flipped": len(flips),
-        "flips": [{"stream": int(b), "frame": int(f), "bit": int(k),
-                   "enc_minus_half": float(abs(enc_np[b, f, k] - 0.5))} for b, f, k in flips[:8]],
-        "mel_gap": float(np.abs(tp["mel"] - mel_ref.cpu().numpy()).max()),
-        "h_dec_gap": float(np.abs(tp["h_dec"] - h_dec.cpu().numpy()).max()),
-        "h_enc_gap": float(np.abs(tp["h_enc"] - h_enc.cpu().numpy()).max()),
-        "ranks_equal": all(np.array_equal(r["tp"]["mel"], tp["mel"]) for r in ranks),
-        "timed_frames": PAR_TIMED_FRAMES,
-        "decode_ms_per_frame": tp["decode_ms_per_frame"],
-        "one_device_decode_ms_per_frame": dec_ms / PAR_TIMED_FRAMES,
-        "encode_ms_per_frame": tp["encode_ms_per_frame"],
-        "one_device_encode_ms_per_frame": enc_ms / PAR_TIMED_FRAMES}
-    rt = report["tp"]
-    gates += [(f"TP codes bitwise one device's ({rt['flipped']} flipped: {rt['flips']})",
-               rt["flipped"] == 0),
-              (f"TP mel {rt['mel_gap']} <= {TP_MEL_TOL}", rt["mel_gap"] <= TP_MEL_TOL),
-              (f"TP h {rt['h_dec_gap']} <= {TP_MEL_TOL}", rt["h_dec_gap"] <= TP_MEL_TOL),
-              ("TP outputs equal on every rank", rt["ranks_equal"])]
+    def ranks_timed():
+        t = time.time()
+        out = run_ranks(PAR_RANKS, parallel_ranks, inp, device=PAR_DEVICE, backend="gloo",
+                        timeout_s=PAR_TIMEOUT)
+        return out, time.time() - t
 
-    # sequence parallelism against one-shot
-    sp_gap = max(float(np.abs(r["sp"]["wav"] - wav_ref.cpu().numpy()).max()) for r in ranks)
-    report["sp"] = {"frames": voc_in.shape[-1], "shards": PAR_RANKS, "gap": sp_gap,
-                    "launches": [r["sp"]["launches"] for r in ranks], "ms": r0["sp"]["ms"],
-                    "one_device_ms": voc_ms}
-    gates += [(f"SP vocoder {sp_gap} <= {SP_TOL}", sp_gap <= SP_TOL),
-              (f"SP K1 launches {report['sp']['launches']}: 12 a shard",
-               all(r["sp"]["launches"] == {"f32": 12, "bf16": 0} for r in ranks))]
+    try:
+        future = pool.submit(ranks_timed)
+        report["start_seconds"] = time.time() - t0
+        bundle = yield
+        t1 = time.time()
+        ranks, report["ranks_seconds"] = future.result()
+        report["waited_for_ranks_s"] = time.time() - t1
+        r0 = ranks[0]
 
-    # the pipeline against the unpipelined composition
-    pp_ref_codes = torch.stack(pp_codes).cpu().numpy()
-    pp_ref_wav = torch.stack(pp_wav).cpu().numpy()
-    pp_gap = max(float(np.abs(r["pp"]["wav"] - pp_ref_wav).max()) for r in ranks)
-    pp_eq = all(np.array_equal(r["pp"]["codes"], pp_ref_codes) for r in ranks)
-    report["pp"] = {"micro": PAR_MICRO, "frames": PAR_MICRO_FRAMES, "codes_bitwise": pp_eq,
-                    "wav_gap": pp_gap, "launches": [r["pp"]["launches"] for r in ranks],
-                    "ms": r0["pp"]["ms"]}
-    gates += [("PP codes bitwise the unpipelined run's", pp_eq),
-              (f"PP waveform {pp_gap} <= {PP_WAV_TOL}", pp_gap <= PP_WAV_TOL),
-              (f"PP K1 launches {report['pp']['launches']}: 12 a microbatch on stage 1",
-               [r["pp"]["launches"]["f32"] for r in ranks] == [0, 12 * PAR_MICRO])]
+        # tensor parallelism against one device
+        tp = r0["tp"]
+        flips = np.argwhere(tp["codes"] != codes.cpu().numpy())
+        enc_np = enc_p.cpu().numpy()
+        report["tp"] = {
+            "frames": y.shape[1], "batch": y.shape[0], "flipped": len(flips),
+            "flips": [{"stream": int(b), "frame": int(f), "bit": int(k),
+                       "enc_minus_half": float(abs(enc_np[b, f, k] - 0.5))} for b, f, k in flips[:8]],
+            "mel_gap": float(np.abs(tp["mel"] - mel_ref.cpu().numpy()).max()),
+            "h_dec_gap": float(np.abs(tp["h_dec"] - h_dec.cpu().numpy()).max()),
+            "h_enc_gap": float(np.abs(tp["h_enc"] - h_enc.cpu().numpy()).max()),
+            "ranks_equal": all(np.array_equal(r["tp"]["mel"], tp["mel"]) for r in ranks),
+            "timed_frames": PAR_TIMED_FRAMES,
+            "decode_ms_per_frame": tp["decode_ms_per_frame"],
+            "one_device_decode_ms_per_frame": dec_ms / PAR_TIMED_FRAMES,
+            "encode_ms_per_frame": tp["encode_ms_per_frame"],
+            "one_device_encode_ms_per_frame": enc_ms / PAR_TIMED_FRAMES}
+        rt = report["tp"]
+        gates += [(f"TP codes bitwise one device's ({rt['flipped']} flipped: {rt['flips']})",
+                   rt["flipped"] == 0),
+                  (f"TP mel {rt['mel_gap']} <= {TP_MEL_TOL}", rt["mel_gap"] <= TP_MEL_TOL),
+                  (f"TP h {rt['h_dec_gap']} <= {TP_MEL_TOL}", rt["h_dec_gap"] <= TP_MEL_TOL),
+                  ("TP outputs equal on every rank", rt["ranks_equal"])]
 
-    # data-parallel steps against one rank's on the global batch
-    dp = r0["dp"]
-    report["dp"] = {"bvrnn": dp["bvrnn_gaps"], "gan": dp["gan_gaps"], "bvrnn_ms": dp["bvrnn_ms"],
-                    "gan_ms": dp["gan_ms"], "batch": PAR_TRAIN_BATCH,
-                    "ranks_equal": all(r["dp"]["bvrnn"] == dp["bvrnn"] and
-                                       r["dp"]["gan"] == dp["gan"] for r in ranks)}
-    bg, gg = dp["bvrnn_gaps"], dp["gan_gaps"]
-    gates += [(f"DP BVRNN step metrics {bg['metric_rel']} <= {DP_TOL}",
-               bg["metric_rel"] <= DP_TOL),
-              (f"DP BVRNN step params {bg['param_abs']} <= {DP_TOL}", bg["param_abs"] <= DP_TOL),
-              (f"DP GAN metrics {gg['metric_rel_step0']}, {gg['d']['metric_rel']} <= {DP_TOL}",
-               max(gg["metric_rel_step0"], gg["d"]["metric_rel"]) <= DP_TOL),
-              (f"DP GAN params D {gg['d']['param_abs']}, G {gg['g']['param_abs']} <= {DP_TOL}",
-               max(gg["d"]["param_abs"], gg["g"]["param_abs"]) <= DP_TOL),
-              ("DP metrics equal on every rank", report["dp"]["ranks_equal"])]
+        # sequence parallelism against one-shot
+        sp_gap = max(float(np.abs(r["sp"]["wav"] - wav_ref.cpu().numpy()).max()) for r in ranks)
+        report["sp"] = {"frames": voc_in.shape[-1], "shards": PAR_RANKS, "gap": sp_gap,
+                        "launches": [r["sp"]["launches"] for r in ranks], "ms": r0["sp"]["ms"],
+                        "one_device_ms": voc_ms}
+        gates += [(f"SP vocoder {sp_gap} <= {SP_TOL}", sp_gap <= SP_TOL),
+                  (f"SP K1 launches {report['sp']['launches']}: 12 a shard",
+                   all(r["sp"]["launches"] == {"f32": 12, "bf16": 0} for r in ranks))]
 
-    # the trainer CLI as two processes, beside the sharded engines in here
-    with tempfile.TemporaryDirectory(prefix="bvsc-parallel-") as tmp:
-        cli = ParallelCLI(tmp)
-        try:
-            t = time.time()
-            report["engines"] = parallel_engines(codec, wav, codes.cpu().numpy(), bundle, gates)
-            report["engines"]["seconds"] = time.time() - t
-            report["cli"] = cli.finish(gates)
-        finally:
-            cli.close()
+        # the pipeline against the unpipelined composition
+        pp_ref_codes = torch.stack(pp_codes).cpu().numpy()
+        pp_ref_wav = torch.stack(pp_wav).cpu().numpy()
+        pp_gap = max(float(np.abs(r["pp"]["wav"] - pp_ref_wav).max()) for r in ranks)
+        pp_eq = all(np.array_equal(r["pp"]["codes"], pp_ref_codes) for r in ranks)
+        report["pp"] = {"micro": PAR_MICRO, "frames": PAR_MICRO_FRAMES, "codes_bitwise": pp_eq,
+                        "wav_gap": pp_gap, "launches": [r["pp"]["launches"] for r in ranks],
+                        "ms": r0["pp"]["ms"]}
+        gates += [("PP codes bitwise the unpipelined run's", pp_eq),
+                  (f"PP waveform {pp_gap} <= {PP_WAV_TOL}", pp_gap <= PP_WAV_TOL),
+                  (f"PP K1 launches {report['pp']['launches']}: 12 a microbatch on stage 1",
+                   [r["pp"]["launches"]["f32"] for r in ranks] == [0, 12 * PAR_MICRO])]
+
+        # the direct path under SP and PP, against one device
+        rd = report["direct"] = {
+            "sp_gap": {k: max(float(np.abs(r["direct"]["sp"][k] - direct_ref[k].cpu().numpy())
+                                    .max()) for r in ranks) for k in direct_ref},
+            "pp_codes_bitwise": all(np.array_equal(r["direct"]["pp_codes"], pp_ref_codes)
+                                    for r in ranks),
+            "pp_wav_gap": max(float(np.abs(r["direct"]["pp_wav"] - torch.stack(pp_direct)
+                                           .cpu().numpy()).max()) for r in ranks),
+            "launches": [r["direct"]["launches"] for r in ranks]}
+        gates += [(f"direct SP exact {rd['sp_gap']['parity']} <= {SP_TOL}",
+                   rd["sp_gap"]["parity"] <= SP_TOL),
+                  (f"direct SP fast {rd['sp_gap']['fast']} <= {FAST_WAVE_TOL}",
+                   rd["sp_gap"]["fast"] <= FAST_WAVE_TOL),
+                  ("direct PP codes bitwise the unpipelined run's", rd["pp_codes_bitwise"]),
+                  (f"direct PP waveform {rd['pp_wav_gap']} <= {PP_WAV_TOL}",
+                   rd["pp_wav_gap"] <= PP_WAV_TOL),
+                  (f"direct SP and PP: 0 K1 launches {rd['launches']}",
+                   all(n == {"f32": 0, "bf16": 0} for n in rd["launches"]))]
+
+        # data-parallel steps against one rank's on the global batch
+        dp = r0["dp"]
+        report["dp"] = {"bvrnn": dp["bvrnn_gaps"], "gan": dp["gan_gaps"], "bvrnn_ms": dp["bvrnn_ms"],
+                        "gan_ms": dp["gan_ms"], "batch": PAR_TRAIN_BATCH,
+                        "ranks_equal": all(r["dp"]["bvrnn"] == dp["bvrnn"] and
+                                           r["dp"]["gan"] == dp["gan"] for r in ranks)}
+        bg, gg = dp["bvrnn_gaps"], dp["gan_gaps"]
+        gates += [(f"DP BVRNN step metrics {bg['metric_rel']} <= {DP_TOL}",
+                   bg["metric_rel"] <= DP_TOL),
+                  (f"DP BVRNN step params {bg['param_abs']} <= {DP_TOL}", bg["param_abs"] <= DP_TOL),
+                  (f"DP GAN metrics {gg['metric_rel_step0']}, {gg['d']['metric_rel']} <= {DP_TOL}",
+                   max(gg["metric_rel_step0"], gg["d"]["metric_rel"]) <= DP_TOL),
+                  (f"DP GAN params D {gg['d']['param_abs']}, G {gg['g']['param_abs']} <= {DP_TOL}",
+                   max(gg["d"]["param_abs"], gg["g"]["param_abs"]) <= DP_TOL),
+                  ("DP metrics equal on every rank", report["dp"]["ranks_equal"])]
+
+        t = time.time()
+        report["engines"] = parallel_engines(codec, wav, codes.cpu().numpy(), bundle, gates)
+        report["engines"]["seconds"] = time.time() - t
+        report["cli"] = cli.finish(gates)
+    finally:
+        cli.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        pool.shutdown(wait=False)
     set_parity_mode()
     failed = [what for what, ok in gates if not ok]
+    report["finish_seconds"] = time.time() - t1
     emit("parallel", t0, **report, gates=len(gates), failed=failed)
     if failed:
         raise AssertionError(f"parallel: {len(failed)} gates failed: {failed}")
@@ -3347,10 +3576,14 @@ def daemon_checks(codec: BVRNNCodecModel, proc: subprocess.Popen, log: str, t0: 
     frames = speech.shape[0] // hop
     want = {"ticks": {"serve": frames, "decode": 0},
             "k1_launches": {"float32": 0, "bf16": 12 * frames}}
+    counts = {k: (out["served"] or {}).get(k) for k in want}
 
     fast = BVRNNCodecModel(config=codec.conf, bvrnn_params=codec.bvrnn_params,
                            vocoder_params=codec.vocoder_params, precision="default", device=DEV)
     _, ref = solo_serve(fast, speech, BITRATE, EVAL_DAEMON_SLOTS)
+    out["tf32_here"] = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                        "cudnn": torch.backends.cudnn.allow_tf32}
+    out["unpinned_gaps"] = unpinned_gaps(fast, speech, ref)
     same = audio.shape == ref.shape
     out["gap_vs_engine"] = float(np.abs(audio - ref).max()) if same else None
     out["bitwise_vs_engine"] = same and bool(np.array_equal(audio, ref))
@@ -3358,11 +3591,32 @@ def daemon_checks(codec: BVRNNCodecModel, proc: subprocess.Popen, log: str, t0: 
                in line),
               (f"daemon resynthesis {audio.shape} of {speech.shape}, finite",
                audio.shape == speech.shape and bool(np.isfinite(audio).all())),
-              (f"daemon audio against the in-process fast engine {out['gap_vs_engine']} <= "
-               f"{STREAM_FAST_TOL}", same and out["gap_vs_engine"] <= STREAM_FAST_TOL),
+              (f"daemon audio bitwise the in-process fast engine's (gap {out['gap_vs_engine']})",
+               out["bitwise_vs_engine"]),
               (f"serve_daemon exit code on SIGTERM {out['rc']} == 0", out["rc"] == 0),
-              (f"serve_daemon served {out['served']} == {want}", out["served"] == want)]
+              (f"serve_daemon served {counts} == {want}", counts == want)]
     return out
+
+
+def unpinned_gaps(codec: BVRNNCodecModel, speech: np.ndarray, ref: np.ndarray) -> dict:
+    """The daemon's in-process engine run again with ``ops.conv``'s per-call
+    TF32 pin taken out and cuDNN's TF32 flag set each way: each run's
+    largest gap from ``ref``, the pinned run (where a process's flag moves
+    the fast audio, these differ)."""
+    from bvsc_tpu_torch.ops import conv as conv_mod
+
+    pin, flag = conv_mod._fp32, torch.backends.cudnn.allow_tf32
+    gaps = {}
+    try:
+        conv_mod._fp32 = lambda x: contextlib.nullcontext()
+        for on in (True, False):
+            torch.backends.cudnn.allow_tf32 = on
+            _, w = solo_serve(codec, speech, BITRATE, EVAL_DAEMON_SLOTS)
+            gaps[f"cudnn_allow_tf32_{on}"] = (float(np.abs(w - ref).max())
+                                              if w.shape == ref.shape else None)
+    finally:
+        conv_mod._fp32, torch.backends.cudnn.allow_tf32 = pin, flag
+    return gaps
 
 
 def train_vocoder_eval(proc: subprocess.Popen, log: str, gates: list) -> dict:
@@ -3569,12 +3823,23 @@ def main() -> None:
     plc_phase(codec, fast, wav, smi)
     golden_phase(codec, wav[0], smi)
     streaming_phase(codec, fast, wav, smi)
-    serving_phase(codec, fast, wav, smi)
-    entropy_phase(codec, wav[0], smi)
-    with tempfile.TemporaryDirectory(prefix="bvsc-bundle-") as keep:
-        bundle = export_phase(codec, fast, wav, smi, keep)
-        train_phase(wav, smi)
-        parallel_phase(codec, wav, smi, bundle)
+    exports = ExportCLIs(conf)  # beside phases serving, direct_path and entropy
+    try:
+        serving_phase(codec, fast, wav, smi)
+        direct_path_phase(codec, fast, wav, smi)
+        entropy_phase(codec, wav[0], smi)
+        with tempfile.TemporaryDirectory(prefix="bvsc-bundle-") as keep:
+            bundle = export_phase(codec, fast, wav, smi, keep, exports)
+            par = parallel_phase(codec, wav, smi)
+            next(par)  # its ranks and trainer CLI run beside phase train
+            try:
+                train_phase(wav, smi)
+                with contextlib.suppress(StopIteration):
+                    par.send(bundle)
+            finally:
+                par.close()
+    finally:
+        exports.close()
     eval_phase(codec, wav, smi)
     probe_entries = probes_phase()
 

@@ -133,13 +133,26 @@ def test_load_bvrnn_npz_matches_jax_loader():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"use_pallas": False}, {"use_pallas": False, "precision": "default"},
-    {"use_pallas": False, "quantize": "int8"}, {"bvrnn_chkpt_path": "bvrnn.pt"},
+    {"bvrnn_chkpt_path": "bvrnn.pt"},
     {"vocoder_chkpt_path": "voc/", "precision": "default"}, {"vocoder_chkpt_path": "voc/"},
 ])
 def test_unported_knobs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,approx,voc_dtype", [
+    ({"use_pallas": False}, False, "f32"),
+    ({"use_pallas": False, "precision": "default"}, True, "bf16"),
+    ({"use_pallas": False, "quantize": "int8"}, False, "f32"),
+])
+def test_use_pallas_false_builds_the_direct_path(kwargs, approx, voc_dtype):
+    """``use_pallas=False`` builds the direct path with the reference's
+    knob defaults: no packed blocks, the whole generator in the weights."""
+    c = BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", **kwargs)
+    assert (c.use_pallas, c.approx_snake, c.voc_dtype) == (False, approx, voc_dtype)
+    assert c.kernel_blocks is None and c.weights.direct
+    assert "resblocks" in c.weights.tree()["vocoder"] and "blocks" not in c.weights.tree()
 
 
 def test_default_device_is_cuda():

@@ -484,9 +484,12 @@ def test_entropy_representativeness_on_a_tiny_model(env, tmp_path, monkeypatch):
             assert r["frames"] == 2 * (frames // 4 * 4) and r["payload_bits_per_frame"] > 0
 
 
-def test_serve_daemon_cli_sigterm(env):
-    """``python -m bvsc_tpu_torch.cli.serve_daemon`` on the CPU serves one
-    resynthesis stream, then exits 0 on SIGTERM and reports a tick a frame."""
+@pytest.fixture(scope="module")
+def daemon_cli_run(env):
+    """``python -m bvsc_tpu_torch.cli.serve_daemon`` on the CPU (fast
+    serving, 2 slots) serving one resynthesis stream of whole hops, then
+    SIGTERM: (the stream's input, its audio, the exit code, the "served"
+    lines)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "bvsc_tpu_torch.cli.serve_daemon", *_args(env),
          "--bvrnn", str(env / "bvrnn.npz"), "--vocoder", str(env / "voc_1.npz"),
@@ -503,15 +506,46 @@ def test_serve_daemon_cli_sigterm(env):
             c.send_audio(x)
             c.close_input()
             out = c.drain()
-        assert out["audio"].shape == x.shape and np.isfinite(out["audio"]).all()
         proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=DAEMON_TIMEOUT) == 0
+        rc = proc.wait(timeout=DAEMON_TIMEOUT)
         served = [ln for ln in proc.stdout.read().splitlines() if ln.startswith("BVSP/1 served ")]
-        hop = load_config(str(env / "tiny.toml")).hopsize
-        assert len(served) == 1 and json.loads(served[0][len("BVSP/1 served "):]) == {
-            "ticks": {"serve": x.shape[0] // hop, "decode": 0},
-            "k1_launches": {"float32": 0, "bf16": 0}}, served  # no kernel on the CPU
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    return x, out["audio"], rc, served
+
+
+def test_serve_daemon_cli_sigterm(env, daemon_cli_run):
+    """The daemon CLI serves one resynthesis stream, then exits 0 on SIGTERM
+    and reports a tick a frame, no kernel launch on the CPU, and the
+    process's TF32 flags (PyTorch's defaults: the fast codec sets none)."""
+    x, audio, rc, served = daemon_cli_run
+    assert audio.shape == x.shape and np.isfinite(audio).all()
+    assert rc == 0
+    hop = load_config(str(env / "tiny.toml")).hopsize
+    assert len(served) == 1 and json.loads(served[0][len("BVSP/1 served "):]) == {
+        "ticks": {"serve": x.shape[0] // hop, "decode": 0},
+        "k1_launches": {"float32": 0, "bf16": 0},  # no kernel on the CPU
+        "tf32": {"matmul": False, "cudnn": True}}, served
+
+
+def test_serve_daemon_cli_audio_is_the_engines(env, daemon_cli_run):
+    """The daemon CLI's fast audio bitwise an in-process 2-slot fast
+    ServingEngine's on the same input, weights and bitrate (flushed as the
+    daemon's CLOSE flushes)."""
+    from bvsc_tpu_torch.codec import BVRNNCodecModel
+    from bvsc_tpu_torch.serve.engine import ServingEngine
+
+    x, audio, _, _ = daemon_cli_run
+    codec = BVRNNCodecModel(str(env / "tiny.toml"), bvrnn_chkpt_path=str(env / "bvrnn.npz"),
+                            vocoder_chkpt_path=str(env / "voc_1.npz"), precision="default",
+                            device="cpu")
+    eng = ServingEngine(codec, max_streams=2)
+    sid = eng.open_stream(200)
+    eng.push(sid, x)
+    eng.begin_flush(sid)
+    ref = []
+    while (out := eng.tick()):
+        ref.append(out[sid][1])
+    np.testing.assert_array_equal(audio, np.concatenate(ref)[: audio.shape[0]])

@@ -2,8 +2,11 @@
 precision='default', fused_cell=, quantize=) against bvsc_tpu.
 
 * The knobs resolve as bvsc_tpu.BVRNNCodecModel(..., use_pallas=True)
-  resolves them (the port's vocoder always runs the kernels), and raise
-  where it raises.
+  resolves them where the port runs the kernels (use_pallas=True, and the
+  port's default None unless approx_snake=True or a voc_dtype is passed),
+  and raise where it raises; the port's None with those knobs resolves as
+  bvsc_tpu's use_pallas=False (tests/test_torch_direct_path.py holds the
+  whole table).
 * On the CPU the port at 'default' runs the plain bf16 versions.  JAX's
   Precision.DEFAULT on this CPU computes float32, so these are the
   reference's contract checks, not bit checks: decode of the same codes
@@ -93,13 +96,18 @@ def test_knobs_resolve_as_jax_kernel_path(weights, precision, fused_cell, quanti
     kw = dict(precision=precision, fused_cell=fused_cell, quantize=quantize,
               approx_snake=approx_snake, voc_dtype=voc_dtype)
     ref = _resolved(lambda: _jax(weights, use_pallas=True, **kw))
-    assert _resolved(lambda: _port(weights, **kw)) == ref
     assert _resolved(lambda: _port(weights, use_pallas=True, **kw)) == ref
+    if approx_snake or voc_dtype is not None:
+        ref = _resolved(lambda: _jax(weights, use_pallas=False, **kw))
+    assert _resolved(lambda: _port(weights, **kw)) == ref
 
 
-def test_use_pallas_false_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(weights, precision="default", use_pallas=False)
+def test_use_pallas_false_runs_the_direct_path(weights):
+    codec = _port(weights, precision="default", use_pallas=False)
+    ref = _jax(weights, precision="default", use_pallas=False)
+    assert (codec.use_pallas, codec.approx_snake, codec.voc_dtype) == (False, True, "bf16")
+    assert (ref.approx_snake, ref.voc_dtype) == (True, "bf16")
+    assert codec.kernel_blocks is None and codec.weights.direct
 
 
 def test_fast_mode_leaves_tf32_flags(weights):

@@ -11,7 +11,7 @@ import torch
 from bvsc_tpu.config import CodecConfig as JCodecConfig
 from bvsc_tpu.models import vocoder as JV
 from bvsc_tpu_torch.config import CodecConfig
-from bvsc_tpu_torch.convert import vocoder_params_from_jax
+from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
 from bvsc_tpu_torch.models import vocoder as TV
 from test_torch_amp_resblock import perturbed_generator_params
 
@@ -75,9 +75,14 @@ def test_init_shapes_match_jax():
     ("layers_antialias", (False, True, False, False)),
     ("activation", "snake"),
 ])
-def test_unported_configs_raise(field, value):
+def test_variant_configs_run_the_direct_path_only(field, value):
+    """The variants init and run on the direct path; the kernels cover the
+    causal log-scale SnakeBeta family only, so their path refuses them."""
     import dataclasses
 
     cfg = dataclasses.replace(CodecConfig().vocoder_config, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.init_generator_params(0, cfg)
+    params = TV.init_generator_params(0, cfg)
+    y = TV.generator_apply(to_torch(params), cfg, torch.zeros(1, 80, 4) - 5, 4 * 256)
+    assert y.shape == (1, 1, 4 * 256) and torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="use_pallas"):
+        TV.prepare_kernel_params(to_torch(params), cfg)

@@ -58,12 +58,13 @@ def tp(n, kind, params, cfg_kwargs, z, y, bits, h0):
     return _np({"mel": mel, "h": h, "codes": codes, "h_enc": h_enc})
 
 
-def sp(n, kind, params, cfg, mel):
-    """generator_apply_sp on a seq mesh or a 2 x n/2 data x seq mesh."""
+def sp(n, kind, params, cfg, mel, kw=None):
+    """generator_apply_sp on a seq mesh or a 2 x n/2 data x seq mesh, with
+    the keyword arguments ``kw``."""
     from bvsc_tpu_torch.parallel import sp as S
 
     mesh = _mesh(kind, n, S.make_sp_mesh, S.make_dp_sp_mesh)
-    return _np(S.generator_apply_sp(params, cfg, mel, mesh))
+    return _np(S.generator_apply_sp(params, cfg, mel, mesh, **(kw or {})))
 
 
 def sp_errors(n, params, cfg, lengths):
@@ -83,15 +84,16 @@ def sp_errors(n, params, cfg, lengths):
     return out
 
 
-def pp(n, kind, bparams, bcfg_kwargs, vparams, vcfg, mel_mb, bits_mb):
-    """pipeline_resynth on a pipe mesh or a 2 x 2 data x pipe mesh."""
+def pp(n, kind, bparams, bcfg_kwargs, vparams, vcfg, mel_mb, bits_mb, kw=None):
+    """pipeline_resynth on a pipe mesh or a 2 x 2 data x pipe mesh, with the
+    keyword arguments ``kw``."""
     from bvsc_tpu_torch.models.bvrnn import BVRNNConfig
     from bvsc_tpu_torch.parallel import pp as P
 
     devices = ["cpu"] * n
     mesh = P.make_dp_pp_mesh(2, devices=devices) if kind == "2d" else P.make_pp_mesh(devices)
     codes, wav = P.pipeline_resynth(bparams, BVRNNConfig(**bcfg_kwargs), vparams, vcfg,
-                                    mel_mb, bits_mb, mesh)
+                                    mel_mb, bits_mb, mesh, **(kw or {}))
     return _np({"codes": codes, "wav": wav})
 
 
