@@ -184,7 +184,7 @@ def main(argv=None) -> None:
             if conf.bits_per_frame(args.bitrate) != conf.z_dim:
                 raise SystemExit(f"fixed-bitrate config: only --bitrate {full:.0f} "
                                  f"(= {conf.z_dim} bits/frame) is valid, got {args.bitrate}")
-        codes = codec.encode(wav[None, :], args.bitrate)[0].cpu().numpy()
+        codes = codec.encode(wav[None, :], args.bitrate)[0].float().cpu().numpy()
         write_bvsc(args.output, codes, conf.bits_per_frame(args.bitrate), fs,
                    coder=coder_factory() if args.entropy else None)
         size = os.path.getsize(args.output)

@@ -24,6 +24,10 @@ Knobs, resolved as the reference resolves them:
   defaults to ``'auto'``; on the direct path ``approx_snake`` and
   ``voc_dtype='bf16'`` default on;
 * ``quantize='int8'`` / ``'int8_mixed'``: weight-only int8 BVRNN weights;
+* ``dtype``: the storage type, float32 or bf16 (every weight and the
+  recurrent state in bf16, the BVRNN and the vocoder computing in bf16 on
+  either path, the kernels with bf16 activations in and out; the codes in
+  bf16, the waveform in float32);
 * ``use_pallas``: True is the kernel path, False the direct one; None (the
   default) is the kernel path where it covers the config and neither
   ``approx_snake=True`` nor a ``voc_dtype`` was asked for, and the direct
@@ -72,22 +76,30 @@ DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
 _VOCODER_NPZ = ("a flat .npz written by tools/export_vocoder_npz.py on a host with JAX "
                 "(ROADMAP.md, queue 1, item 3a)")
 _BVRNN_CHECKPOINTS = "BVRNN checkpoints other than the flat .npz (ROADMAP.md, queue 1, item 3)"
-_BF16_STORAGE = "the bf16 storage dtype (ROADMAP.md, 'The bf16 storage dtype')"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {item}")
 
 
-def _is_float32(dtype) -> bool:
-    """Whether ``dtype`` names float32: ``torch.float32``, or anything numpy
-    reads as float32 (``np.float32``, ``"float32"``, JAX's ``float32``)."""
+def storage_dtype(dtype) -> torch.dtype:
+    """``torch.float32`` or ``torch.bfloat16`` from any name of one:
+    a torch dtype, a string (``"float32"``, ``"bfloat16"``), or a numpy or
+    JAX scalar type (``np.float32``, ``jnp.float32``, ``jnp.bfloat16``),
+    read by name, so no JAX import is needed.  Any other type raises
+    ValueError: the reference documents these two."""
     if isinstance(dtype, torch.dtype):
-        return dtype == torch.float32
-    try:
-        return np.dtype(dtype) == np.float32
-    except TypeError:
-        return False
+        name = str(dtype).removeprefix("torch.")
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = getattr(dtype, "__name__", repr(dtype))
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype!r}")
+    return getattr(torch, name)
 
 
 def _host_array(x) -> np.ndarray:
@@ -107,7 +119,7 @@ def host_bvrnn_params(conf: CodecConfig, bvrnn_chkpt_path: str | None = None,
     """The BVRNN weights ``BVRNNCodecModel(config=conf, bvrnn_chkpt_path=,
     seed=)`` loads, on the host: the flat ``.npz`` checkpoint, or without one
     the random init from ``seed``.  ``entropy.PriorEntropyCoder`` takes
-    these."""
+    these (or a bf16 codec's own ``bvrnn_params``, widened exactly)."""
     if bvrnn_chkpt_path is None:
         cfg = bvrnn_mod.BVRNNConfig(x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim)
         return bvrnn_mod.init_bvrnn_params(_seeds(seed)[0], cfg,
@@ -205,7 +217,7 @@ class CodecWeights:
 
 
 def _h_init(w: CodecWeights, batch, device) -> torch.Tensor:
-    return torch.zeros(batch, w.bvrnn_cfg.h_dim, device=device)
+    return torch.zeros(batch, w.bvrnn_cfg.h_dim, device=device, dtype=w.bvrnn_cfg.dtype)
 
 
 def _mel_impl(w: CodecWeights, x: torch.Tensor) -> torch.Tensor:
@@ -224,8 +236,8 @@ def _generator_impl(w: CodecWeights, mel: torch.Tensor, length: int) -> torch.Te
             compute_dtype=w.voc_compute_dtype,
             approx_snake=w.approx_snake)[:, 0, :].to(torch.float32)
     return voc_mod.generator_apply_kernel(
-        w.vocoder, w.blocks, w.vocoder_cfg, mel, length, precision=w.precision,
-        compute_dtype=w.voc_compute_dtype)[:, 0, :]
+        w.vocoder, w.blocks, w.vocoder_cfg, mel.to(w.voc_dtype), length, precision=w.precision,
+        compute_dtype=w.voc_compute_dtype)[:, 0, :].to(torch.float32)
 
 
 def _encode_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -248,7 +260,7 @@ def _forward_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor, n_frames
     are 0.5, as ``decode`` pads them) -> waveform (B, length)."""
     mel = _mel_impl(w, x)
     B, T, _ = mel.shape
-    valid = (torch.arange(T, device=x.device) < n_frames).to(torch.float32)
+    valid = (torch.arange(T, device=x.device) < n_frames).to(w.bvrnn_cfg.dtype)
     _, dec_mel, _ = bvrnn_mod.encode_decode(w.scan, w.bvrnn_cfg, mel, bits,
                                             _h_init(w, B, x.device), frame_valid=valid.expand(B, T))
     return _generator_impl(w, dec_mel.transpose(1, 2), length) / SCALING
@@ -325,16 +337,20 @@ class BVRNNCodecModel:
         segment's type; None is ``'bf16'`` at ``'default'``, ``'f32'`` at
         ``'highest'``.  ``use_pallas``, ``approx_snake`` and ``voc_dtype``
         hold what runs once the codec is built.
-        dtype: the weights' storage type; float32 (``torch.float32``,
-        ``np.float32`` or ``"float32"``) is the one ported, any other raises
-        NotImplementedError.
+        dtype: the storage type of the weights and the recurrent state,
+        float32 or bf16, by any name (:func:`storage_dtype`: ``torch.bfloat16``,
+        ``jnp.bfloat16``, ``"bfloat16"``, ...); any other raises ValueError.
+        Under bf16 every parameter is rounded once to bf16, the BVRNN runs in
+        bf16 (``models.bvrnn``), ``encode`` returns bf16 codes and the
+        vocoder runs in bf16 on either path: the kernels with bf16
+        activations in and out (``ops.amp_resblock``), or the direct path's
+        convs and snakes on the bf16 weights.  The waveform comes back in
+        float32.
         scan_unroll: the reference's ``lax.scan`` unroll factor, an int
         >= 1; it changes only scheduling there, and nothing in the port."""
-        if not _is_float32(dtype):
-            raise _not_ported(f"dtype={dtype!r}", _BF16_STORAGE)
+        self.dtype = storage_dtype(dtype)
         if int(scan_unroll) != scan_unroll or scan_unroll < 1:
             raise ValueError(f"scan_unroll must be an int >= 1, got {scan_unroll!r}")
-        self.dtype = torch.float32
         self.precision = resolve_precision(precision)
         fast = self.precision == "default"
         if fused_cell not in (None, True, False, "auto"):
@@ -354,12 +370,15 @@ class BVRNNCodecModel:
         conf = self.conf
         self.use_pallas, self.approx_snake, self.voc_dtype = resolve_vocoder_path(
             conf.vocoder_config, fast, use_pallas, approx_snake, voc_dtype)
+        bf16 = self.dtype == torch.bfloat16
+        if bf16 and not self.use_pallas:
+            self.voc_dtype = "bf16"  # the weights are bf16 whatever the segment's cast
         if not fast:
             set_parity_mode()
         self.length_bucket = length_bucket
         self.bvrnn_cfg = bvrnn_mod.BVRNNConfig(
             x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim, var_bit=conf.var_bit,
-            precision=self.precision, fused_cell=self.fused_cell,
+            precision=self.precision, fused_cell=self.fused_cell, dtype=self.dtype,
         )
         self.frontend = MelFrontend(
             sampling_rate=conf.fs,
@@ -379,7 +398,7 @@ class BVRNNCodecModel:
                                                                conf.vocoder_config)
             else:
                 vocoder_params = load_vocoder_npz(vocoder_chkpt_path)
-        self.bvrnn_params = to_torch(bvrnn_params, self.device)
+        self.bvrnn_params = to_torch(bvrnn_params, self.device, dtype=self.dtype)
         if quantize == "int8":
             self.bvrnn_params = quant.quantize_bvrnn_params(self.bvrnn_params)
         elif quantize == "int8_mixed":
@@ -390,20 +409,19 @@ class BVRNNCodecModel:
         self.voc_compute_dtype = torch.bfloat16 if fast else torch.float32
         # weights cast once to the precision's type (and the fused cell's)
         self.scan_params = bvrnn_mod.prepare(self.bvrnn_params, self.bvrnn_cfg)
-        self.vocoder_params = to_torch(vocoder_params, self.device)
+        self.vocoder_params = to_torch(vocoder_params, self.device, dtype=self.dtype)
+        # the vocoder segment's type: bf16 under bf16 storage on either path
+        seg = torch.bfloat16 if bf16 or self.voc_dtype == "bf16" else torch.float32
         if self.use_pallas:
             self.kernel_blocks = voc_mod.prepare_kernel_params(self.vocoder_params,
                                                                conf.vocoder_config)
             voc = self.vocoder_params
         else:
             self.kernel_blocks = None
-            voc = voc_mod.prepare_direct_params(
-                self.vocoder_params, conf.vocoder_config,
-                torch.bfloat16 if self.voc_dtype == "bf16" else torch.float32)
+            voc = voc_mod.prepare_direct_params(self.vocoder_params, conf.vocoder_config, seg)
         self.weights = CodecWeights(
             self.frontend, self.scan_params, voc, self.kernel_blocks, self.bvrnn_cfg,
-            conf.vocoder_config, self.voc_compute_dtype, self.approx_snake,
-            torch.bfloat16 if self.voc_dtype == "bf16" else torch.float32)
+            conf.vocoder_config, self.voc_compute_dtype, self.approx_snake, seg)
 
     # -- helpers ------------------------------------------------------------
 
@@ -444,7 +462,7 @@ class BVRNNCodecModel:
         return _generator_impl(self.weights, mel, length) / SCALING
 
     def _h0(self, batch: int) -> torch.Tensor:
-        return torch.zeros(batch, self.bvrnn_cfg.h_dim, device=self.device)
+        return torch.zeros(batch, self.bvrnn_cfg.h_dim, device=self.device, dtype=self.dtype)
 
     def _pad_codes(self, codes: torch.Tensor, frames: int) -> torch.Tensor:
         return torch.nn.functional.pad(codes, (0, 0, 0, frames - codes.shape[1]), value=0.5)
@@ -454,7 +472,7 @@ class BVRNNCodecModel:
     @torch.no_grad()
     def encode(self, x, bitrate) -> torch.Tensor:
         """(batch, length) or (length,) waveform -> codes (batch, frames,
-        z_dim) in {0, 0.5, 1}.  ``bitrate`` in bits/s, a scalar or a
+        z_dim) in {0, 0.5, 1}, in the storage dtype.  ``bitrate`` in bits/s, a scalar or a
         per-frame schedule of shape (frames,) or (batch, frames)."""
         x, squeeze = self._as_input(x, 2, "waveform")
         L = x.shape[1]

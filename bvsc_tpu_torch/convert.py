@@ -3,7 +3,8 @@
 * :func:`bvrnn_params_from_jax` and :func:`vocoder_params_from_jax` take the
   JAX package's parameter trees (nested dicts and lists of arrays, already
   converted to numpy by the caller) and return the port's trees of float32
-  tensors.  The layouts are the same on both sides, so this is a walk over
+  tensors, or of bf16 ones with ``dtype=torch.bfloat16`` (each value rounded
+  once, as the reference's ``astype`` rounds it).  The layouts are the same on both sides, so this is a walk over
   the tree; weight-normed vocoder convs (``g``, ``v``) are folded to ``w``.
 * Training state: :func:`bvrnn_params_from_jax` keeps ``log_sigma`` and the
   mel statistics, :func:`generator_train_params_from_jax` keeps the
@@ -15,7 +16,9 @@
   of the ``.npz`` files and the trainers' checkpoints.
 * :func:`load_bvrnn_npz` reads the flat ``a/0/b``-keyed ``.npz`` BVRNN
   checkpoints of ``chkpts/`` with numpy alone (the counterpart of
-  ``bvsc_tpu/codec.py:_unflatten_npz``); float16 values widen to float32.
+  ``bvsc_tpu/codec.py:_unflatten_npz``); float16 values widen to float32,
+  or with ``dtype=torch.bfloat16`` round once to bf16, as
+  ``_unflatten_npz(z, jnp.bfloat16)`` rounds them.
 * :func:`load_vocoder_npz` reads a vocoder written in the same layout by
   ``tools/export_vocoder_npz.py`` (weight norm already folded).
 """
@@ -28,19 +31,23 @@ import torch
 from bvsc_tpu_torch.ops.conv import fold_weight_norm
 
 
-def to_torch(tree, device: str | torch.device = "cpu", copy: bool = False):
+def to_torch(tree, device: str | torch.device = "cpu", copy: bool = False,
+             dtype: torch.dtype = torch.float32):
     """Map every leaf (array or tensor) of a nested dict/list tree to a
-    float32 tensor on ``device``; with ``copy`` each leaf is a new tensor,
-    detached (a trainer's own weights, which it updates in place)."""
+    ``dtype`` (float32 or bf16) tensor on ``device``; with ``copy`` each
+    leaf is a new tensor, detached (a trainer's own weights, which it
+    updates in place).  Arrays go through float32 first: exact for the
+    float16 and float32 values of the checkpoints, so a bf16 leaf is
+    rounded once."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, copy) for k, v in tree.items()}
+        return {k: to_torch(v, device, copy, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [to_torch(v, device, copy) for v in tree]
+        return [to_torch(v, device, copy, dtype) for v in tree]
     if isinstance(tree, torch.Tensor):
         if copy:
-            return tree.detach().to(device=device, dtype=torch.float32, copy=True)
-        return tree.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(tree, np.float32), device=device)
+            return tree.detach().to(device=device, dtype=dtype, copy=True)
+        return tree.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(tree, np.float32), device=device).to(dtype)
 
 
 def _fold_weight_norm(tree):
@@ -54,14 +61,17 @@ def _fold_weight_norm(tree):
     return tree
 
 
-def bvrnn_params_from_jax(tree) -> dict:
-    """JAX BVRNN params -> port params (same keys, (in, out) linear weights)."""
-    return to_torch(tree)
+def bvrnn_params_from_jax(tree, dtype: torch.dtype = torch.float32) -> dict:
+    """JAX BVRNN params -> port params (same keys, (in, out) linear
+    weights) in ``dtype``."""
+    return to_torch(tree, dtype=dtype)
 
 
-def vocoder_params_from_jax(tree) -> dict:
-    """JAX generator params -> port inference params (weight norm folded)."""
-    return _fold_weight_norm(to_torch(tree))
+def vocoder_params_from_jax(tree, dtype: torch.dtype = torch.float32) -> dict:
+    """JAX generator params -> port inference params (weight norm folded,
+    in float32, then the tree in ``dtype``)."""
+    folded = _fold_weight_norm(to_torch(tree))
+    return folded if dtype == torch.float32 else to_torch(folded, dtype=dtype)
 
 
 def generator_train_params_from_jax(tree) -> dict:
@@ -112,18 +122,20 @@ def unflatten_tree(flat: dict):
     return listify(tree)
 
 
-def _load_flat_npz(path: str) -> dict:
-    """Flat ``a/0/b``-keyed npz -> nested tree of float32 tensors."""
+def _load_flat_npz(path: str, dtype: torch.dtype = torch.float32) -> dict:
+    """Flat ``a/0/b``-keyed npz -> nested tree of ``dtype`` tensors."""
     with np.load(path) as z:
-        return to_torch(unflatten_tree({k: np.asarray(z[k], np.float32) for k in z.files}))
+        return to_torch(unflatten_tree({k: np.asarray(z[k], np.float32) for k in z.files}),
+                        dtype=dtype)
 
 
-def load_bvrnn_npz(path: str) -> dict:
-    """A flat BVRNN ``.npz`` -> the port's BVRNN tree."""
-    return _load_flat_npz(path)
+def load_bvrnn_npz(path: str, dtype: torch.dtype = torch.float32) -> dict:
+    """A flat BVRNN ``.npz`` -> the port's BVRNN tree in ``dtype``."""
+    return _load_flat_npz(path, dtype)
 
 
-def load_vocoder_npz(path: str) -> dict:
+def load_vocoder_npz(path: str, dtype: torch.dtype = torch.float32) -> dict:
     """A flat vocoder ``.npz`` (``tools/export_vocoder_npz.py``) -> the
-    port's generator tree, the one :func:`vocoder_params_from_jax` returns."""
-    return vocoder_params_from_jax(_load_flat_npz(path))
+    port's generator tree in ``dtype``, the one :func:`vocoder_params_from_jax`
+    returns."""
+    return vocoder_params_from_jax(_load_flat_npz(path), dtype)

@@ -10,7 +10,18 @@
 // sinf is the precise one: __sinf is not float32-accurate at these
 // arguments).  Parity mode: float32 products and sums, no TF32, no bf16.
 //
-// Layout: x and y are (B, C, T) contiguous float32; the conv weights come
+// Activations in and out: x and y are float32, or under the bf16 storage
+// dtype bf16 (the TPU kernel's out_dtype = x.dtype): the I/O element type is
+// a template parameter, the window load widens a bf16 input to float32
+// exactly (as _amp_kernel does before its body), everything in between is
+// the float32 computation described here, and the final store rounds once
+// to nearest-even bf16 (__float2bfloat16_rn, as _amp_kernel's
+// astype(out_dtype)).  A bf16 call reads and writes half the bytes.  This
+// file builds the float32 entry points; amp_resblock_io_bf16.cu includes it
+// with AMP_RESBLOCK_IO_BF16 defined to build the bf16 one, so that nvcc
+// compiles the two sets of instantiations in parallel.
+//
+// Layout: x and y are (B, C, T) contiguous; the conv weights come
 // packed by the wrapper as (3, C_in, k, C_out), so the C_out weights of one
 // (c_in, tap) are contiguous.  One thread block owns one batch row and one
 // tile of `tile` output samples, all C channels.  It loads x[b, :, t0 - H :
@@ -69,6 +80,7 @@
 // halo between tiles (a cluster with distributed shared memory could), or
 // overlap one conv's weight fetch from L2 with the previous conv at C = 64.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -101,6 +113,18 @@ template <int C, int K>
 constexpr size_t smem_floats(int L) {
   return 3 * static_cast<size_t>(C) * L + 2 * kSlack +
          (Blocking<C>::smem_weights ? static_cast<size_t>(C) * C * K : 0);
+}
+
+// The I/O element type's load (widening, exact) and store (one rounding).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class IO>
+__device__ __forceinline__ IO narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ float snake_beta(float v, float a, float inv_b) {
@@ -201,8 +225,8 @@ __device__ __forceinline__ void conv_window(const float* src, float* dst, const 
 }
 
 struct Args {
-  const float* x;
-  float* y;
+  const void* x;       // (B, C, ctx + T) of the I/O type
+  void* y;             // (B, C, T) of the I/O type
   const float* w1;     // (3, C_in, k, C_out), packed
   const float* b1;     // (3, C)
   const float* w2;     // (3, C_in, k, C_out), packed
@@ -214,7 +238,7 @@ struct Args {
   int d[kUnits];
 };
 
-template <int C, int K>
+template <int C, int K, class IO>
 __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args p) {
   using G = Blocking<C>;
   extern __shared__ float4 smem4[];
@@ -228,12 +252,12 @@ __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args
   const int g0 = t0 - p.halo;                         // output column of buffer column 0
   const int s0 = g0 + (p.start ? __ldg(p.start + b) : 0);  // its stream time
   const int T = p.T, Tin = p.ctx + p.T;
-  const float* xb = p.x + static_cast<size_t>(b) * C * Tin;
+  const IO* xb = static_cast<const IO*>(p.x) + static_cast<size_t>(b) * C * Tin;
 
   for_window<C, G::warps>(0, L, [&](int c, int i) {
     const int g = p.ctx + g0 + i;  // input column
     xs[c * L + i] =
-        (g >= 0 && g < Tin && s0 + i >= 0) ? xb[static_cast<size_t>(c) * Tin + g] : 0.0f;
+        (g >= 0 && g < Tin && s0 + i >= 0) ? widen(xb[static_cast<size_t>(c) * Tin + g]) : 0.0f;
   });
   __syncthreads();
 
@@ -269,10 +293,10 @@ __global__ void __launch_bounds__(Blocking<C>::threads) amp_resblock_kernel(Args
     __syncthreads();
   }
 
-  float* yb = p.y + static_cast<size_t>(b) * C * T;
+  IO* yb = static_cast<IO*>(p.y) + static_cast<size_t>(b) * C * T;
   const int n = T - t0 < p.tile ? T - t0 : p.tile;
   for_window<C, G::warps>(0, n, [&](int c, int i) {
-    yb[static_cast<size_t>(c) * T + t0 + i] = xs[c * L + p.halo + i];
+    yb[static_cast<size_t>(c) * T + t0 + i] = narrow<IO>(xs[c * L + p.halo + i]);
   });
 }
 
@@ -282,26 +306,28 @@ bool dilations_ok(const int (&d)[kUnits]) {
   return true;
 }
 
-template <int C, int K>
+template <int C, int K, class IO>
 int launch(const Args& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<C, K>(p.halo + p.tile);
-  cudaError_t err = cudaFuncSetAttribute(amp_resblock_kernel<C, K>,
+  cudaError_t err = cudaFuncSetAttribute(amp_resblock_kernel<C, K, IO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.T + p.tile - 1) / p.tile, B);
-  amp_resblock_kernel<C, K><<<grid, Blocking<C>::threads, smem, stream>>>(p);
+  amp_resblock_kernel<C, K, IO><<<grid, Blocking<C>::threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The two entry points' bodies, one per (C, K) instantiation.
+// The entry points' bodies, one per (C, K, I/O type) instantiation.
+template <class IO>
 struct Launch {
   const Args& p;
   int B;
   cudaStream_t stream;
   template <int C, int K>
-  int run() const { return launch<C, K>(p, B, stream); }
+  int run() const { return launch<C, K, IO>(p, B, stream); }
 };
+
 
 struct Plan {
   int L;
@@ -338,7 +364,20 @@ int dispatch(int C, int k, const F& f) {
   }
 }
 
+template <class IO>
+int launch_entry(const void* x, void* y, const float* w1, const float* b1, const float* w2,
+                 const float* b2, const float* alpha, const float* inv_beta, const int* start,
+                 int B, int C, int T, int ctx, int k, int d0, int d1, int d2, int tile,
+                 void* stream) {
+  Args p{x, y, w1, b1, w2, b2, alpha, inv_beta, start, T, ctx, tile, 0, {d0, d1, d2}};
+  if (!dilations_ok(p.d) || tile <= 0 || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
+  return dispatch(C, k, Launch<IO>{p, B, static_cast<cudaStream_t>(stream)});
+}
+
 }  // namespace
+
+#ifndef AMP_RESBLOCK_IO_BF16
 
 // Launches one resblock on `stream` (a cudaStream_t): x (B, C, ctx + T),
 // y (B, C, T), start null or (B,) int32 (see the header).  Returns the CUDA
@@ -349,10 +388,8 @@ extern "C" int amp_resblock_f32(const float* x, float* y, const float* w1, const
                                 const float* w2, const float* b2, const float* alpha,
                                 const float* inv_beta, const int* start, int B, int C, int T,
                                 int ctx, int k, int d0, int d1, int d2, int tile, void* stream) {
-  Args p{x, y, w1, b1, w2, b2, alpha, inv_beta, start, T, ctx, tile, 0, {d0, d1, d2}};
-  if (!dilations_ok(p.d) || tile <= 0 || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
-  p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
-  return dispatch(C, k, Launch{p, B, static_cast<cudaStream_t>(stream)});
+  return launch_entry<float>(x, y, w1, b1, w2, b2, alpha, inv_beta, start, B, C, T, ctx, k, d0,
+                             d1, d2, tile, stream);
 }
 
 // The launch's shape for (C, k, d0..d2, tile): out[0] threads per block,
@@ -364,3 +401,18 @@ extern "C" int amp_resblock_f32_plan(int C, int k, int d0, int d1, int d2, int t
   const int L = (k - 1) * (d0 + d1 + d2 + kUnits) + tile;
   return dispatch(C, k, Plan{L, out});
 }
+
+#else  // AMP_RESBLOCK_IO_BF16
+
+// amp_resblock_f32 with bf16 activations: x (B, C, ctx + T) and y (B, C, T)
+// bf16 (widened on load, rounded once on store), everything else as there.
+extern "C" int amp_resblock_f32_io_bf16(const void* x, void* y, const float* w1, const float* b1,
+                                        const float* w2, const float* b2, const float* alpha,
+                                        const float* inv_beta, const int* start, int B, int C,
+                                        int T, int ctx, int k, int d0, int d1, int d2, int tile,
+                                        void* stream) {
+  return launch_entry<__nv_bfloat16>(x, y, w1, b1, w2, b2, alpha, inv_beta, start, B, C, T, ctx,
+                                     k, d0, d1, d2, tile, stream);
+}
+
+#endif  // AMP_RESBLOCK_IO_BF16

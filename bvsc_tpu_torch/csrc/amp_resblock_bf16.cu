@@ -11,7 +11,15 @@
 // activations) are rounded to nearest-even bf16, the products are summed in
 // float32, and snake (exact sinf, 1e-9 in the divisor), the bias, the
 // sequence-start mask and the residual stay float32.  x and y are (B, C, T)
-// contiguous float32.
+// contiguous, float32, or under the bf16 storage dtype bf16 (the TPU
+// kernel's out_dtype = x.dtype): the I/O element type is a template
+// parameter; a bf16 window is read with plain loads and widened to the
+// float32 residual exactly (cp.async copies float32 only: it moves 4, 8 or
+// 16 bytes), and the final store rounds once to nearest-even bf16
+// (__float2bfloat16_rn, as _amp_kernel's astype(out_dtype)).  This file
+// builds the float32-I/O entry points; amp_resblock_bf16_io_bf16.cu includes
+// it with AMP_RESBLOCK_IO_BF16 defined to build the bf16 one, so that nvcc
+// compiles the two sets of instantiations in parallel.
 //
 // Tiling, as in amp_resblock.cu: one thread block owns one batch row and
 // one tile of `tile` output samples, all C channels, and recomputes the left
@@ -146,6 +154,18 @@ Layout layout(int L) {
   return s;
 }
 
+// The I/O element type's load (widening, exact) and store (one rounding).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class IO>
+__device__ __forceinline__ IO narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float snake_beta(float v, float a, float inv_b) {
   const float s = sinf(a * v);
   return v + inv_b * (s * s);
@@ -203,8 +223,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 struct Args {
-  const float* x;
-  float* y;
+  const void* x;            // (B, C, ctx + T) of the I/O type
+  void* y;                  // (B, C, T) of the I/O type
   const __nv_bfloat16* w1;  // (3, C, Kp) bf16, index [j][co][tap * C + ci]
   const float* b1;          // (3, C)
   const __nv_bfloat16* w2;  // (3, C, Kp) bf16
@@ -382,7 +402,7 @@ __device__ void conv_tc(uint32_t src, uint32_t ws, const float* __restrict__ bia
   }
 }
 
-template <int C, int K>
+template <int C, int K, class IO>
 __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threads)
     amp_resblock_bf16_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -401,19 +421,23 @@ __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threa
   const int g0 = t0 - p.halo;                              // output column of buffer column 0
   const int s0 = g0 + (p.start ? __ldg(p.start + b) : 0);  // its stream time
   const int T = p.T, Tin = p.ctx + p.T;
-  const float* xb = p.x + static_cast<size_t>(b) * C * Tin;
+  const IO* xb = static_cast<const IO*>(p.x) + static_cast<size_t>(b) * C * Tin;
 
   for (int i = threadIdx.x; i < 6 * C; i += Blocking<C>::threads) {
     alpha[i] = p.alpha[i];
     inv_b[i] = p.inv_b[i];
   }
   if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(smem + s.zero)[threadIdx.x] = 0u;
-  // the window, zero outside the input and before the stream's start, by
-  // cp.async: every load in flight at once
+  // the window, zero outside the input and before the stream's start: a
+  // float32 input by cp.async, every load in flight at once; a bf16 one
+  // loaded and widened
   for_window<C>(0, L, [&](int c, int i) {
     const int gt = p.ctx + g0 + i;  // input column
     const bool ok = gt >= 0 && gt < Tin && s0 + i >= 0;
-    cp_async4(smem_addr(xs + c * sx + i), ok ? xb + static_cast<size_t>(c) * Tin + gt : xb, ok);
+    if constexpr (sizeof(IO) == 4)
+      cp_async4(smem_addr(xs + c * sx + i), ok ? xb + static_cast<size_t>(c) * Tin + gt : xb, ok);
+    else
+      xs[c * sx + i] = ok ? widen(xb[static_cast<size_t>(c) * Tin + gt]) : 0.0f;
   });
   cp_async_commit();
   cp_async_wait<0>();
@@ -444,10 +468,10 @@ __global__ void __launch_bounds__(Blocking<C>::threads, 512 / Blocking<C>::threa
     __syncthreads();
   }
 
-  float* yb = p.y + static_cast<size_t>(b) * C * T;
+  IO* yb = static_cast<IO*>(p.y) + static_cast<size_t>(b) * C * T;
   const int n = T - t0 < p.tile ? T - t0 : p.tile;
   for_window<C>(0, n, [&](int c, int i) {
-    yb[static_cast<size_t>(c) * T + t0 + i] = xs[c * sx + p.halo + i];
+    yb[static_cast<size_t>(c) * T + t0 + i] = narrow<IO>(xs[c * sx + p.halo + i]);
   });
 }
 
@@ -457,25 +481,26 @@ bool shape_ok(const int (&d)[kUnits], int tile) {
   return tile > 0 && tile % 16 == 0;
 }
 
-template <int C, int K>
+template <int C, int K, class IO>
 int launch(Args p, int B, cudaStream_t stream) {
   p.lay = layout<C, K>(p.L);
   if (p.lay.bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(amp_resblock_bf16_kernel<C, K>,
+  cudaError_t err = cudaFuncSetAttribute(amp_resblock_bf16_kernel<C, K, IO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, p.lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.T + p.tile - 1) / p.tile, B);
-  amp_resblock_bf16_kernel<C, K><<<grid, Blocking<C>::threads, p.lay.bytes, stream>>>(p);
+  amp_resblock_bf16_kernel<C, K, IO><<<grid, Blocking<C>::threads, p.lay.bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The two entry points' bodies, one per (C, K) instantiation.
+// The entry points' bodies, one per (C, K, I/O type) instantiation.
+template <class IO>
 struct Launch {
   const Args& p;
   int B;
   cudaStream_t stream;
   template <int C, int K>
-  int run() const { return launch<C, K>(p, B, stream); }
+  int run() const { return launch<C, K, IO>(p, B, stream); }
 };
 
 struct Plan {
@@ -491,11 +516,11 @@ struct Plan {
     out[4] = s.weight_buffers;
     out[5] = 0;  // blocks an SM holds at once (0: the window does not fit)
     if (s.bytes > kSmemLimit) return 0;
-    cudaError_t err = cudaFuncSetAttribute(amp_resblock_bf16_kernel<C, K>,
+    cudaError_t err = cudaFuncSetAttribute(amp_resblock_bf16_kernel<C, K, float>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, s.bytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5, amp_resblock_bf16_kernel<C, K>,
-                                                          Blocking<C>::threads, s.bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out + 5, amp_resblock_bf16_kernel<C, K, float>, Blocking<C>::threads, s.bytes);
     return static_cast<int>(err);
   }
 };
@@ -522,7 +547,22 @@ int dispatch(int C, int k, const F& f) {
   }
 }
 
+template <class IO>
+int launch_entry(const void* x, void* y, const void* w1, const float* b1, const void* w2,
+                 const float* b2, const float* alpha, const float* inv_beta, const int* start,
+                 int B, int C, int T, int ctx, int k, int d0, int d1, int d2, int tile,
+                 void* stream) {
+  Args p{x, y, static_cast<const __nv_bfloat16*>(w1), b1, static_cast<const __nv_bfloat16*>(w2),
+         b2, alpha, inv_beta, start, T, ctx, tile, 0, 0, {d0, d1, d2}, Layout{}};
+  if (!shape_ok(p.d, tile) || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
+  p.L = p.halo + tile;
+  return dispatch(C, k, Launch<IO>{p, B, static_cast<cudaStream_t>(stream)});
+}
+
 }  // namespace
+
+#ifndef AMP_RESBLOCK_IO_BF16
 
 // One snake, alone: never launched.  Its SASS is what chip_smoke.py counts
 // (cuobjdump -sass) for the float32 instructions of one snake evaluation,
@@ -544,12 +584,8 @@ extern "C" int amp_resblock_bf16(const float* x, float* y, const void* w1, const
                                  const void* w2, const float* b2, const float* alpha,
                                  const float* inv_beta, const int* start, int B, int C, int T,
                                  int ctx, int k, int d0, int d1, int d2, int tile, void* stream) {
-  Args p{x, y, static_cast<const __nv_bfloat16*>(w1), b1, static_cast<const __nv_bfloat16*>(w2),
-         b2, alpha, inv_beta, start, T, ctx, tile, 0, 0, {d0, d1, d2}, Layout{}};
-  if (!shape_ok(p.d, tile) || ctx < 0) return static_cast<int>(cudaErrorInvalidValue);
-  p.halo = (k - 1) * (d0 + d1 + d2 + kUnits);
-  p.L = p.halo + tile;
-  return dispatch(C, k, Launch{p, B, static_cast<cudaStream_t>(stream)});
+  return launch_entry<float>(x, y, w1, b1, w2, b2, alpha, inv_beta, start, B, C, T, ctx, k, d0,
+                             d1, d2, tile, stream);
 }
 
 // The launch's shape for (C, k, d0..d2, tile): out[0] threads per block,
@@ -565,3 +601,19 @@ extern "C" int amp_resblock_bf16_plan(int C, int k, int d0, int d1, int d2, int 
   const int L = (k - 1) * (d0 + d1 + d2 + kUnits) + tile;
   return dispatch(C, k, Plan{L, out});
 }
+
+#else  // AMP_RESBLOCK_IO_BF16
+
+// amp_resblock_bf16 with bf16 activations: x (B, C, ctx + T) and y (B, C,
+// T) bf16 (widened on load, rounded once on store), everything else as
+// there.
+extern "C" int amp_resblock_bf16_io_bf16(const void* x, void* y, const void* w1, const float* b1,
+                                         const void* w2, const float* b2, const float* alpha,
+                                         const float* inv_beta, const int* start, int B, int C,
+                                         int T, int ctx, int k, int d0, int d1, int d2, int tile,
+                                         void* stream) {
+  return launch_entry<__nv_bfloat16>(x, y, w1, b1, w2, b2, alpha, inv_beta, start, B, C, T, ctx,
+                                     k, d0, d1, d2, tile, stream);
+}
+
+#endif  // AMP_RESBLOCK_IO_BF16

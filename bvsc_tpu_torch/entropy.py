@@ -127,12 +127,22 @@ def _dense_numpy(x: np.ndarray, w64: np.ndarray, b64: np.ndarray) -> np.ndarray:
 
 
 def _host_weight(a) -> np.ndarray:
+    """A host weight as float32 numpy; bf16 (the bf16 storage dtype's)
+    widens exactly, so the float64 pass runs on the stored values."""
     if isinstance(a, torch.Tensor):
         if a.device.type != "cpu":
             raise ValueError("the prior coder runs on the host: pass host weights "
                              "(numpy or CPU tensors, e.g. convert.load_bvrnn_npz)")
-        a = a.detach().numpy()
+        a = a.detach().to(torch.float32).numpy()
     return np.ascontiguousarray(a, np.float32)
+
+
+def _host_codes(codes) -> np.ndarray:
+    """Codes as float32 numpy: a tensor on any device and of either storage
+    dtype (bf16 has no numpy type; 0, 0.5 and 1 widen exactly)."""
+    if isinstance(codes, torch.Tensor):
+        codes = codes.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(codes, np.float32)
 
 
 def _is_float_weight(w) -> bool:
@@ -244,7 +254,7 @@ class PriorEntropyCoder:
         """codes: (frames, z_dim) {0,1} with 0.5 in masked positions (one
         stream's output of ``BVRNNCodecModel.encode``, on the host);
         returns the rANS payload for the first-k bits of every frame."""
-        codes = np.asarray(codes, np.float32)
+        codes = _host_codes(codes)
         frames, z_dim = codes.shape
         ks = _as_bits_per_frame(bits_per_frame, frames, z_dim)
         hard = (codes > 0.5 + 1e-6).astype(np.uint8)
@@ -286,7 +296,7 @@ class PriorEntropyCoder:
 
     def measure(self, codes: np.ndarray, bits_per_frame) -> dict:
         """Payload-size diagnostics: raw first-k bytes against entropy-coded."""
-        codes = np.asarray(codes, np.float32)
+        codes = _host_codes(codes)
         frames, z_dim = codes.shape
         ks = _as_bits_per_frame(bits_per_frame, frames, z_dim)
         payload = self.encode(codes, bits_per_frame)

@@ -17,6 +17,13 @@ GRU gates are packed [r|z|n].  Weights may also be weight-only int8 dicts
 cell's weights); the scans take its :class:`ScanParams` or, as the tests
 do, a raw tree, which they prepare on each call.
 
+``cfg.dtype`` is the storage type (the reference's ``BVRNNConfig.dtype``):
+float32, or bf16, where every parameter (biases and mel statistics too)
+is stored in bf16, the scans cast their inputs (mel, state, bit mask,
+codes) to bf16 as the reference does, and every product takes bf16
+operands to a bf16 result (``ops.precision.matmul_bf16``) at either
+precision; elementwise ops round to bf16 after each op.
+
 The frame recurrence is one step function per scan, run by :func:`_frames`:
 a Python loop, or, when the scan params are ``traced`` (a serving bundle's
 programs, ``serve.export``), ``torch._higher_order_ops.scan`` over the same
@@ -56,6 +63,7 @@ class BVRNNConfig:
     var_bit: bool = True
     precision: str = "highest"
     fused_cell: bool | str = False
+    dtype: torch.dtype = torch.float32  # storage: float32 or bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +122,23 @@ def init_bvrnn_params(
 
 def _matmul(x, w, precision):
     """``x @ w`` at ``precision`` for float weights or int8 dicts; bf16
-    operands (the bf16 training forward) give a bf16 product."""
+    operands (bf16 storage, the bf16 training forward) give a bf16
+    product."""
     if isinstance(w, dict):
         return dequant_matmul(x, w, precision)
     if x.dtype == torch.bfloat16:
-        return torch.matmul(x, w)
+        return P.matmul_bf16(x, w)
     return P.matmul(x, w, precision)
+
+
+def _sigmoid(x):
+    """The logistic function; in bf16 as the reference's XLA expands it,
+    ``1 / (1 + exp(-x))`` with each op rounded to bf16 (a single rounding
+    of the float32 sigmoid differs from it in the last bit for a third of
+    the inputs)."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
 
 
 def _dense(p, x, precision="highest"):
@@ -143,12 +162,12 @@ def phi_z_apply(params, z, precision="highest"):
 
 
 def enc_apply(params, x, precision="highest"):
-    return _mlp_elu(params["enc"], x, precision, torch.sigmoid)
+    return _mlp_elu(params["enc"], x, precision, _sigmoid)
 
 
 def prior_apply(params, h, precision="highest"):
     """The prior P(z_t | h_t): the concealment model of :func:`decode_plc`."""
-    return _mlp_elu(params["prior"], h, precision, torch.sigmoid)
+    return _mlp_elu(params["prior"], h, precision, _sigmoid)
 
 
 def dec_apply(params, x, precision="highest"):
@@ -163,16 +182,18 @@ def gru_step(gru: Params, x: torch.Tensor, h: torch.Tensor,
     gh = _matmul(h, gru["w_hh"], precision) + gru["b_hh"]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
+    r = _sigmoid(i_r + h_r)
+    z = _sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
     return (1.0 - z) * n + z * h
 
 
-def bit_mask_from_bitrate(var_bitrate: torch.Tensor, z_dim: int) -> torch.Tensor:
-    """First-k bit-priority mask: (B, T) bits/frame -> (B, T, z_dim) float."""
+def bit_mask_from_bitrate(var_bitrate: torch.Tensor, z_dim: int,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """First-k bit-priority mask: (B, T) bits/frame -> (B, T, z_dim) 0/1 in
+    ``dtype``."""
     bit_idx = torch.arange(z_dim, device=var_bitrate.device)
-    return (var_bitrate[..., None] > bit_idx).to(torch.float32)
+    return (var_bitrate[..., None] > bit_idx).to(dtype)
 
 
 def _apply_bit_mask(z, mask):
@@ -182,6 +203,10 @@ def _apply_bit_mask(z, mask):
 
 def _normalize(params, y):
     return (y - params["mean_mel"]) / params["std_mel"]
+
+
+def _bf16_storage(params) -> bool:
+    return params["std_mel"].dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +243,9 @@ def _fuse_inference_params(params: Params, cfg: BVRNNConfig) -> Params:
     """The fused cell's weights from a float tree.  ``w_fold`` and ``b_fold``
     are formed at full precision (float64 sums, rounded once to float32)
     whatever ``cfg.precision``, so that no TF32 setting reaches them; only
-    the products that use them follow the precision."""
+    the products that use them follow the precision.  A bf16-stored tree
+    forms them as the reference does in bf16: each elementwise op rounded
+    to bf16 and each product a bf16 product."""
     if is_quantized(params):
         raise TypeError("fused_cell does not support quantized weights")
     h = params["gru"]["w_hh"].shape[0]
@@ -227,7 +254,14 @@ def _fuse_inference_params(params: Params, cfg: BVRNNConfig) -> Params:
     px1, px2, px3 = params["phi_x"]
     gru = params["gru"]
     inv_std = 1.0 / params["std_mel"]
-    px1_w = px1["w"].double()
+    if _bf16_storage(params):
+        w_fold = P.matmul_bf16(dec4["w"], px1["w"] * inv_std[:, None])
+        b_fold = P.matmul_bf16((dec4["b"] - params["mean_mel"]) * inv_std, px1["w"]) + px1["b"]
+    else:
+        px1_w = px1["w"].double()
+        w_fold = (dec4["w"].double() @ (px1["w"] * inv_std[:, None]).double()).float()
+        b_fold = (((dec4["b"] - params["mean_mel"]) * inv_std).double() @ px1_w).float() \
+            + px1["b"]
     return {
         "w_h_combo": torch.cat([enc1["w"][h:], dec1["w"][h:], gru["w_hh"]], dim=1),
         "w_pz_combo": torch.cat([dec1["w"][:h], gru["w_ih"][h:]], dim=1),
@@ -243,9 +277,8 @@ def _fuse_inference_params(params: Params, cfg: BVRNNConfig) -> Params:
         # norm(a3 @ W4 + b4) @ Wpx1 + bpx1
         #   == a3 @ (W4 @ (Wpx1 * inv_std[:, None]))
         #      + ((b4 - mean) * inv_std) @ Wpx1 + bpx1
-        "w_fold": (dec4["w"].double() @ (px1["w"] * inv_std[:, None]).double()).float(),
-        "b_fold": (((dec4["b"] - params["mean_mel"]) * inv_std).double() @ px1_w).float()
-        + px1["b"],
+        "w_fold": w_fold,
+        "b_fold": b_fold,
         "px2": px2,
         "px3": px3,
         "phi_z": params["phi_z"],
@@ -279,19 +312,23 @@ def _fused_tail(fp, h, z_t, d1h, gh, prec):
     xg = F.elu(_dense(fp["px3"], u, prec))
     gi = _matmul(xg, fp["w_ih_top"], prec) + gi_bot + fp["b_ih"]
     ghb = gh + fp["b_hh"]
-    r = torch.sigmoid(gi[..., :H] + ghb[..., :H])
-    zz = torch.sigmoid(gi[..., H : 2 * H] + ghb[..., H : 2 * H])
+    r = _sigmoid(gi[..., :H] + ghb[..., :H])
+    zz = _sigmoid(gi[..., H : 2 * H] + ghb[..., H : 2 * H])
     n = torch.tanh(gi[..., 2 * H :] + r * ghb[..., 2 * H :])
     return (1.0 - zz) * n + zz * h, a3
 
 
-def _fused_enc(fp, encx_t, e1h, mask_t, prec):
+def _fused_enc_prob(fp, encx_t, e1h, prec):
     """The enc stack from the hoisted phi_x projection and the combo's
-    h-part, rounded and masked."""
+    h-part: the encoder's probabilities."""
     a = F.elu(encx_t + e1h + fp["b_enc1"])
     a = F.elu(_dense(fp["enc2"], a, prec))
-    enc_t = torch.sigmoid(_dense(fp["enc3"], a, prec))
-    return _apply_bit_mask(torch.round(enc_t), mask_t)
+    return _sigmoid(_dense(fp["enc3"], a, prec))
+
+
+def _fused_enc(fp, encx_t, e1h, mask_t, prec):
+    """:func:`_fused_enc_prob`, rounded and masked."""
+    return _apply_bit_mask(torch.round(_fused_enc_prob(fp, encx_t, e1h, prec)), mask_t)
 
 
 def _fused_dec_seq(fp, a3_seq, prec):
@@ -307,8 +344,9 @@ def _fused_dec_seq(fp, a3_seq, prec):
 @dataclasses.dataclass(frozen=True)
 class ScanParams:
     """A BVRNN tree with its weight matrices in the precision's type (float32
-    or bf16; int8 ``q`` widened, exactly), and the fused cell's weights when
-    the config can use them."""
+    or bf16; int8 ``q`` widened, exactly), or under bf16 storage every
+    tensor in bf16, and the fused cell's weights when the config can use
+    them."""
 
     std: Params
     fused: Params | None
@@ -340,6 +378,11 @@ def prepare(params: Params | ScanParams, cfg: BVRNNConfig) -> ScanParams:
     trees)."""
     if isinstance(params, ScanParams):
         return params
+    if cfg.dtype == torch.bfloat16:
+        # every tensor in bf16 (a float32 tree rounded once), int8 ``q`` and
+        # its ``scale`` too: the reference casts both to the activations' type
+        params = _cast_tree(params, torch.bfloat16)
+        return ScanParams(params, _fuse_inference_params(params, cfg) if cfg.fused_cell else None)
     fused = None
     if cfg.fused_cell:
         fused = _cast_weights(_fuse_inference_params(params, cfg), cfg.precision)
@@ -394,9 +437,9 @@ def _code_mask(cfg, y, var_bitrate, frame_valid):
     if cfg.var_bit:
         if var_bitrate is None:
             raise ValueError("var_bit config needs a bitrate")
-        mask = bit_mask_from_bitrate(var_bitrate, cfg.z_dim)
+        mask = bit_mask_from_bitrate(var_bitrate, cfg.z_dim, cfg.dtype)
     else:
-        mask = torch.ones(y.shape[0], y.shape[1], cfg.z_dim, device=y.device)
+        mask = torch.ones(y.shape[0], y.shape[1], cfg.z_dim, device=y.device, dtype=cfg.dtype)
     if frame_valid is not None:
         mask = mask * frame_valid.to(mask.dtype)[:, :, None]
     return mask
@@ -409,7 +452,8 @@ def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False, want
     sp = prepare(params, cfg)
     prec = cfg.precision
     mask = _code_mask(cfg, y, var_bitrate, frame_valid)
-    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y), prec)  # (B, T, h), hoisted
+    h = h.to(cfg.dtype)
+    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y.to(cfg.dtype)), prec)  # (B, T, h), hoisted
     if _use_fused(cfg, y.shape[0]):
         fp = _fused_params(sp)
 
@@ -460,24 +504,30 @@ def encode_decode(params, cfg, y, var_bitrate, h, frame_valid=None):
     return codes, mel, h_final
 
 
-def codes_from_states(params, cfg, y, var_bitrate, h_seq):
-    """The codes each frame would get from the given states: frame t is
-    encoded from ``h_seq[:, t]`` (B, T, h) instead of from the scan's own
-    state, all frames in one batch.  With another model's ``encode`` states
-    this is the chaos-free comparison of two precisions: a trained closed
-    loop amplifies any difference in its state, so free-running codes part
-    after the first flip, while these differ only where the per-frame
-    function does."""
+def enc_from_states(params, cfg, y, h_seq):
+    """The encoder's probabilities (before rounding and masking) each frame
+    would get from the given states: frame t from ``h_seq[:, t]`` (B, T, h)
+    instead of from the scan's own state, all frames in one batch."""
     sp = prepare(params, cfg)
     prec = cfg.precision
-    mask = _code_mask(cfg, y, var_bitrate, None)
-    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y), prec)
+    h_seq = h_seq.to(cfg.dtype)
+    phi_x = phi_x_apply(sp.std, _normalize(sp.std, y.to(cfg.dtype)), prec)
     if _use_fused(cfg, y.shape[0]):
         fp = _fused_params(sp)
         e1h, _, _ = _fused_h_combo(fp, h_seq, prec)
-        return _fused_enc(fp, _matmul(phi_x, fp["w_enc1_x"], prec), e1h, mask, prec)
-    enc = enc_apply(sp.std, torch.cat([phi_x, h_seq], -1), prec)
-    return _apply_bit_mask(torch.round(enc), mask)
+        return _fused_enc_prob(fp, _matmul(phi_x, fp["w_enc1_x"], prec), e1h, prec)
+    return enc_apply(sp.std, torch.cat([phi_x, h_seq], -1), prec)
+
+
+def codes_from_states(params, cfg, y, var_bitrate, h_seq):
+    """The codes each frame would get from the given states
+    (:func:`enc_from_states`, rounded and masked).  With another model's
+    ``encode`` states this is the chaos-free comparison of two precisions: a
+    trained closed loop amplifies any difference in its state, so
+    free-running codes part after the first flip, while these differ only
+    where the per-frame function does."""
+    mask = _code_mask(cfg, y, var_bitrate, None)
+    return _apply_bit_mask(torch.round(enc_from_states(params, cfg, y, h_seq)), mask)
 
 
 def decode(params, cfg, z, h):
@@ -487,6 +537,7 @@ def decode(params, cfg, z, h):
     equal to the encoder's."""
     sp = prepare(params, cfg)
     prec = cfg.precision
+    z, h = z.to(cfg.dtype), h.to(cfg.dtype)
     if _use_fused(cfg, z.shape[0]):
         fp = _fused_params(sp)
 
@@ -529,11 +580,12 @@ def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect", every_
     sp = prepare(params, cfg)
     prec = cfg.precision
     B, T = z.shape[:2]
+    z, h = z.to(cfg.dtype), h.to(cfg.dtype)
     lost = lost > 0
     if conceal_bits is not None:
-        cmask = bit_mask_from_bitrate(conceal_bits, cfg.z_dim)
+        cmask = bit_mask_from_bitrate(conceal_bits, cfg.z_dim, cfg.dtype)
     else:
-        cmask = torch.ones(B, T, cfg.z_dim, device=z.device)
+        cmask = torch.ones(B, T, cfg.z_dim, device=z.device, dtype=cfg.dtype)
     # the steps where some stream lost its frame, read on the host
     statics = None if every_step else [{"prior": v} for v in lost.any(0).tolist()]
 
@@ -684,8 +736,8 @@ def _forward_train_fused(params, cfg, phi_x, mask, fill, gen_steps, greedy, shif
     def gates(gi, gh, h):
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
         h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
+        r = _sigmoid(i_r + h_r)
+        z = _sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
 
@@ -696,10 +748,10 @@ def _forward_train_fused(params, cfg, phi_x, mask, fill, gen_steps, greedy, shif
         e1h, p1h, d1h = _matmul(h_sel, w_hsel_combo, "highest").chunk(3, dim=-1)
         a = F.elu(encx_t + e1h + fp["b_enc1"])
         a = F.elu(_dense(fp["enc2"], a))
-        enc_t = torch.sigmoid(_dense(fp["enc3"], a))
+        enc_t = _sigmoid(_dense(fp["enc3"], a))
         p = F.elu(p1h + prior1["b"])
         p = F.elu(_dense(prior2, p))
-        prior_t = torch.sigmoid(_dense(prior3, p))
+        prior_t = _sigmoid(_dense(prior3, p))
         z_t = _straight_through(enc_t, shifted[t], greedy) * mask[t] + fill[t]
 
         pz = z_t

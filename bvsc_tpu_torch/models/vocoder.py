@@ -157,15 +157,21 @@ def prepare_direct_params(params: Params, cfg: VocoderConfig,
     parameters prepared on the host (``ops.snake.prepare_act``: linear
     alpha and 1 / (beta + eps), float64 rounded once), everything in
     ``dtype`` (default: as stored).  ``act_post`` stays as stored, as the
-    kernel path reads it.  Prepared trees come back unchanged."""
+    kernel path reads it.  Prepared trees come back unchanged.  bf16-stored
+    snake parameters (the bf16 storage dtype) stay as stored: the snakes
+    take ``exp`` of them in bf16 on the device, as the reference does."""
     def cast(t):
         return t if dtype is None else t.to(dtype)
+
+    def act(a):
+        if "alpha" in a and a["alpha"].dtype == torch.bfloat16:
+            return {k: cast(v) for k, v in a.items()}
+        return prepare_act(a, kind=cfg.activation, logscale=cfg.snake_logscale, dtype=dtype)
 
     def block(b):
         return {"convs1": [{k: cast(v) for k, v in c.items()} for c in b["convs1"]],
                 "convs2": [{k: cast(v) for k, v in c.items()} for c in b["convs2"]],
-                "acts": [prepare_act(a, kind=cfg.activation, logscale=cfg.snake_logscale,
-                                     dtype=dtype) for a in b["acts"]]}
+                "acts": [act(a) for a in b["acts"]]}
 
     def tree(t):
         if isinstance(t, dict):

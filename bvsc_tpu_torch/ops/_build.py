@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes no
 PyTorch header, so one nvcc call builds it in seconds.  The shared library
 goes to ``bvsc_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the source and the flags, so a changed source is rebuilt and an
-unchanged one is built once per checkout.  Nothing is built at import: the
+hash of the source (with the files it includes by ``#include "..."``) and
+the flags, so a changed source is rebuilt and an unchanged one is built
+once per checkout.  Nothing is built at import: the
 first launch builds, or :func:`load_all` builds every source at once.
 :func:`compile_files` builds any source file the same way, such as a
 benchmark's copy of a kernel with one change.
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -46,11 +48,20 @@ def library_path(name: str) -> str:
     return library_for(os.path.join(CSRC, f"{name}.cu"))
 
 
+def _text(source: str) -> bytes:
+    """``source``'s bytes followed by those of the files it includes with
+    ``#include "..."`` (beside it), recursively."""
+    with open(source, "rb") as f:
+        data = f.read()
+    for name in re.findall(rb'#include "([^"]+)"', data):
+        data += _text(os.path.join(os.path.dirname(source), name.decode()))
+    return data
+
+
 def library_for(source: str) -> str:
     """The library built from the CUDA source file ``source``, named by a
-    hash of its text and the flags."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    hash of its text (and its includes') and the flags."""
+    digest = hashlib.sha256(_text(source) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 

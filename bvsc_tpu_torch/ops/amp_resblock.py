@@ -14,7 +14,16 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
 * bf16 (fast serving, the TPU kernel's default): ``csrc/amp_resblock_bf16.cu``
   on the tensor cores, for the same shapes.  Each conv's operands are
   rounded to bf16 and the products summed in float32; snake, bias, start
-  mask and residual stay float32, and so do input and output.
+  mask and residual stay float32.
+
+Each mode takes its activations in and out as float32, or, under the bf16
+storage dtype, as bf16 (the TPU kernel's ``out_dtype=x.dtype``): the kernel
+reads the bf16 input and widens it as it loads its window, computes as
+above, and rounds its float32 result once to nearest-even bf16 as it
+stores it.  The plain and tiled versions do the same (widen, compute, round
+once), and :func:`average` then sums the three bf16 outputs in bf16, in
+order, as the reference's stage does.  The weights and snake parameters
+are float32 in every form (bf16 ones widen exactly).
 
 * :func:`amp_resblock` is the kernels' wrapper.  Each mode is a
   ``torch.library`` custom op (:data:`OPS`: ``bvsc_torch::amp_resblock_f32``
@@ -26,8 +35,10 @@ blocks with k = 3, 7, 11.  ``compute_dtype`` picks the mode:
   :func:`launch` (one launch per block, the stage average in torch), which
   launches the mode's kernel or raises; only a CPU tensor takes the plain
   version, from the same packed weights.  ``amp_resblock.launches`` and
-  ``amp_resblock.launches_bf16`` count the launches of each mode, in
-  Python, on either route.
+  ``amp_resblock.launches_bf16`` count the launches of each mode with
+  float32 activations, ``amp_resblock.launches_io_bf16`` and
+  ``amp_resblock.launches_bf16_io_bf16`` those with bf16 activations
+  (:data:`COUNTERS`), in Python, on either route.
 * :func:`amp_block_plain` is the plain version, the reference
   ``_amp_block`` written with the port's ``conv1d`` and SnakeBeta from the
   parameters :func:`snake_params` prepares.
@@ -152,13 +163,14 @@ def snake_params(acts: list) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def prepare_resblock(block: dict, kernel_size: int, dilations) -> ResblockParams:
-    """Pack one resblock's params (snakebeta, log scale) for the kernel."""
+    """Pack one resblock's params (snakebeta, log scale) for the kernel;
+    bf16-stored params widen to float32, exactly."""
     dilations = tuple(int(d) for d in dilations)
     if len(dilations) != N_UNITS:
         raise ValueError(f"the kernel runs {N_UNITS} units, got dilations {dilations}")
 
     def stack(tensors):
-        return torch.stack(list(tensors)).contiguous()
+        return torch.stack([t.to(torch.float32) for t in tensors]).contiguous()
 
     alpha, inv_beta = snake_params(block["acts"])
     w1 = stack(c["w"] for c in block["convs1"])
@@ -276,14 +288,17 @@ def amp_block_plain(x: torch.Tensor, block: dict, kernel_size: int, dilations,
     in bf16 mode each conv takes bf16-rounded operands (``conv1d`` at
     precision ``'default'``).  With ``ctx`` or ``start`` (module docstring)
     the positions before each row's stream began are zeroed on load and
-    after every conv's bias, and the last T columns returned."""
+    after every conv's bias, and the last T columns returned.  A bf16 ``x``
+    is widened, and the float32 result rounded once to bf16."""
     def stack(tensors):
-        return torch.stack(list(tensors))
+        return torch.stack([t.to(torch.float32) for t in tensors])
 
-    return _block_plain(
-        x, stack(c["w"] for c in block["convs1"]), stack(c["b"] for c in block["convs1"]),
-        stack(c["w"] for c in block["convs2"]), stack(c["b"] for c in block["convs2"]),
-        *snake_params(block["acts"]), kernel_size, dilations, compute_dtype, ctx, start)
+    y = _block_plain(
+        x.to(torch.float32), stack(c["w"] for c in block["convs1"]),
+        stack(c["b"] for c in block["convs1"]), stack(c["w"] for c in block["convs2"]),
+        stack(c["b"] for c in block["convs2"]), *snake_params(block["acts"]), kernel_size,
+        dilations, compute_dtype, ctx, start)
+    return y.to(x.dtype)
 
 
 def unpack_f32(wf: torch.Tensor) -> torch.Tensor:
@@ -308,8 +323,8 @@ def amp_block_packed_plain(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_siz
     bf16 either way)."""
     bf16 = conv_precision(compute_dtype) == "default"
     unpack = (lambda w: unpack_bf16(w, kernel_size)) if bf16 else unpack_f32
-    return _block_plain(x, unpack(w1), b1, unpack(w2), b2, alpha, inv_beta, kernel_size,
-                        dilations, compute_dtype, ctx, start)
+    return _block_plain(x.to(torch.float32), unpack(w1), b1, unpack(w2), b2, alpha, inv_beta,
+                        kernel_size, dilations, compute_dtype, ctx, start).to(x.dtype)
 
 
 def _conv_gemm(xt: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, k: int, d: int) -> torch.Tensor:
@@ -341,12 +356,14 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
     halo from a window read from the input where it lies at or after input
     column 0, zeros elsewhere and before each row's stream began; each conv
     reads the mode's packed weights (:func:`_conv_packed`, or the bf16 GEMM
-    :func:`_conv_gemm`) and each snake its prepared parameters."""
+    :func:`_conv_gemm`) and each snake its prepared parameters.  A bf16
+    ``x`` is widened as a window loads it, and each output rounded once to
+    bf16 as it is stored."""
     bf16 = conv_precision(compute_dtype) == "default"
     B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     k, dils = rb.kernel_size, rb.dilations
     H, tile = halo(k, dils), tile or tile_for(C, compute_dtype)
-    xpad = F.pad(x, (H, tile))  # column i holds input column i - H
+    xpad = F.pad(x.to(torch.float32), (H, tile))  # column i holds input column i - H
     out = x.new_empty(B, C, T)
 
     def conv(xt, n, j, d):
@@ -357,7 +374,7 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
 
     for t0 in range(0, T, tile):
         g = stream_times(x, ctx, start, ctx + t0 - H, H + tile)
-        xw = xpad[..., ctx + t0 : ctx + t0 + H + tile] * (g >= 0).to(x.dtype)
+        xw = xpad[..., ctx + t0 : ctx + t0 + H + tile] * (g >= 0).to(xpad.dtype)
         for j, d in enumerate(dils):
             xt = _snake(xw, rb.alpha[2 * j], rb.inv_beta[2 * j])
             xt = conv(xt, 1, j, d)
@@ -374,7 +391,9 @@ def amp_block_tiled(x: torch.Tensor, rb: ResblockParams,
 
 
 def average(outs: list[torch.Tensor]) -> torch.Tensor:
-    """The stage average of its resblocks' outputs, summed in order."""
+    """The stage average of its resblocks' outputs, summed in order in their
+    dtype (bf16 outputs: ``(o0 + o1) + o2``, then ``/ 3``, each rounded to
+    bf16, as the reference's stage)."""
     xs = outs[0]
     for o in outs[1:]:
         xs = xs + o
@@ -401,12 +420,24 @@ def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams],
 # ---------------------------------------------------------------------------
 
 
+# The C entry point and the launch counter (an attribute of amp_resblock)
+# of each (mode, activation type).
+_ENTRIES = {(torch.float32, torch.float32): ("amp_resblock", "amp_resblock_f32", "launches"),
+            (torch.bfloat16, torch.float32): ("amp_resblock_bf16", "amp_resblock_bf16",
+                                              "launches_bf16"),
+            (torch.float32, torch.bfloat16): ("amp_resblock_io_bf16",
+                                              "amp_resblock_f32_io_bf16", "launches_io_bf16"),
+            (torch.bfloat16, torch.bfloat16): ("amp_resblock_bf16_io_bf16",
+                                               "amp_resblock_bf16_io_bf16",
+                                               "launches_bf16_io_bf16")}
+COUNTERS = tuple(entry[2] for entry in _ENTRIES.values())
+IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
 @functools.cache
-def _kernel(compute_dtype: torch.dtype):
-    if compute_dtype == torch.bfloat16:
-        fn = _build.load("amp_resblock_bf16").amp_resblock_bf16
-    else:
-        fn = _build.load("amp_resblock").amp_resblock_f32
+def _kernel(compute_dtype: torch.dtype, io_dtype: torch.dtype = torch.float32):
+    source, entry, _ = _ENTRIES[(compute_dtype, io_dtype)]
+    fn = getattr(_build.load(source), entry)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -479,8 +510,9 @@ def _check_op(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_si
     """Refuses what the mode's kernel cannot take; with a ``tile``, also a
     window whose shared memory, as the kernel's build reports it, exceeds
     :data:`SMEM_LIMIT`."""
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"expected contiguous float32 (B, C, T), got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in IO_DTYPES or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"expected contiguous float32 or bf16 (B, C, T), got {x.dtype} "
+                         f"{tuple(x.shape)}")
     if not 0 < x.shape[0] <= 65535 or not 0 <= ctx < x.shape[2]:
         raise ValueError(f"batch must be 1..65535 (a grid dimension) and 0 <= ctx < ctx + T, "
                          f"got {tuple(x.shape)}, ctx={ctx}")
@@ -526,9 +558,9 @@ def _check(x: torch.Tensor, rb: ResblockParams, compute_dtype: torch.dtype,
 def launch(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size: int,
            dilations, ctx: int, tile: int, compute_dtype: torch.dtype) -> torch.Tensor:
     """The ops' CUDA implementation: checks the arguments, then launches the
-    mode's kernel on the current stream with ``tile`` outputs per thread
-    block (0: :func:`launch_tile`'s, from the real B) and counts the
-    launch."""
+    kernel of the mode and of ``x``'s type (float32 or bf16 activations in
+    and out) on the current stream with ``tile`` outputs per thread block
+    (0: :func:`launch_tile`'s, from the real B) and counts the launch."""
     tile = tile or launch_tile(x, compute_dtype, ctx)
     dilations = tuple(dilations)
     _check_op(x, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size, dilations,
@@ -536,7 +568,7 @@ def launch(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size:
     B, C, T = x.shape[0], x.shape[1], x.shape[2] - ctx
     y = x.new_empty(B, C, T)
     with torch.cuda.device(x.device):
-        err = _kernel(compute_dtype)(
+        err = _kernel(compute_dtype, x.dtype)(
             x.data_ptr(), y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), alpha.data_ptr(), inv_beta.data_ptr(),
             None if start is None else start.data_ptr(),
@@ -544,11 +576,10 @@ def launch(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size:
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"amp_resblock ({compute_dtype}) kernel launch failed: CUDA error {err}")
-    if compute_dtype == torch.bfloat16:
-        amp_resblock.launches_bf16 += 1
-    else:
-        amp_resblock.launches += 1
+        raise RuntimeError(f"amp_resblock ({compute_dtype}, {x.dtype} activations) kernel launch "
+                           f"failed: CUDA error {err}")
+    counter = _ENTRIES[(compute_dtype, x.dtype)][2]
+    setattr(amp_resblock, counter, getattr(amp_resblock, counter) + 1)
     return y
 
 
@@ -617,8 +648,21 @@ def amp_resblock(x: torch.Tensor, rb: ResblockParams,
     return (launch if x.device.type == "cuda" else _plain_op)(*args, compute_dtype)
 
 
-amp_resblock.launches = 0  # float32 kernel
-amp_resblock.launches_bf16 = 0  # bf16 kernel
+amp_resblock.launches = 0  # float32 kernel, float32 activations
+amp_resblock.launches_bf16 = 0  # bf16 kernel, float32 activations
+amp_resblock.launches_io_bf16 = 0  # float32 kernel, bf16 activations
+amp_resblock.launches_bf16_io_bf16 = 0  # bf16 kernel, bf16 activations
+
+
+def reset_launches() -> None:
+    """Every launch counter of :data:`COUNTERS` to 0."""
+    for name in COUNTERS:
+        setattr(amp_resblock, name, 0)
+
+
+def read_launches() -> dict:
+    """The launch counters of :data:`COUNTERS`, by name."""
+    return {name: getattr(amp_resblock, name) for name in COUNTERS}
 
 
 def amp_stack(x: torch.Tensor, stage: list[ResblockParams],

@@ -23,8 +23,9 @@ output (``ops.precision``); the bias is added in float32.  Float32 convs
 on a card run with cuDNN's TF32 off for the call
 (``ops.precision.cudnn_fp32``), so their sums do not depend on the
 process's flag.  A bf16 input
-(the direct vocoder's bf16 segment) convolves bf16 operands into a bf16
-output, bias included, as the JAX package's bf16 convs do.  The inits draw
+(the direct vocoder's bf16 segment, the bf16 storage dtype) convolves bf16
+operands into a bf16 output, then adds the bias in bf16 (a second
+rounding), as the JAX package's bf16 convs do.  The inits draw
 from a numpy ``Generator`` (the JAX package's draw from ``jax.random``, so
 the two inits agree in distribution, not in value).
 """
@@ -141,10 +142,16 @@ def _fp32(x: torch.Tensor):
     return contextlib.nullcontext()
 
 
+def _bias_after(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    return y if b is None else y + b.to(y.dtype)[:, None]
+
+
 def conv1d(x: torch.Tensor, p: dict, *, stride: int = 1, dilation: int = 1,
            precision: str = "highest") -> torch.Tensor:
     """``F.conv1d`` with padding 0: (B, C_in, T) -> (B, C_out, T')."""
     x, w = _operands(x, conv_weight(p), precision)
+    if x.dtype == torch.bfloat16:
+        return _bias_after(F.conv1d(x, w, stride=stride, dilation=dilation), p.get("b"))
     with _fp32(x):
         return F.conv1d(x, w, p.get("b"), stride=stride, dilation=dilation)
 
@@ -154,6 +161,8 @@ def conv_transpose1d(x: torch.Tensor, p: dict, *, stride: int,
     """``F.conv_transpose1d`` with padding 0 on the (in, out, k) weight;
     output length (T - 1) * stride + k."""
     x, w = _operands(x, conv_weight(p), precision)
+    if x.dtype == torch.bfloat16:
+        return _bias_after(F.conv_transpose1d(x, w, stride=stride), p.get("b"))
     with _fp32(x):
         return F.conv_transpose1d(x, w, p.get("b"), stride=stride)
 

@@ -7,6 +7,10 @@ package's ``jax.lax.Precision`` knob).
   reference's fast-serving contracts were measured: both operands rounded
   to nearest-even bf16, the products summed in float32, a float32 result.
 
+Under the bf16 storage dtype every operand is already bf16 and every
+product is :func:`matmul_bf16`: float32 sums rounded once to a bf16
+result, as ``jnp.matmul`` of two bf16 arrays gives, at either precision.
+
 The bf16 products come from explicit casts, never from the process-wide
 TF32 flags, so a parity model and a fast model can share a process.  A
 bf16-rounded float32 value is exact in TF32, but cuDNN's TF32 algorithms
@@ -49,6 +53,23 @@ def matmul(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
         y = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), wb, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(round_bf16(x), wb.to(torch.float32))
+
+
+def matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of bf16 ``x`` (..., k) and ``w`` (k, n) (int8 widened by the
+    caller): float32 sums, rounded once to a bf16 result.  On CUDA it is
+    one cuBLAS bf16 GEMM with a float32 output, so cuBLAS's reduced-precision
+    reduction (``allow_bf16_reduced_precision_reduction``, a process-wide
+    flag that is on by default) never applies; on the CPU the float32
+    product of the widened operands, exact products summed in float32.
+    Operands that take a gradient (the bf16 training forward) keep
+    ``torch.matmul``'s bf16 product."""
+    if x.requires_grad or w.requires_grad:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.to(torch.bfloat16).reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(torch.bfloat16)
 
 
 @contextlib.contextmanager

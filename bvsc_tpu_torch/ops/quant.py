@@ -9,7 +9,11 @@ instead (the reference measured 99.945 % code agreement against 99.843 %
 all-int8 on real speech, on a TPU).
 
 The int8 values are exact in bf16 and in float32, so the product at either
-precision is the float product of the widened values times the scale.  The
+precision is the float product of the widened values times the scale.
+Under the bf16 storage dtype the activations are bf16: ``q`` and ``scale``
+are cast to bf16 and the product is bf16 (``ops.precision.matmul_bf16``),
+as the reference casts both to the activation's type; quantising
+bf16-stored weights keeps a float32 ``scale`` (of bf16-rounded values).  The
 codec widens ``q`` once, when it builds the scan's parameters
 (``models.bvrnn.prepare``), so the card holds the widened copy: this mode
 reproduces the reference's numbers, not its int8 memory traffic.
@@ -19,18 +23,23 @@ from __future__ import annotations
 
 import torch
 
-from bvsc_tpu_torch.ops.precision import matmul
+from bvsc_tpu_torch.ops.precision import matmul, matmul_bf16
 
 
 def quantize_dense(w: torch.Tensor) -> dict:
-    """(in, out) float32 -> {'q': int8 (in, out), 'scale': float32 (out,)}."""
+    """(in, out) float32 or bf16 -> {'q': int8 (in, out), 'scale': float32
+    (out,)}; bf16 weights are scaled and rounded in bf16, as the reference
+    does."""
     s = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-12)
     q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"q": q, "scale": s.to(torch.float32)}
 
 
 def dequant_matmul(x: torch.Tensor, p: dict, precision: str = "highest") -> torch.Tensor:
-    """``(x @ q) * scale``, the product at ``precision``."""
+    """``(x @ q) * scale``, the product at ``precision``; a bf16 ``x`` takes
+    ``q`` and ``scale`` in bf16 and gives a bf16 result."""
+    if x.dtype == torch.bfloat16:
+        return matmul_bf16(x, p["q"].to(torch.bfloat16)) * p["scale"].to(torch.bfloat16)
     return matmul(x, p["q"], precision) * p["scale"]
 
 

@@ -17,7 +17,10 @@ each backend, with no branch that stages through the host on one of them:
 * :func:`broadcast`: one rank's tensor on every rank of the axis (the
   pipeline's hand-off).
 
-An axis of one device exchanges nothing.  The cost is the axis size times
+A bf16 tensor (the bf16 storage dtype) travels as float32 and comes back
+bf16: exact for the gather and the broadcast, which move values, and a sum
+rounded once; so no backend needs a bf16 collective.  An axis of one
+device exchanges nothing.  The cost is the axis size times
 the bytes of a point-to-point exchange, small next to the work at the
 sizes here (at most 4 ranks a mesh).  Each takes a ``parallel.mesh.Axis``
 and returns a new tensor; its input is not changed.
@@ -29,13 +32,18 @@ import torch
 import torch.distributed as dist
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """A new float32 copy of a bf16 tensor, else a new copy of ``x``."""
+    return x.to(torch.float32) if x.dtype == torch.bfloat16 else x.contiguous().clone()
+
+
 def all_sum(x: torch.Tensor, axis) -> torch.Tensor:
     """The sum of ``x`` over the axis's ranks, on each of them."""
     if axis.size == 1:
         return x
-    y = x.contiguous().clone()
+    y = _wide(x)
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=axis.group)
-    return y
+    return y.to(x.dtype)
 
 
 def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -47,10 +55,10 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     n = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = n * axis.size
-    buf = x.new_zeros(shape)
+    buf = x.new_zeros(shape, dtype=torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
     buf.narrow(dim, axis.index * n, n).copy_(x)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=axis.group)
-    return buf
+    return buf.to(x.dtype)
 
 
 def left_context(x: torch.Tensor, n: int, axis) -> torch.Tensor:
@@ -80,9 +88,9 @@ def broadcast(x: torch.Tensor, axis, src: int) -> torch.Tensor:
     axis; the others pass a tensor of the same shape and type."""
     if axis.size == 1:
         return x
-    y = x.contiguous().clone()
+    y = _wide(x)
     dist.broadcast(y, src=axis.ranks[src], group=axis.group)
-    return y
+    return y.to(x.dtype)
 
 
 def all_mean(tensors: list[torch.Tensor], axis) -> list[torch.Tensor]:

@@ -175,7 +175,7 @@ def _spmd_checks(n: int, device) -> dict:
     tmesh = TP.make_tp_mesh(devices=devices)
     tpp = TP.shard_tp_params(TP.prepare_tp_params(params), tmesh)
     z = torch.from_numpy(rng.integers(0, 2, (2, 10, conf.z_dim)).astype(np.float32)).to(dev)
-    h0 = torch.zeros(2, conf.h_dim, device=dev)
+    h0 = torch.zeros(2, conf.h_dim, device=dev, dtype=cfg.dtype)
     with torch.no_grad():
         ref_mel, _ = B.decode(params, cfg, z, h0)
         ref_z, _ = B.encode_with_state(params, cfg, mel[:2].to(dev), torch.full(
@@ -224,7 +224,8 @@ def _spmd_checks(n: int, device) -> dict:
         with torch.no_grad():
             z0, mel0, _ = B.encode_decode(bpt, bcfg, torch.from_numpy(mel_mb[0]).to(dev),
                                           torch.from_numpy(bits_mb[0]).to(dev),
-                                          torch.zeros(msz, bcfg.h_dim, device=dev))
+                                          torch.zeros(msz, bcfg.h_dim, device=dev,
+                                                      dtype=bcfg.dtype))
             wav0 = V.generator_apply_kernel(voc, blocks, vcfg, mel0.transpose(1, 2).contiguous(),
                                             frames * vcfg.total_upsample)
         if not torch.equal(codes[0], z0):

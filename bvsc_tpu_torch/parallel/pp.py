@@ -65,8 +65,10 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
     ``generator_apply_kernel`` of its decoded mel.  Vocoder params are
     folded inference convs; ``precision`` / ``compute_dtype`` as there.
     ``use_pallas=False`` or ``approx_snake`` run stage 1 on the direct path
-    (``models.vocoder.generator_apply``, float32, ``approx_snake`` the
-    polynomial sin^2; ``parallel.sp.direct_path``)."""
+    (``models.vocoder.generator_apply``, ``approx_snake`` the polynomial
+    sin^2; ``parallel.sp.direct_path``).  ``bcfg.dtype`` is the storage
+    type of both models: under bf16 both run in bf16 (the codes come back
+    bf16, the waveform float32)."""
     direct = direct_path(use_pallas, approx_snake)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
     if ax.size != N_STAGES:
@@ -90,20 +92,20 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
     if stage == 0:
         bparams = B.prepare(to_torch(bvrnn_params, dev), bcfg)
     else:
-        vparams = to_torch(voc_params, dev)
+        vparams = to_torch(voc_params, dev, dtype=bcfg.dtype)
         if direct:
             vparams = prepare_direct_params(vparams, vcfg)
         else:
             blocks = prepare_kernel_params(vparams, vcfg)
-    payload = torch.zeros(m_loc, frames, x_dim, device=dev)
-    codes = torch.zeros(n_micro, m_loc, frames, bcfg.z_dim, device=dev)
+    payload = torch.zeros(m_loc, frames, x_dim, device=dev, dtype=bcfg.dtype)
+    codes = torch.zeros(n_micro, m_loc, frames, bcfg.z_dim, device=dev, dtype=bcfg.dtype)
     wav = torch.zeros(n_micro, m_loc, 1, frames * up, device=dev)
     for t in range(n_micro + N_STAGES - 1):
         recv = broadcast(payload, ax, 0)  # stage 0's output of step t - 1
         if stage == 0 and t < n_micro:
             codes[t], payload, _ = B.encode_decode(
                 bparams, bcfg, mel_mb[t], bits_mb[t] if bcfg.var_bit else None,
-                torch.zeros(m_loc, bcfg.h_dim, device=dev))
+                torch.zeros(m_loc, bcfg.h_dim, device=dev, dtype=bcfg.dtype))
         elif stage == 1 and t >= 1:
             mel = recv.transpose(1, 2).contiguous()
             if direct:

@@ -116,7 +116,8 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
                        axis_name: str = SEQ_AXIS, precision: str = "highest",
                        compute_dtype: torch.dtype = torch.float32,
                        kernel_blocks: list | None = None, approx_snake: bool = False,
-                       use_pallas: bool | None = None) -> torch.Tensor:
+                       use_pallas: bool | None = None,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Sequence-parallel causal generator: mel (B, num_mels, T), T divisible
     by the ``seq`` axis, the same on every rank -> waveform (B, 1,
     T * prod(upsample_rates)) on every rank.  ``params`` are folded
@@ -125,21 +126,24 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
     as in ``models.vocoder.generator_apply_kernel``; ``kernel_blocks`` from
     ``prepare_kernel_params`` (prepared here when None).  The residual
     stacks run K1 unless ``use_pallas=False`` or ``approx_snake``
-    (:func:`direct_path`), which run the direct path's blocks in float32,
-    ``approx_snake`` the polynomial sin^2."""
+    (:func:`direct_path`), which run the direct path's blocks,
+    ``approx_snake`` the polynomial sin^2.  ``dtype`` is the storage type:
+    under bf16 the params and the mel are cast to bf16 and the whole
+    generator runs in bf16 (the kernels with bf16 activations), as one
+    device's does; the waveform comes back in ``dtype``."""
     if any(cfg.layers_sym) or cfg.pre_sym or cfg.post_sym:
         raise ValueError("sequence parallelism requires a fully causal config")
     if any(cfg.layers_antialias) or cfg.antialias_post:
         raise ValueError("sequence parallelism is incompatible with anti-aliased activations")
     direct = direct_path(use_pallas, approx_snake)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
-    mel = torch.as_tensor(mel).to(mesh.device, torch.float32)
+    mel = torch.as_tensor(mel).to(mesh.device, torch.float32).to(dtype)
     T = mel.shape[-1]
     if T % ax.size:
         raise ValueError(f"frames {T} not divisible by seq shards {ax.size}")
     Tl = T // ax.size
     _check_halos(cfg, Tl)
-    params = to_torch(params, mesh.device)
+    params = to_torch(params, mesh.device, dtype=dtype)
     num_k = len(cfg.resblock_kernel_sizes)
     if direct:
         params = prepare_direct_params(params, cfg)

@@ -21,6 +21,12 @@ over the sequence and replicated in decode, per step in encode;
 the bitrate.  The products are torch GEMMs, as the one-device scan's are:
 no Pallas kernel lies here.
 
+Under the bf16 storage dtype (``cfg.dtype``, the shards from
+``shard_tp_params(dtype=torch.bfloat16)``) the inputs, the state and every
+op are bf16 as on one device; a row-parallel partial product stays float32
+until its sum over the ranks, which is rounded once, as one device's
+product is.
+
 SPMD: every rank of the mesh calls the same function with the same global
 inputs and gets the global outputs back.  On a 2-D (data x model) mesh the
 batch's rows are split over ``data`` (contiguous blocks) and gathered again
@@ -105,9 +111,11 @@ def _split(t: torch.Tensor, how: str, index: int, size: int) -> torch.Tensor:
     return t.narrow(dim, index * (n // size), n // size).contiguous()
 
 
-def shard_tp_params(tp_params, mesh: Mesh, axis_name: str = MODEL_AXIS) -> dict:
+def shard_tp_params(tp_params, mesh: Mesh, axis_name: str = MODEL_AXIS,
+                    dtype: torch.dtype = torch.float32) -> dict:
     """This rank's slices of :func:`prepare_tp_params`'s tree (numpy or
-    tensors), float32 on its device, laid out as :func:`tp_param_layout`."""
+    tensors), in ``dtype`` (the storage type) on its device, laid out as
+    :func:`tp_param_layout`."""
     ax = mesh.axis(axis_name)
 
     def walk(node, how):
@@ -115,7 +123,7 @@ def shard_tp_params(tp_params, mesh: Mesh, axis_name: str = MODEL_AXIS) -> dict:
             return {k: walk(node[k], how[k]) for k in how}
         if isinstance(how, list):
             return [walk(n, h) for n, h in zip(node, how)]
-        return _split(to_torch(node, mesh.device), how, ax.index, ax.size)
+        return _split(to_torch(node, mesh.device, dtype=dtype), how, ax.index, ax.size)
 
     return walk(tp_params, tp_param_layout())
 
@@ -132,7 +140,11 @@ def _col(x, p, prec):
 
 def _row(x_loc, p, prec, ax):
     """Row-parallel Linear: this rank's input slice, summed to the full
-    output, the bias added once after the sum."""
+    output, the bias added once after the sum; a bf16 partial product is
+    summed in float32 and rounded once."""
+    if x_loc.dtype == torch.bfloat16:
+        part = torch.matmul(x_loc.to(torch.float32), p["w"].to(torch.float32))
+        return all_sum(part, ax).to(torch.bfloat16) + p["b"]
     return all_sum(B._matmul(x_loc, p["w"], prec), ax) + p["b"]
 
 
@@ -150,19 +162,19 @@ def _dec_and_gru(p, prec, ax, phi_z_t, h_full_t, h_loc):
     x_in = torch.cat([all_gather(b, ax, -1), phi_z_t], -1)
     gi = {g: B._matmul(x_in, p["gru_ih"][g], prec) + p["gru_bih"][g] for g in "rzn"}
     gh = {g: B._matmul(h_full_t, p["gru_hh"][g], prec) + p["gru_bhh"][g] for g in "rzn"}
-    r = torch.sigmoid(gi["r"] + gh["r"])
-    zg = torch.sigmoid(gi["z"] + gh["z"])
+    r = B._sigmoid(gi["r"] + gh["r"])
+    zg = B._sigmoid(gi["z"] + gh["z"])
     n = torch.tanh(gi["n"] + r * gh["n"])
     return dec_t, (1.0 - zg) * n + zg * h_loc
 
 
-def _local_rows(mesh: Mesh, *xs):
-    """Each input on this rank's device, cut to its rows of the ``data``
-    axis."""
+def _local_rows(mesh: Mesh, *xs, dtype: torch.dtype = torch.float32):
+    """Each input on this rank's device in ``dtype``, cut to its rows of the
+    ``data`` axis."""
     ax = mesh.axis(DATA_AXIS)
     out = []
     for x in xs:
-        x = torch.as_tensor(x).to(mesh.device, torch.float32)
+        x = torch.as_tensor(x).to(mesh.device, torch.float32).to(dtype)
         out.append(x[row_blocks(x.shape[0], ax.size)[ax.index]])
     return out
 
@@ -187,7 +199,7 @@ def decode_tp(tp_params: dict, cfg: B.BVRNNConfig, z, h0, mesh: Mesh,
     every rank, on its device."""
     ax, prec = mesh.axis(axis_name), cfg.precision
     p = tp_params
-    z, h0 = _local_rows(mesh, z, h0)
+    z, h0 = _local_rows(mesh, z, h0, dtype=cfg.dtype)
     phi_z = B._mlp_elu(p["phi_z"], z, prec, F.elu)  # hoisted, replicated
     h_loc, decs = _h_slice(h0, ax), []
     for phi_z_t in phi_z.unbind(1):
@@ -212,21 +224,22 @@ def encode_tp(tp_params: dict, cfg: B.BVRNNConfig, y, var_bitrate, h0, mesh: Mes
         if cfg.var_bit:
             raise ValueError("var_bit config needs a bitrate")
         var_bitrate = torch.zeros(y.shape[:2])
-    y, bits, h0 = _local_rows(mesh, y, var_bitrate, h0)
+    (bits,) = _local_rows(mesh, var_bitrate)
+    y, h0 = _local_rows(mesh, y, h0, dtype=cfg.dtype)
     ynorm = (y - p["mean_mel"]) / p["std_mel"]
     a = F.elu(_col(ynorm, p["phi_x"][0], prec))  # phi_x of the input, hoisted
     a = F.elu(_row(a, p["phi_x"][1], prec, ax))
     phi_x = all_gather(F.elu(_col(a, p["phi_x"][2], prec)), ax, -1)
     if cfg.var_bit:
-        mask = B.bit_mask_from_bitrate(bits, cfg.z_dim)
+        mask = B.bit_mask_from_bitrate(bits, cfg.z_dim, cfg.dtype)
     else:
-        mask = torch.ones(*bits.shape, cfg.z_dim, device=bits.device)
+        mask = torch.ones(*bits.shape, cfg.z_dim, device=bits.device, dtype=cfg.dtype)
     h_loc, codes = _h_slice(h0, ax), []
     for phi_x_t, mask_t in zip(phi_x.unbind(1), mask.unbind(1)):
         h_full = all_gather(h_loc, ax, -1)
         e = F.elu(_col(torch.cat([phi_x_t, h_full], -1), p["enc"][0], prec))
         e = F.elu(_row(e, p["enc"][1], prec, ax))
-        enc_t = torch.sigmoid(all_gather(_col(e, p["enc"][2], prec), ax, -1))
+        enc_t = B._sigmoid(all_gather(_col(e, p["enc"][2], prec), ax, -1))
         z_t = B._apply_bit_mask(torch.round(enc_t), mask_t)
         phi_z_t = B._mlp_elu(p["phi_z"], z_t, prec, F.elu)
         _, h_loc = _dec_and_gru(p, prec, ax, phi_z_t, h_full, h_loc)

@@ -263,7 +263,7 @@ class ServingEngine(_Sharded):
         recovery path after :class:`EngineStateLost`)."""
         return {
             "window": torch.zeros(rows, self.win, device=device),
-            "h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
+            "h": torch.zeros(rows, self.codec.conf.h_dim, device=device, dtype=self.codec.dtype),
             "voc": S.vocoder_state(self.codec, rows, device),
         }
 
@@ -441,7 +441,8 @@ class DecodeEngine(_Sharded):
     def _init_device_state(self, rows: int, device) -> dict:
         """Fresh zeroed state of ``rows`` slots on ``device`` (recovery path
         after :class:`EngineStateLost`)."""
-        return {"h": torch.zeros(rows, self.codec.conf.h_dim, device=device),
+        return {"h": torch.zeros(rows, self.codec.conf.h_dim, device=device,
+                                 dtype=self.codec.dtype),
                 "voc": S.vocoder_state(self.codec, rows, device)}
 
     def _init_host_slots(self) -> None:

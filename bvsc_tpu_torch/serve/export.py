@@ -32,9 +32,13 @@ Bundle contents (``meta.json`` is the manifest, format :data:`FORMAT`):
   in the dtype its program reads (bf16 stored as its 16 bits, the dtype in
   the manifest), so loading does no relayout.  An int8 codec's weights are
   stored as ``models.bvrnn.prepare`` widens them (exact).  The manifest's
-  ``serving`` entry records the numerics, ``use_pallas``, ``approx_snake``
-  and ``voc_dtype`` among them; a bundle without ``use_pallas`` ran the
-  kernels.  An anti-aliased config's filters would be baked into a trace,
+  ``serving`` entry records the numerics, ``use_pallas``, ``approx_snake``,
+  ``voc_dtype`` and the storage ``dtype`` among them; a bundle without
+  ``use_pallas`` ran the kernels, one without ``dtype`` is float32.  A
+  bf16-storage bundle holds bf16 weights and bf16 state, and its ``vocode``
+  program casts its mel to the vocoder weights' type (the reference's
+  ``vocode`` program raises a TypeError there: a float32 mel meets bf16
+  weights in its first conv).  An anti-aliased config's filters would be baked into a trace,
   so its codec does not export.
 
 The BVRNN's frame loops are traced as ``torch._higher_order_ops.scan`` over
@@ -267,7 +271,7 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
 
     def state(rows, window: bool) -> dict:
         tree = {"window": torch.zeros(rows, conf.winsize, device=dev)} if window else {}
-        return {**tree, "h": torch.zeros(rows, conf.h_dim, device=dev),
+        return {**tree, "h": torch.zeros(rows, conf.h_dim, device=dev, dtype=codec.dtype),
                 "voc": vocoder_state(codec, rows)}
 
     packet_meta = None
@@ -316,7 +320,8 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
         "serving": {"precision": codec.precision, "voc_compute_dtype":
                     _dtype_name(codec.voc_compute_dtype), "voc_dtype": codec.voc_dtype,
                     "fused_cell": codec.fused_cell, "quantize": codec.quantize,
-                    "use_pallas": codec.use_pallas, "approx_snake": codec.approx_snake},
+                    "use_pallas": codec.use_pallas, "approx_snake": codec.approx_snake,
+                    "dtype": _dtype_name(codec.dtype)},
         "config": dataclasses.asdict(conf),
         "buckets": buckets,
         "packet": packet_meta,
@@ -404,6 +409,7 @@ class ServingBundle:
         self.use_pallas = bool(meta["serving"].get("use_pallas", True))
         self.approx_snake = bool(meta["serving"].get("approx_snake", False))
         self.voc_dtype = meta["serving"].get("voc_dtype", "f32")
+        self.dtype = _DTYPES[meta["serving"].get("dtype", "float32")]  # the storage type
         if precision == "highest":
             set_parity_mode()
         self._programs: dict[tuple, torch.nn.Module] = {}

@@ -45,9 +45,13 @@ a multiple of the bucket.  ``fused_cell='auto'`` picks the cell by batch
 batch run the same cell, and a serving engine at B >= 32 runs the standard
 one.  Nothing here changes the process-wide TF32 flags.
 
-The kernel path's state is float32 in both modes, since K1-bf16 takes
-float32 in and out; the direct path's is bf16 when its ``voc_dtype`` is
-(:func:`voc_state_dtype`).  The symmetric and anti-aliased vocoder variants
+The vocoder state is in the codec's vocoder segment's type
+(:func:`voc_state_dtype`): float32, or bf16 on a direct path with
+``voc_dtype='bf16'`` and, under the bf16 storage dtype, on either path (the
+kernels then take the stage windows in bf16 and return bf16).  The
+BVRNN's state ``h`` is in the storage dtype.  ``StreamingEncoder.feed``
+returns float32 codes under either storage dtype (the values 0, 0.5 and 1
+are exact in both): its callers hand codes to numpy, which has no bf16.  The symmetric and anti-aliased vocoder variants
 look ahead, so they do not stream (ValueError, as in the reference).  Every
 class runs on its codec's device and returns tensors there; a CUDA codec on
 the kernel path launches the kernels, a ``device='cpu'`` codec takes their
@@ -82,8 +86,9 @@ def voc_compute_dtype(codec) -> torch.dtype:
 
 def voc_state_dtype(codec) -> torch.dtype:
     """The streaming vocoder state's type: the codec's vocoder segment's,
-    float32 on the kernel path (K1-bf16 takes float32 in and out), bf16 on
-    a direct path with ``voc_dtype='bf16'``."""
+    bf16 under the bf16 storage dtype (on the kernel path too: the kernels
+    take bf16 in and out) and on a direct path with ``voc_dtype='bf16'``,
+    else float32."""
     return codec.weights.voc_dtype
 
 
@@ -234,7 +239,8 @@ class StreamingEncoder:
 
     The first code comes once ``winsize - pad_left = 768`` samples have
     arrived (the 512-sample lookahead + one hop = 34.8 ms at 22.05 kHz).
-    Samples queue on the host; codes come back on the codec's device.
+    Samples queue on the host; codes come back on the codec's device, as
+    float32 under either storage dtype (module docstring).
     """
 
     def __init__(self, codec, batch: int = 1, bitrate: float = 3000.0):
@@ -298,7 +304,7 @@ class StreamingEncoder:
         bits = torch.full((self.batch, n), self.bits, device=codec.device)
         codes, self.h = bvrnn_mod.encode_with_state(codec.scan_params, codec.bvrnn_cfg, mel,
                                                     bits, self.h)
-        return codes
+        return codes.to(torch.float32)
 
 
 class StreamingDecoder:

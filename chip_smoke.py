@@ -108,7 +108,7 @@ Phases, each printing one JSON line with its seconds:
    later one's, and with per-row starts) within the kernel tolerances,
    and, at M = B rows against M = B x frames, the bits of each product the
    one-shot scan hoists over the frames.  Times, no limit: ms per packet
-   step (host wall time, synchronised; median and p90 of 100 steps after
+   step (host wall time, synchronised; median and p90 of 50 steps after
    10) at B = 1 and 4 in both modes, the vocoder step alone with kernel
    and with plain stages, and the real-time factor against the 11.61 ms a
    packet lasts.  The TF32 flags are unchanged at its end.
@@ -140,7 +140,7 @@ Phases, each printing one JSON line with its seconds:
     ``AdaptiveCodesCoder`` on the same block partition, and the entropy
     clients' raw and wire bytes printed (no gate: savings depend on the
     model); the daemon is closed.  Times, no limit: ms
-    per tick (median and p90 of 100 after 10) at 1, 32 and 128 active
+    per tick (median and p90 of 50 after 10) at 1, 32 and 128 active
     streams of 128 slots, for both engines in both modes, each split into
     the device step (``_tick_call``, synchronised) and the host's part; at
     128 the device time of 10 more ticks from a ``torch.profiler`` trace
@@ -224,7 +224,7 @@ Phases, each printing one JSON line with its seconds:
     directory removed at the end.  BVRNN (``train.bvrnn_train``): one step
     at B = 2 on 0.5-s segments on the card against the port's CPU step from
     the same weights and draws (loss <= 1e-5 relative, gradient norm
-    <= 1e-4, updated params <= 1e-5); 10 float32 steps at batch 32 on 4.0-s
+    <= 1e-4, updated params <= 1e-5); 6 float32 steps at batch 32 on 4.0-s
     segments (344 frames), every loss finite and the mean of the last 3
     below the first; the fused cell and bf16 compute from the same weights
     and first batch, their first loss within the reference's 5 % of the
@@ -308,6 +308,24 @@ Phases, each printing one JSON line with its seconds:
     ``cli.train_vocoder --fine_tuning --evaluate`` on the dumped
     mel prints finite STOI and PESQ.  Printed, no gate: the host ms a clip of
     STOI, PESQ-WB and MCD.  Every process is stopped before the phase ends.
+
+17. ``bf16_storage`` (after ``golden``): ``BVRNNCodecModel(dtype='bfloat16')``
+    at full width on the trained pair, parity (``'highest'``) and fast
+    (``'default'``).  One offline call of each on the main path's batch, the
+    launch counts set to 0 before and read after it: 12 launches of the
+    kernel with bf16 activations (K1 at parity, K1-bf16 fast) and no other;
+    float32 waveform, finite.  Each stage's kernel output there against its
+    plain version on the same bf16 input: within one bf16 ulp of the
+    largest output (the samples that differ counted), timed with CUDA
+    events beside the plain version and the bound (bf16 activations read
+    and written once, or the FLOP floor).  ``encode`` (bf16 codes, no
+    launch), ``decode``, a ``FusedPacketCodec`` step and a 4-slot
+    ``ServingEngine`` tick (12 each), and the direct path's call (none).
+    The teacher-forced golden step (``chkpts_npz/
+    golden_demo_stim15_3kbps_bf16.npz``): state and encoder output within 4
+    bf16 ulps of the JAX package's largest magnitude, the transmitted codes
+    equal but within one ulp of 0.5; printed without a gate: the closed loop's code
+    agreement beside the float32 golden's, and the decoded-mel gap.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
@@ -419,13 +437,20 @@ PLC_BURST = 5  # frames of each stream's one burst
 PLC_CONCEAL_BITRATE = 3000  # stream 0's concealment allocation; the others use every bit
 PLC_MANUAL_TOL = 1e-4  # a concealed frame against the hand-made substitution
 GOLDEN = os.path.join(REPO, "chkpts_npz", "golden_demo_stim15_3kbps.npz")
+GOLDEN_BF16 = os.path.join(REPO, "chkpts_npz", "golden_demo_stim15_3kbps_bf16.npz")
+# the golden step's state and encoder output, in bf16 ulps of their largest
+# magnitude (tests/test_torch_bf16_storage.py's gate; measured 1 on the CPU
+# and 2 on the card: a product's one-ulp flip carried through the GRU
+# update's rounded ops)
+BF16_STEP_ULPS = 4
+BF16_SLOTS = 4  # the bf16 engine's slots
 GOLDEN_MEL_TOL = 1e-4  # the decoded mel against bvsc_tpu's on the card (sums in another order)
 GOLDEN_MEL_CPU = 2e-5  # the port's BVRNN gate on the CPU, printed beside the card's gap
 GOLDEN_SNR_DB = 40.0  # the codec gate (ROADMAP.md, North star)
 STREAM_TOL = 1e-5  # streaming against one-shot at parity: the overlap-add's reordered sums
 STREAM_FAST_TOL = 7e-2  # the same in fast mode (the reference's fast streaming bound)
 STREAM_CHUNKS = (256, 1000, 4096)
-STREAM_STEPS, STREAM_WARMUP = 100, 10  # timed packet steps, after the warm-up ones
+STREAM_STEPS, STREAM_WARMUP = 50, 10  # timed packet steps, after the warm-up ones
 STREAM_STAGE_STEPS = 16  # packets of one stage streamed against its one-shot output
 SERVE_SLOTS = 128  # the reference's serving config: 128 concurrent streams on one card
 SERVE_STREAMS = 24  # streams of the schedule, opened SERVE_STAGGER ticks apart
@@ -435,7 +460,7 @@ SERVE_HELD = (0, 1, 2, 23)  # streams held against a dedicated B = 1 packet code
 SERVE_SWITCH = (1, 60, 1000.0)  # stream 1 switches to 1 kbps after its 60th frame
 SERVE_REOPEN = 5  # this stream's slot is closed at its end and reopened with its input
 SERVE_ACTIVE = (1, 32, 128)  # streams advancing in the timed ticks
-SERVE_STEPS, SERVE_WARMUP = 100, 10  # timed ticks, after the warm-up ones
+SERVE_STEPS, SERVE_WARMUP = 50, 10  # timed ticks, after the warm-up ones
 DAEMON_SAMPLES = 20000  # each daemon client's input
 DAEMON_ENT_BLOCK = 8  # frames a CODES_ENT message of the entropy decode client
 NATIVE_CLIENT = os.path.join(REPO, "bvsc_tpu", "native", "bvsp_client.c")  # C, built with cc
@@ -459,7 +484,7 @@ TRAIN_CHECK_SECONDS = 0.5  # the BVRNN's segments in that check
 TRAIN_LOSS_RTOL = 1e-5  # BVRNN loss, card against CPU
 TRAIN_GRAD_RTOL = 1e-4  # BVRNN gradient norm (sums over 43 frames in another order)
 TRAIN_PARAM_TOL = 1e-5  # BVRNN params after the step, card against CPU
-TRAIN_STEPS = 10  # full-size BVRNN steps (batch 32, 4.0-s segments)
+TRAIN_STEPS = 6  # full-size BVRNN steps (batch 32, 4.0-s segments)
 TRAIN_MODE_RTOL = 0.05  # fused / bf16 first loss against the standard one (the reference's)
 TRAIN_RESUME_BATCH = 4  # the resume check's batch and frames, full width
 TRAIN_RESUME_FRAMES = 86
@@ -487,20 +512,21 @@ def load_batch() -> np.ndarray:
     return np.stack([speech, *noisy])
 
 
-def stage_bound_ms(stage_blocks, B: int, T: int,
-                   compute_dtype: torch.dtype = torch.float32) -> tuple[float, str]:
+def stage_bound_ms(stage_blocks, B: int, T: int, compute_dtype: torch.dtype = torch.float32,
+                   io_bytes: int = 4) -> tuple[float, str]:
     """Least time of one vocoder stage (its resblocks and their average):
     conv FLOPs (2 C^2 k per output sample, 6 convs per block) at the peak of
     their type (float32 on the CUDA cores, or bf16 on the tensor cores)
-    against the input read once, the output written once and the weights
-    the mode reads (float32, or the packed bf16 ones) read once."""
+    against the input read once, the output written once (``io_bytes`` an
+    element: 4 float32, 2 bf16) and the weights the mode reads (float32, or
+    the packed bf16 ones) read once."""
     C = stage_blocks[0].channels
     flops = sum(6 * 2 * C * C * rb.kernel_size for rb in stage_blocks) * B * T
     bf16 = compute_dtype == torch.bfloat16
     weights = sum(t.numel() * t.element_size() for rb in stage_blocks
                   for t in ((rb.wk1, rb.wk2) if bf16 else (rb.w1, rb.w2))
                   + (rb.b1, rb.b2, rb.alpha, rb.inv_beta))
-    nbytes = 4 * 2 * B * C * T + weights
+    nbytes = io_bytes * 2 * B * C * T + weights
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -995,6 +1021,166 @@ def enc_margin(codec: BVRNNCodecModel, x: torch.Tensor, frame: int, bit: int) ->
         phi_x = bvrnn_mod.phi_x_apply(sp, bvrnn_mod._normalize(sp, mel[:, frame]), prec)
         enc = bvrnn_mod.enc_apply(sp, torch.cat([phi_x, h_seq[:, frame]], -1), prec)
     return abs(enc[0, bit].item() - 0.5)
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value's magnitude (zero counts as the least
+    normal's)."""
+    v = v.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest gap of ``got`` from ``ref``, in bf16 ulps of ``ref``'s
+    largest magnitude (tests/test_torch_bf16_storage.py's measure)."""
+    gap = (got.float() - ref.float()).abs().max()
+    return (gap / bf16_ulp(ref.float().abs().max())).item()
+
+
+def bf16_bits(a: np.ndarray) -> torch.Tensor:
+    """A golden's uint16 bf16 bits as a bf16 tensor on the card."""
+    return torch.from_numpy(a.astype(np.uint16).view(np.int16)).view(torch.bfloat16).to(DEV)
+
+
+def bf16_golden_step(codec: BVRNNCodecModel) -> tuple[dict, dict]:
+    """One BVRNN step of the bf16 codec from each of the bf16 golden's
+    states (``tools/write_goldens.py --dtype bf16``), all in one batch: the
+    encoder's probabilities and the next state against the JAX package's in
+    bf16 ulps of their largest magnitude, the transmitted codes equal
+    except where the golden's encoder output lies within one ulp of 0.5
+    (counted).  Returns those
+    numbers and the golden's arrays."""
+    with np.load(GOLDEN_BF16) as z:
+        g = {k: z[k] for k in z.files}
+    h = bf16_bits(g["step_h"])
+    mel = torch.from_numpy(g["step_mel"]).to(DEV)[:, None]
+    bits = torch.full((h.shape[0], 1), codec.bits_per_frame(float(g["bitrate"])), device=DEV)
+    with torch.no_grad():
+        codes, h_next = bvrnn_mod.encode_with_state(codec.scan_params, codec.bvrnn_cfg, mel, bits,
+                                                    h)
+        enc = bvrnn_mod.enc_from_states(codec.scan_params, codec.bvrnn_cfg, mel, h[:, None])[:, 0]
+    ref_enc = bf16_bits(g["step_enc"])
+    k = int(bits[0, 0].item())  # the transmitted bits; the rest are 0.5
+    differ = codes[:, 0, :k].float() != torch.round(ref_enc[:, :k].float())
+    near_half = (ref_enc[:, :k].float() - 0.5).abs() <= bf16_ulp(torch.tensor(0.5)).item()
+    out = {"frames": g["step_frames"].tolist(), "h_ulps": bf16_ulps(h_next, bf16_bits(g["step_h_next"])),
+           "enc_ulps": bf16_ulps(enc, ref_enc), "codes_differing_near_half": int(differ.sum()),
+           "codes_differing_elsewhere": int((differ & ~near_half).sum())}
+    return out, g
+
+
+def bf16_storage_phase(parity: BVRNNCodecModel, wav: np.ndarray, smi: str) -> dict:
+    """The bf16 storage dtype (``BVRNNCodecModel(dtype='bfloat16')``) at full
+    width on the trained pair, on the card: its main path (one offline call
+    of each kernel mode, the counts read around each), the kernels' bf16-I/O
+    forms against their plain versions at that call's stage shapes and
+    timed, the other entry points with their launch counts, the teacher-
+    forced golden step, and the closed-loop agreement (printed).  Returns
+    the kernels line's numbers for both bf16-I/O kernels."""
+    t0 = time.time()
+    conf = parity.conf
+    B, L = wav.shape
+    x = torch.from_numpy(wav).to(DEV)
+    codecs = {prec: BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ, vocoder_chkpt_path=VOC_NPZ,
+                                    dtype="bfloat16", precision=prec, device=DEV)
+              for prec in ("highest", "default")}
+    counter = {"highest": "launches_io_bf16", "default": "launches_bf16_io_bf16"}
+    n_blocks = sum(len(blocks) for blocks in parity.kernel_blocks)
+    entries, launches, calls = {}, {}, {}
+    for prec, codec in codecs.items():
+        compute = codec.voc_compute_dtype
+        AR.reset_launches()
+        (y, stages), ms = timed(lambda: recorded_call(codec, x))
+        counts = AR.read_launches()
+        if counts[counter[prec]] != n_blocks or sum(counts.values()) != n_blocks:
+            raise AssertionError(f"bf16 storage at {prec!r}: launches {counts}, expected "
+                                 f"{n_blocks} {counter[prec]} and no other")
+        if y.dtype != torch.float32 or tuple(y.shape) != (B, L) or not torch.isfinite(y).all():
+            raise AssertionError(f"bf16 storage at {prec!r}: output {y.dtype} {tuple(y.shape)}")
+        launches[prec], calls[prec] = counts[counter[prec]], {"call_ms": ms}
+        tot = {"max_abs_err": 0.0, "ulp_of_max": 0.0, "samples_differing": 0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
+        for i, (xs, ys) in enumerate(stages):
+            blocks = codec.kernel_blocks[i]
+            if xs.dtype != torch.bfloat16 or ys.dtype != torch.bfloat16:
+                raise AssertionError(f"stage {i} ran on {xs.dtype} -> {ys.dtype}, not bf16")
+            ref = AR.amp_stack_plain(xs, blocks, compute)
+            gap = (ys.float() - ref.float()).abs()
+            scale = bf16_ulp(ref.float().abs().max()).item()
+            err, n_diff = gap.max().item(), int((gap > 0).sum())
+            k_ms = cuda_ms(lambda: AR.amp_stack(xs, blocks, compute))
+            p_ms = cuda_ms(lambda: AR.amp_stack_plain(xs, blocks, compute), reps=5, warmup=1)
+            bound, by = stage_bound_ms(blocks, xs.shape[0], xs.shape[2], compute, io_bytes=2)
+            emit("bf16_kernel", time.time(), mode=prec, stage=i, shape=list(xs.shape),
+                 max_abs_err=err, ulp_of_max=scale, samples_differing=n_diff, ms=k_ms,
+                 plain_ms=p_ms, bound_ms=bound, bound_by=by)
+            if not err <= scale:
+                raise AssertionError(f"bf16-I/O kernel at {prec!r} stage {i}: {err} > one bf16 "
+                                     f"ulp of its largest output, {scale}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["ulp_of_max"] = max(tot["ulp_of_max"], scale)
+            tot["samples_differing"] += n_diff
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound)):
+                tot[key] += v
+            tot["bound_by"].add(by)
+        entries[prec] = tot
+
+    # the other entry points of the parity-mode codec, and the direct path
+    codec = codecs["highest"]
+    AR.reset_launches()
+    codes = codec.encode(x, BITRATE)
+    if sum(AR.read_launches().values()) or codes.dtype != torch.bfloat16:
+        raise AssertionError(f"encode: {codes.dtype}, launches {AR.read_launches()}")
+    if not set(torch.unique(codes.float()).tolist()) <= {0.0, 0.5, 1.0}:
+        raise AssertionError("bf16 codes outside {0, 0.5, 1}")
+    counts = {}
+    fpc = S.FusedPacketCodec(codec, 1, BITRATE)
+    for name, fn in (("decode", lambda: codec.decode(codes, L)),
+                     ("packet_step", lambda: fpc.process(wav[:1, :768]))):  # its first step
+        AR.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = AR.read_launches()["launches_io_bf16"]
+        if not torch.isfinite(out).all() or counts[name] != n_blocks:
+            raise AssertionError(f"{name}: {counts[name]} launches, finite "
+                                 f"{torch.isfinite(out).all().item()}")
+    eng = ServingEngine(codec, max_streams=BF16_SLOTS)
+    for i in range(2):
+        eng.push(eng.open_stream(BITRATE), wav[i, : 768 + 256])
+    AR.reset_launches()
+    out = eng.tick()
+    torch.cuda.synchronize()
+    counts["engine_tick"] = AR.read_launches()["launches_io_bf16"]
+    if len(out) != 2 or counts["engine_tick"] != n_blocks:
+        raise AssertionError(f"engine tick: {len(out)} streams, {counts['engine_tick']} launches")
+    direct = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ, vocoder_chkpt_path=VOC_NPZ,
+                             dtype="bfloat16", use_pallas=False, device=DEV)
+    AR.reset_launches()
+    y_direct = direct(x, BITRATE)
+    torch.cuda.synchronize()
+    counts["direct_call"] = sum(AR.read_launches().values())
+    if counts["direct_call"] or not torch.isfinite(y_direct).all():
+        raise AssertionError(f"direct path: {counts['direct_call']} launches")
+
+    # the teacher-forced golden step, and the closed loop (printed)
+    step, g = bf16_golden_step(codec)
+    speech = torch.from_numpy(wav[:1]).to(DEV)
+    gold = torch.from_numpy(g["codes"].astype(np.float32) / 2).to(DEV)[None]
+    active = gold != 0.5
+    agree = ((codec.encode(speech, BITRATE).float() == gold) & active).sum().item() / active.sum().item()
+    with np.load(GOLDEN) as z:
+        gold32 = torch.from_numpy(z["codes"].astype(np.float32) / 2).to(DEV)[None]
+    agree32 = (parity.encode(speech, BITRATE) == gold32).sum().item() / gold32.numel()
+    mel_gap = max_err(codec.decode_to_mel(gold).float()[0], bf16_bits(g["mel"]).float())
+    emit("bf16_storage", t0, calls=calls, launches=launches, entry_launches=counts,
+         kernels={p: {k: (sorted(v) if isinstance(v, set) else v) for k, v in e.items()}
+                  for p, e in entries.items()},
+         golden_step=step, golden_step_ulps_gate=BF16_STEP_ULPS,
+         closed_loop_code_agreement=agree, float32_golden_code_agreement=agree32,
+         closed_loop_decoded_mel_gap=mel_gap, nvidia_smi=smi)
+    if max(step["h_ulps"], step["enc_ulps"]) > BF16_STEP_ULPS or step["codes_differing_elsewhere"]:
+        raise AssertionError(f"bf16 golden step: {step}")
+    return {"launches": launches, "entries": entries}
 
 
 def golden_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
@@ -3822,6 +4008,7 @@ def main() -> None:
              **{key: v for key, v in tot.items() if key != "bound_by"})
     plc_phase(codec, fast, wav, smi)
     golden_phase(codec, wav[0], smi)
+    bf16 = bf16_storage_phase(codec, wav, smi)
     streaming_phase(codec, fast, wav, smi)
     exports = ExportCLIs(conf)  # beside phases serving, direct_path and entropy
     try:
@@ -3855,6 +4042,12 @@ def main() -> None:
         k1_entry("amp_resblock_bf16", "bvsc_tpu_torch/csrc/amp_resblock_bf16.cu",
                  "bvsc_tpu/ops/pallas_voc.py:240 (compute_dtype=bfloat16)", launches_bf16,
                  totals_bf16),
+        k1_entry("amp_resblock_io_bf16", "bvsc_tpu_torch/csrc/amp_resblock.cu",
+                 "bvsc_tpu/ops/pallas_voc.py:240 (bf16 x, out_dtype=x.dtype)",
+                 bf16["launches"]["highest"], bf16["entries"]["highest"]),
+        k1_entry("amp_resblock_bf16_io_bf16", "bvsc_tpu_torch/csrc/amp_resblock_bf16.cu",
+                 "bvsc_tpu/ops/pallas_voc.py:240 (compute_dtype=bfloat16, bf16 x, "
+                 "out_dtype=x.dtype)", bf16["launches"]["default"], bf16["entries"]["default"]),
         *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -180,9 +180,19 @@ def test_scan_unroll_codes_match_reference_constructor(trees, x):
     np.testing.assert_array_equal(_port_codec(trees, **kwargs).encode(x, 3000).numpy(), ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, jnp.bfloat16, np.float16, "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, jnp.bfloat16, "bfloat16"])
+def test_bf16_storage_names(dtype):
+    """Each name of bf16 builds a codec whose weights and state are bf16."""
+    codec = BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", dtype=dtype)
+    assert codec.dtype == codec.bvrnn_cfg.dtype == torch.bfloat16
+    assert codec.bvrnn_params["gru"]["w_ih"].dtype == torch.bfloat16
+    assert codec.vocoder_params["conv_pre"]["w"].dtype == torch.bfloat16
+    assert codec._h0(1).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [np.float16, torch.float16, "float16", np.float64])
 def test_other_storage_dtypes_raise(dtype):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, 'The bf16 storage dtype'"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", dtype=dtype)
 
 

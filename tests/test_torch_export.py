@@ -113,7 +113,7 @@ def test_manifest_and_weights(codec, fast, bundle, fast_bundle):
     assert fast_bundle.meta["serving"] == {"precision": "default", "voc_compute_dtype": "bfloat16",
                                            "voc_dtype": "f32", "fused_cell": "auto",
                                            "quantize": None, "use_pallas": True,
-                                           "approx_snake": False}
+                                           "approx_snake": False, "dtype": "float32"}
     assert [b["length"] for b in m["buckets"]] == list(LENGTHS)
     assert m["packet"]["batch"] == 1 and m["engine"]["batch"] == SLOTS
     # the weights are stored once, as the programs read them: dtypes kept

@@ -31,7 +31,10 @@ def _np(tree):
         return {k: _np(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_np(v) for v in tree)
-    return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else tree
+    if isinstance(tree, torch.Tensor):  # bf16 (the bf16 storage dtype) widens exactly
+        return tree.detach().cpu().to(torch.float32 if tree.dtype == torch.bfloat16
+                                      else tree.dtype).numpy()
+    return tree
 
 
 def _mesh(kind: str, n: int, make_1d, make_2d):
@@ -52,7 +55,7 @@ def tp(n, kind, params, cfg_kwargs, z, y, bits, h0):
 
     mesh = _mesh(kind, n, T.make_tp_mesh, T.make_dp_tp_mesh)
     cfg = BVRNNConfig(**cfg_kwargs)
-    tpp = T.shard_tp_params(T.prepare_tp_params(params), mesh)
+    tpp = T.shard_tp_params(T.prepare_tp_params(params), mesh, dtype=cfg.dtype)
     mel, h = T.decode_tp(tpp, cfg, z, h0, mesh)
     codes, h_enc = T.encode_tp(tpp, cfg, y, bits, h0, mesh)
     return _np({"mel": mel, "h": h, "codes": codes, "h_enc": h_enc})
