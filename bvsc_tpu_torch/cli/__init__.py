@@ -6,3 +6,10 @@ cpu``: ``codec_cli`` (``.bvsc`` files), ``export_cli`` (serving bundles),
 ``select_vocoder_ckpt``, ``evaluate_codec``, ``compare_reference_conditions``
 and ``entropy_representativeness`` (synthesis and evaluation);
 ``validate_pesq`` and ``prepare_demo_data`` run on the host alone."""
+
+# the checkpoint flags' help: the files ``codec.load_bvrnn_checkpoint`` and
+# ``codec.load_vocoder_checkpoint`` read
+BVRNN_HELP = ("BVRNN checkpoint: a flat .npz (chkpts/), a port trainer's bvrnn_ file or an "
+              "upstream {'vrnn': state_dict} .pt")
+VOCODER_HELP = ("vocoder checkpoint: a flat .npz (tools/export_vocoder_npz.py), a port trainer's "
+                "g_ / do_ file or an upstream BigVGAN g_ file ({'generator': state_dict})")

@@ -37,6 +37,8 @@ import struct
 
 import numpy as np
 
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
+
 MAGIC = b"BVSC"
 VERSION_RAW = 1
 VERSION_BVSC_TPU_PRIOR = 2  # bvsc_tpu's float32 prior: refused
@@ -148,9 +150,9 @@ def main(argv=None) -> None:
                    help="decode only: resample the output to this rate (e.g. 16000)")
     p.add_argument("--config", default=None)
     p.add_argument("--bvrnn_checkpoint", default=None,
-                   help="flat BVRNN .npz (chkpts/); random weights from seed 0 without one")
+                   help=BVRNN_HELP + "; random weights from seed 0 without one")
     p.add_argument("--vocoder_checkpoint", default=None,
-                   help="flat vocoder .npz (tools/export_vocoder_npz.py)")
+                   help=VOCODER_HELP)
     p.add_argument("--device", default=None,
                    help="'cuda' (the default: the first card) or 'cpu'")
     args = p.parse_args(argv)

@@ -34,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
 from bvsc_tpu_torch.cli.evaluate_codec import load_22k
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, BVRNNCodecModel
 from bvsc_tpu_torch.config import load_config
@@ -50,9 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--config", default=DEFAULT_CONFIG)
     p.add_argument("--dataset", required=True,
                    help="the MUSHRA dataset: ratings_formated_filtered.csv and audio/stim_*/")
-    p.add_argument("--bvrnn_checkpoint", default=None, help="flat BVRNN .npz")
+    p.add_argument("--bvrnn_checkpoint", default=None, help=BVRNN_HELP)
     p.add_argument("--vocoder_checkpoint", default=None,
-                   help="flat vocoder .npz (tools/export_vocoder_npz.py)")
+                   help=VOCODER_HELP)
     p.add_argument("--bitrates", type=float, nargs="+", default=[1378.0, 5512.0],
                    help="paper operating points: 1378 / 5512 bps")
     p.add_argument("--skip_ours", action="store_true",

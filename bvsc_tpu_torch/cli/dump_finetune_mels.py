@@ -26,6 +26,7 @@ import os
 
 import numpy as np
 
+from bvsc_tpu_torch.cli import BVRNN_HELP
 from bvsc_tpu_torch.cli.train_bvrnn import read_filelist
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, BVRNNCodecModel
 from bvsc_tpu_torch.data.audio import load_wav
@@ -66,7 +67,7 @@ def main(argv=None) -> list[str]:
     p = argparse.ArgumentParser(prog="python -m bvsc_tpu_torch.cli.dump_finetune_mels",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default=None)
-    p.add_argument("--bvrnn_checkpoint", default=None, help="flat BVRNN .npz")
+    p.add_argument("--bvrnn_checkpoint", default=None, help=BVRNN_HELP)
     p.add_argument("--input_wavs_dir", default="")
     p.add_argument("--input_training_file", default=None,
                    help="pipe-separated filelist (reference format); if omitted, every .wav "

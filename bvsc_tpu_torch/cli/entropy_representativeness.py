@@ -28,6 +28,7 @@ import os
 
 import numpy as np
 
+from bvsc_tpu_torch.cli import BVRNN_HELP
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, BVRNNCodecModel
 from bvsc_tpu_torch.config import load_config
 from bvsc_tpu_torch.data.audio import load_wav
@@ -46,7 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoints", default=",".join((
         os.path.join(REPO, "chkpts/bvsc_bvrnn_demo_step3000_f16.npz"),
         os.path.join(REPO, "chkpts/bvsc_bvrnn_demo_cl_step1300_f16.npz"))),
-        help="comma-separated BVRNN .npz checkpoints to measure (missing ones are skipped)")
+        help="comma-separated BVRNN checkpoints to measure (missing ones are skipped); each a "
+             + BVRNN_HELP.removeprefix("BVRNN checkpoint: "))
     p.add_argument("--stimuli", type=int, default=4,
                    help="number of stimuli to code (entropy stats converge fast; 4 x ~2.5 s)")
     p.add_argument("--block", type=int, default=8,

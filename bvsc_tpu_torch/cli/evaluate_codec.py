@@ -33,6 +33,7 @@ import zlib
 import numpy as np
 import scipy.signal
 
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, BVRNNCodecModel, host_bvrnn_params
 from bvsc_tpu_torch.config import load_config
 from bvsc_tpu_torch.data.audio import load_wav, peak_normalize
@@ -45,9 +46,9 @@ def parse_args(argv=None):
     p.add_argument("--config", default=DEFAULT_CONFIG)
     p.add_argument("--stimuli_dir", required=True,
                    help="directory of stim_*/ref.wav (or a flat dir of wavs)")
-    p.add_argument("--bvrnn_checkpoint", default=None, help="flat BVRNN .npz")
+    p.add_argument("--bvrnn_checkpoint", default=None, help=BVRNN_HELP)
     p.add_argument("--vocoder_checkpoint", default=None,
-                   help="flat vocoder .npz (tools/export_vocoder_npz.py)")
+                   help=VOCODER_HELP)
     p.add_argument("--bitrates", type=float, nargs="+", default=[1378.0, 5512.0],
                    help="bits/s; paper points: 1378 (16 b/frame), 5512 (64)")
     p.add_argument("--precision", default="highest", choices=["highest", "default"])

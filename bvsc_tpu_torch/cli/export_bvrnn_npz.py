@@ -1,13 +1,16 @@
-"""Export a BVRNN trainer checkpoint of the port to the flat ``.npz`` demo
-format (the port's ``scripts/export_bvrnn_npz.py``).
+"""Export a BVRNN checkpoint to the flat ``.npz`` demo format (the port's
+``scripts/export_bvrnn_npz.py``).
 
     python -m bvsc_tpu_torch.cli.export_bvrnn_npz exp/run/best/bvrnn_00001000 out.npz
+    python -m bvsc_tpu_torch.cli.export_bvrnn_npz upstream_bvrnn.pt out.npz
 
-The ``.npz`` holds every leaf of the parameter tree in float16 under its
-flat ``a/0/b`` name, the layout of ``chkpts/*.npz``:
-``convert.load_bvrnn_npz`` and ``BVRNNCodecModel(bvrnn_chkpt_path=)`` (this
-package's and ``bvsc_tpu``'s) load it, so a model the port trained serves
-through the port.  Runs on the host; no device is needed.
+The source is any file the codec reads (``codec.load_bvrnn_checkpoint``): a
+port trainer's ``bvrnn_`` file, the reference's ``{'vrnn': state_dict}``
+``.pt`` file, or a flat ``.npz``.  The ``.npz`` holds every leaf of the
+parameter tree in float16 under its flat ``a/0/b`` name, the layout of
+``chkpts/*.npz``: ``convert.load_bvrnn_npz`` and
+``BVRNNCodecModel(bvrnn_chkpt_path=)`` (this package's and ``bvsc_tpu``'s)
+load it.  Runs on the host; no device is needed.
 """
 
 from __future__ import annotations
@@ -17,16 +20,15 @@ import sys
 
 import numpy as np
 
+from bvsc_tpu_torch.codec import load_bvrnn_checkpoint
 from bvsc_tpu_torch.convert import flatten_tree
-from bvsc_tpu_torch.train import checkpoint as ckpt
 
 
 def export(src: str, dst: str) -> dict:
     """Write ``dst`` from the checkpoint file ``src``; returns the float16
     arrays by name."""
-    state = ckpt.load(src)
-    ckpt.check_kind(state, "bvrnn")
-    flat = {k: v.numpy().astype(np.float16) for k, v in flatten_tree(state["params"]).items()}
+    params = load_bvrnn_checkpoint(src)
+    flat = {k: v.numpy().astype(np.float16) for k, v in flatten_tree(params).items()}
     np.savez_compressed(dst, **flat)
     return flat
 

@@ -20,6 +20,8 @@ import argparse
 import json
 import os
 
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BVRNN_NPZ = os.path.join(_REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
 VOCODER_NPZ = os.path.join(_REPO, "chkpts_npz", "bvsc_vocoder_demo_cl_ft_g_step600_f16.npz")
@@ -29,9 +31,9 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="python -m bvsc_tpu_torch.cli.export_cli",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default=None, help="codec TOML (default: configs/varbitrate.toml)")
-    p.add_argument("--bvrnn", default=BVRNN_NPZ, help="flat BVRNN .npz")
+    p.add_argument("--bvrnn", default=BVRNN_NPZ, help=BVRNN_HELP)
     p.add_argument("--vocoder", default=VOCODER_NPZ,
-                   help="flat vocoder .npz (tools/export_vocoder_npz.py)")
+                   help=VOCODER_HELP)
     p.add_argument("--out", required=True, help="output .bvscx path")
     p.add_argument("--batch", default="1",
                    help="request batch size, or 'any' for a symbolic batch (one program per "

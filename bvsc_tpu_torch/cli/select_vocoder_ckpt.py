@@ -12,8 +12,10 @@ mels, reference ``meldataset.py:197-214``)::
         --candidates 'exp/voc_ft/g_????????' chkpts_npz/bvsc_vocoder_demo_cl_ft_g_step600_f16.npz \\
         --stimuli held_out.wav [--device cpu]
 
-A candidate is a vocoder ``.npz`` or a port trainer's ``g_`` / ``do_``
-checkpoint (a glob expands to its matches).  The codec runs at parity on
+A candidate is a vocoder ``.npz``, a port trainer's ``g_`` / ``do_``
+checkpoint or an upstream BigVGAN ``g_`` file (a glob expands to its
+matches); the BVRNN checkpoint is any file the codec reads (a flat ``.npz``,
+a port ``bvrnn_`` file, an upstream ``{'vrnn': ...}`` ``.pt``).  The codec runs at parity on
 the first CUDA card, its vocoder through the K1 kernels, unless ``--device
 cpu``.  ``main`` returns [(mel-L1, path)] best first.
 """
@@ -28,6 +30,7 @@ import torch
 
 from bvsc_tpu_torch.cli.evaluate_codec import load_22k
 from bvsc_tpu_torch.cli.synthesize import load_vocoder
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, BVRNNCodecModel, host_bvrnn_params
 from bvsc_tpu_torch.config import load_config
 from bvsc_tpu_torch.device import resolve_device
@@ -38,9 +41,9 @@ def main(argv=None) -> list[tuple[float, str]]:
     p = argparse.ArgumentParser(prog="python -m bvsc_tpu_torch.cli.select_vocoder_ckpt",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default=DEFAULT_CONFIG)
-    p.add_argument("--bvrnn_checkpoint", required=True, help="flat BVRNN .npz")
+    p.add_argument("--bvrnn_checkpoint", required=True, help=BVRNN_HELP)
     p.add_argument("--candidates", nargs="+", required=True,
-                   help="generator checkpoint paths or globs")
+                   help="generator checkpoint paths or globs: " + VOCODER_HELP)
     p.add_argument("--stimuli", nargs="+", required=True,
                    help="held-out wavs (the demo's: the MUSHRA dataset's audio/stim_15/ref.wav)")
     p.add_argument("--bitrate", type=float, default=3000.0)
@@ -64,7 +67,7 @@ def main(argv=None) -> list[tuple[float, str]]:
     results = []
     for path in cands:
         codec = BVRNNCodecModel(config=conf, bvrnn_params=bvrnn_params,
-                                vocoder_params=load_vocoder(path), device=device)
+                                vocoder_params=load_vocoder(path, conf.vocoder_config), device=device)
         l1s = []
         for s, m_in in zip(stims, mels_in):
             out = codec(s[None, :], args.bitrate)

@@ -32,15 +32,17 @@ import threading
 
 import torch
 
+from bvsc_tpu_torch.cli import BVRNN_HELP, VOCODER_HELP
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m bvsc_tpu_torch.cli.serve_daemon",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default=None,
                    help="codec TOML; configs/varbitrate.toml when omitted")
-    p.add_argument("--bvrnn", default=None, help="flat BVRNN .npz (random weights without)")
+    p.add_argument("--bvrnn", default=None, help=BVRNN_HELP + " (random weights without)")
     p.add_argument("--vocoder", default=None,
-                   help="flat vocoder .npz (tools/export_vocoder_npz.py)")
+                   help=VOCODER_HELP)
     p.add_argument("--bundle", default=None,
                    help="serve from a .bvscx bundle exported with --engine_batch (no model code "
                         "or checkpoints needed; overrides --config/--bvrnn/--vocoder)")

@@ -6,9 +6,10 @@ mel -> wav) and ``inference_e2e.py`` (``.npy`` mel -> wav)::
         --checkpoint_file exp/voc/g_00050000 [--config configs/varbitrate.toml] [--device cpu]
     python -m bvsc_tpu_torch.cli.synthesize --input_mels_dir IN_NPY --output_dir OUT ...
 
-The checkpoint is a vocoder ``.npz`` (``tools/export_vocoder_npz.py``) or a
-port trainer's ``g_`` / ``do_`` file (``train/checkpoint.py``), weight norm
-folded.  Without ``--config``, a ``config.toml`` / ``config.json`` beside
+The checkpoint is a vocoder ``.npz`` (``tools/export_vocoder_npz.py``), a
+port trainer's ``g_`` / ``do_`` file (``train/checkpoint.py``) or an upstream
+BigVGAN ``g_`` file (``{'generator': state_dict}``), weight norm folded
+(``codec.load_vocoder_checkpoint``).  Without ``--config``, a ``config.toml`` / ``config.json`` beside
 the checkpoint is used (reference ``inference.py:83``), else
 ``configs/varbitrate.toml``; a JSON is a BigVGAN-style vocoder config.  The
 generator runs on the first CUDA card with its residual stacks through the
@@ -32,8 +33,7 @@ import numpy as np
 import scipy.signal
 import torch
 
-from bvsc_tpu_torch.cli.train_vocoder import load_generator
-from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING
+from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, load_vocoder_checkpoint
 from bvsc_tpu_torch.config import CodecConfig, VocoderConfig
 from bvsc_tpu_torch.convert import to_torch
 from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
@@ -51,7 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--input_mels_dir", default=None)
     p.add_argument("--output_dir", default="generated_files")
     p.add_argument("--checkpoint_file", required=True,
-                   help="vocoder .npz or a port g_ / do_ checkpoint")
+                   help="vocoder .npz, a port g_ / do_ checkpoint or an upstream BigVGAN g_ "
+                        "file")
     p.add_argument("--config", default=None,
                    help="codec TOML or BigVGAN-style JSON; when omitted, a config.toml / "
                         "config.json beside the checkpoint (reference inference.py:83), else "
@@ -79,14 +80,16 @@ def find_config_near(checkpoint_file: str) -> str | None:
     return None
 
 
-def load_vocoder(path: str) -> dict:
-    """The folded generator tree of a vocoder ``.npz`` or a port trainer's
-    ``g_`` / ``do_`` checkpoint (tensors on the CPU)."""
+def load_vocoder(path: str, vcfg: VocoderConfig) -> dict:
+    """The folded generator tree (tensors on the CPU) of a vocoder ``.npz``,
+    a port trainer's ``g_`` / ``do_`` checkpoint or an upstream BigVGAN
+    ``g_`` file; a directory (an Orbax checkpoint) exits naming the
+    exporter."""
     if os.path.isdir(path):
         raise SystemExit(f"{path} is a directory (bvsc_tpu's Orbax checkpoint?): the port reads "
-                         "a vocoder .npz (tools/export_vocoder_npz.py) or its own g_ files")
-    tree = load_generator(path)
-    return voc_mod.fold_generator_params(tree) if voc_mod.is_weight_normed(tree) else tree
+                         "a vocoder .npz (tools/export_vocoder_npz.py), its own g_ files or "
+                         "upstream BigVGAN g_ files")
+    return load_vocoder_checkpoint(path, vcfg)
 
 
 def load_vocoder_config(path: str, device) -> tuple[VocoderConfig, int, MelFrontend]:
@@ -131,7 +134,7 @@ def main(argv=None) -> list[str]:
         config_path = find_config_near(args.checkpoint_file) or DEFAULT_CONFIG
         print(f"using config {config_path}")
     vcfg, fs, frontend = load_vocoder_config(config_path, device)
-    params = to_torch(load_vocoder(args.checkpoint_file), device)
+    params = to_torch(load_vocoder(args.checkpoint_file, vcfg), device)
     # the kernels where they cover the config (the codec's default), else
     # the direct path
     if supported(vcfg):

@@ -37,8 +37,10 @@ Knobs, resolved as the reference resolves them:
 Lengths are padded up to a multiple of ``hop * length_bucket`` as in the JAX
 package, so both packages see the same padded input; the padded frames
 carry 0.5 codes.  ``decode(lost=)`` conceals lost packets from the BVRNN's
-prior (``models.bvrnn.decode_plc``).  A trained vocoder loads from the flat
-``.npz`` that ``tools/export_vocoder_npz.py`` writes.
+prior (``models.bvrnn.decode_plc``).  Trained weights load from a flat
+``.npz`` (the vocoder's from ``tools/export_vocoder_npz.py``), from the
+port trainers' files, or from the reference's PyTorch checkpoints (the
+upstream ``{'vrnn': ...}`` ``.pt`` and BigVGAN ``g_`` files).
 
 The device work of ``encode``, ``decode`` (without ``lost``) and
 ``__call__`` is a function of (:class:`CodecWeights`, inputs):
@@ -58,7 +60,9 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch.config import CodecConfig, VocoderConfig, load_config
-from bvsc_tpu_torch.convert import load_bvrnn_npz, load_vocoder_npz, to_torch
+from bvsc_tpu_torch.convert import (bvrnn_params_from_torch, load_bvrnn_npz, load_torch_checkpoint,
+                                    load_vocoder_npz, to_torch, unflatten_tree,
+                                    vocoder_params_from_torch)
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
@@ -66,20 +70,14 @@ from bvsc_tpu_torch.ops import quant
 from bvsc_tpu_torch.ops.amp_resblock import supported
 from bvsc_tpu_torch.ops.mel import MelFrontend
 from bvsc_tpu_torch.ops.precision import resolve as resolve_precision
+from bvsc_tpu_torch.train import checkpoint as ckpt
+from bvsc_tpu_torch.train.vocoder_train import generator_from_checkpoint
 
 # -10 dB input scaling, undone after the vocoder
 SCALING = 10 ** (-10 / 20)
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "varbitrate.toml")
-
-_VOCODER_NPZ = ("a flat .npz written by tools/export_vocoder_npz.py on a host with JAX "
-                "(ROADMAP.md, queue 1, item 3a)")
-_BVRNN_CHECKPOINTS = "BVRNN checkpoints other than the flat .npz (ROADMAP.md, queue 1, item 3)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with {item}")
 
 
 def storage_dtype(dtype) -> torch.dtype:
@@ -114,19 +112,64 @@ def _seeds(seed: int):
     return np.random.SeedSequence(seed).generate_state(2)
 
 
+def _checkpoint_file(path: str, exporter: str) -> dict:
+    """A checkpoint file's contents (``torch.load``, weights only); a
+    directory, an Orbax checkpoint, raises ValueError naming ``exporter``."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory: bvsc_tpu's Orbax checkpoints need JAX to read "
+                         f"(ROADMAP.md, \"Not to port\"); export it to a flat .npz with "
+                         f"{exporter} on a host with JAX")
+    return load_torch_checkpoint(path)
+
+
+def load_bvrnn_checkpoint(path: str) -> dict:
+    """A BVRNN checkpoint -> the port's BVRNN tree of float32 tensors on the
+    host, dispatched as ``bvsc_tpu``'s codec dispatches: a flat ``.npz``
+    (``chkpts/``); a port trainer's ``bvrnn_`` file, told apart by its
+    ``format`` key (``train/checkpoint.py``); any other file the reference's
+    ``{'vrnn': state_dict}`` (or a bare ``state_dict``), through
+    :func:`convert.bvrnn_params_from_torch`.  A directory raises ValueError."""
+    path = os.fspath(path)
+    if path.endswith(".npz"):
+        return load_bvrnn_npz(path)
+    state = _checkpoint_file(path, "scripts/export_bvrnn_npz.py")
+    if "format" in state:
+        ckpt.check_kind(state, "bvrnn")
+        return to_torch(unflatten_tree(state["params"]))
+    return bvrnn_params_from_torch(state.get("vrnn", state))
+
+
+def load_vocoder_checkpoint(path: str, vcfg: VocoderConfig) -> dict:
+    """A vocoder checkpoint -> the port's folded generator tree of float32
+    tensors on the host: a flat ``.npz`` (``tools/export_vocoder_npz.py``);
+    a port trainer's ``g_`` / ``do_`` file, told apart from an upstream
+    ``g_`` file by its ``format`` key and folded with
+    ``models.vocoder.fold_generator_params``; any other file the reference's
+    BigVGAN ``{'generator': state_dict}`` (or a bare ``state_dict``), through
+    :func:`convert.vocoder_params_from_torch` (weight norm folded in
+    float64).  A directory raises ValueError."""
+    path = os.fspath(path)
+    if path.endswith(".npz"):
+        return load_vocoder_npz(path)
+    state = _checkpoint_file(path, "tools/export_vocoder_npz.py")
+    if "format" in state:
+        tree = generator_from_checkpoint(state)
+        return to_torch(voc_mod.fold_generator_params(tree) if voc_mod.is_weight_normed(tree)
+                        else tree)
+    return vocoder_params_from_torch(state.get("generator", state), vcfg)
+
+
 def host_bvrnn_params(conf: CodecConfig, bvrnn_chkpt_path: str | None = None,
                       seed: int = 0) -> dict:
     """The BVRNN weights ``BVRNNCodecModel(config=conf, bvrnn_chkpt_path=,
-    seed=)`` loads, on the host: the flat ``.npz`` checkpoint, or without one
-    the random init from ``seed``.  ``entropy.PriorEntropyCoder`` takes
-    these (or a bf16 codec's own ``bvrnn_params``, widened exactly)."""
+    seed=)`` loads, on the host: the checkpoint (:func:`load_bvrnn_checkpoint`),
+    or without one the random init from ``seed``.  ``entropy.PriorEntropyCoder``
+    takes these (or a bf16 codec's own ``bvrnn_params``, widened exactly)."""
     if bvrnn_chkpt_path is None:
         cfg = bvrnn_mod.BVRNNConfig(x_dim=conf.num_mels, h_dim=conf.h_dim, z_dim=conf.z_dim)
         return bvrnn_mod.init_bvrnn_params(_seeds(seed)[0], cfg,
                                            log_sigma_init=conf.log_sigma_init)
-    if bvrnn_chkpt_path.endswith(".npz"):
-        return load_bvrnn_npz(bvrnn_chkpt_path)
-    raise _not_ported("loading a non-npz BVRNN checkpoint", _BVRNN_CHECKPOINTS)
+    return load_bvrnn_checkpoint(bvrnn_chkpt_path)
 
 
 def bits_per_frame(conf: CodecConfig, bitrate) -> float | np.ndarray:
@@ -314,9 +357,13 @@ class BVRNNCodecModel:
         scan_unroll: int = 1,
     ):
         """``bvrnn_params`` / ``vocoder_params`` are port trees (see
-        ``convert``); ``bvrnn_chkpt_path`` and ``vocoder_chkpt_path`` are flat
-        ``.npz`` files (the vocoder's from ``tools/export_vocoder_npz.py``;
-        other checkpoints raise NotImplementedError).  With neither the
+        ``convert``); ``bvrnn_chkpt_path`` and ``vocoder_chkpt_path`` are
+        checkpoint files: a flat ``.npz`` (the vocoder's from
+        ``tools/export_vocoder_npz.py``), a port trainer's ``bvrnn_`` /
+        ``g_`` / ``do_`` file, or the reference's PyTorch file
+        (``{'vrnn': state_dict}``, BigVGAN's ``{'generator': state_dict}``)
+        (:func:`load_bvrnn_checkpoint`, :func:`load_vocoder_checkpoint`);
+        an Orbax directory raises ValueError.  With neither the
         weights are random, from ``seed``.  ``device`` defaults to CUDA
         and raises without a card; pass ``device='cpu'`` for the CPU.
 
@@ -362,9 +409,6 @@ class BVRNNCodecModel:
                 "fused_cell is not supported with quantize= (int8 dict weights "
                 "cannot be re-concatenated); drop one")
         self.fused_cell = fused_cell
-        if vocoder_chkpt_path is not None and not str(vocoder_chkpt_path).endswith(".npz"):
-            raise NotImplementedError(
-                f"vocoder checkpoint {vocoder_chkpt_path!r}: the port reads only {_VOCODER_NPZ}")
         self.device = resolve_device(device)
         self.conf = config if config is not None else load_config(config_path)
         conf = self.conf
@@ -397,7 +441,8 @@ class BVRNNCodecModel:
                 vocoder_params = voc_mod.init_generator_params(_seeds(seed)[1],
                                                                conf.vocoder_config)
             else:
-                vocoder_params = load_vocoder_npz(vocoder_chkpt_path)
+                vocoder_params = load_vocoder_checkpoint(vocoder_chkpt_path,
+                                                         conf.vocoder_config)
         self.bvrnn_params = to_torch(bvrnn_params, self.device, dtype=self.dtype)
         if quantize == "int8":
             self.bvrnn_params = quant.quantize_bvrnn_params(self.bvrnn_params)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bvsc_tpu_torch.convert import tree_size
 from bvsc_tpu_torch.ops import precision as P
 from bvsc_tpu_torch.ops.quant import dequant_matmul, is_quantized as _is_quant_dict
 
@@ -113,6 +114,11 @@ def init_bvrnn_params(
             "b_hh": rng.uniform(-bound, bound, (3 * h,)).astype(np.float32),
         },
     }
+
+
+def param_count(params: Params) -> int:
+    """The parameters' count (every leaf's elements)."""
+    return tree_size(params)
 
 
 # ---------------------------------------------------------------------------

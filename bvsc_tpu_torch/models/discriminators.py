@@ -142,7 +142,13 @@ def resolution_spectrogram(x: torch.Tensor, resolution) -> torch.Tensor:
 
 def discriminator_r_apply(params: dict, x: torch.Tensor, resolution):
     """x: (B, 1, T) -> (logits, feature maps)."""
-    x = resolution_spectrogram(x, resolution)[:, None]  # (B, 1, bins, frames)
+    return discriminator_r_apply_mag(params, resolution_spectrogram(x, resolution))
+
+
+def discriminator_r_apply_mag(params: dict, mag: torch.Tensor):
+    """The conv stack on a precomputed |STFT| magnitude (B, bins, frames)
+    (:func:`resolution_spectrogram`) -> (logits, feature maps)."""
+    x = mag[:, None]  # (B, 1, bins, frames)
     fmap = []
     strides = [(1, 1), (1, 2), (1, 2), (1, 2), (1, 1)]
     pads = [(1, 4), (1, 4), (1, 4), (1, 4), (1, 1)]

@@ -43,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from bvsc_tpu_torch.config import VocoderConfig
+from bvsc_tpu_torch.convert import tree_size
 from bvsc_tpu_torch.ops.amp_resblock import (
     ResblockParams,
     amp_stack,
@@ -113,6 +114,11 @@ def init_generator_params(seed: int, cfg: VocoderConfig, *, weight_norm: bool = 
     params["act_post"] = act(ch)
     params["conv_post"] = conv(1, ch, 7)
     return params
+
+
+def generator_param_count(params: Params) -> int:
+    """The generator's parameter count (every leaf's elements)."""
+    return tree_size(params)
 
 
 def _map_convs(tree, fn):

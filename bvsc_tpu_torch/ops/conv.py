@@ -109,6 +109,15 @@ def spectral_norm_power_iteration(tree, n_iterations: int = 1):
     return tree
 
 
+def tree_has_spectral_norm(tree) -> bool:
+    """Whether any conv of ``tree`` is spectral-normed (holds ``'w_orig'``)."""
+    if isinstance(tree, dict):
+        return "w_orig" in tree or any(tree_has_spectral_norm(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(tree_has_spectral_norm(v) for v in tree)
+    return False
+
+
 def spectral_norm_trainable_mask(tree):
     """A tree of bools shaped like ``tree``: False on the ``sn_u`` / ``sn_v``
     buffers (torch buffers, not parameters), True on every other leaf."""

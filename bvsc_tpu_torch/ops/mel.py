@@ -6,6 +6,12 @@ window, center=False, onesided) as two float32 matmuls against cos/sin bases
 -> magnitude ``sqrt(re^2 + im^2 + 1e-9)`` -> Slaney mel filterbank matmul ->
 ``log(clamp(x, 1e-5))``.  The filterbank and the window are built in numpy
 with the same formulae as the JAX package, so the constants are identical.
+
+Beside the frontend object, the reference's functional API on the same
+framed DFT: :func:`stft_magnitude` (an already padded signal ->
+``sqrt(re^2 + im^2 + eps)``), :func:`mel_spectrogram` (one-shot, the
+counterpart of ``meldataset.mel_spectrogram``) and
+:meth:`MelFrontend.stft_and_mel` (``return_stft=True``).
 """
 
 from __future__ import annotations
@@ -84,6 +90,29 @@ def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.
     return torch.log(torch.clamp(x, min=clip_val))
 
 
+def _framed_magnitude(frames: torch.Tensor, window: torch.Tensor, cos_basis: torch.Tensor,
+                      sin_basis: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """(B, F, n_fft) unwindowed frames -> (B, bins, F) magnitude: the
+    windowed frames against the cos/sin bases (two float32 products)."""
+    frames = frames * window
+    re = torch.matmul(frames, cos_basis)
+    im = torch.matmul(frames, sin_basis)
+    return torch.sqrt(re * re + im * im + eps).transpose(-1, -2)
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int, window, *, eps: float = 1e-9,
+                   dft_bases: tuple | None = None) -> torch.Tensor:
+    """Framed STFT magnitude ``sqrt(re^2 + im^2 + eps)`` of an already
+    padded (B, L) signal (no centring), shape (B, n_fft // 2 + 1, F); the
+    DFT is the frontend's, two float32 products against
+    :func:`dft_real_bases` (or ``dft_bases``), on ``y``'s device."""
+    if dft_bases is None:
+        dft_bases = dft_real_bases(n_fft)
+    cos_b, sin_b = (torch.as_tensor(b, device=y.device) for b in dft_bases)
+    return _framed_magnitude(y.unfold(-1, n_fft, hop_size),
+                             torch.as_tensor(window, device=y.device), cos_b, sin_b, eps)
+
+
 class MelFrontend:
     """(B, L) waveform -> (B, num_mels, F) log-mel, with the constants on
     ``device`` (default CUDA, which raises without a card; pass
@@ -102,6 +131,10 @@ class MelFrontend:
         device: str | torch.device | None = None,
     ):
         device = resolve_device(device)
+        if padding_left == -1:  # symmetric padding (the reference's meldataset.py:72-75)
+            if (n_fft - hop_size) % 2:
+                raise ValueError(f"no symmetric padding for n_fft {n_fft}, hop {hop_size}")
+            padding_left = (n_fft - hop_size) // 2
         self.pad_left = padding_left
         self.pad_right = n_fft - padding_left - hop_size
         self.n_fft = n_fft
@@ -142,11 +175,36 @@ class MelFrontend:
         """(B, F, n_fft) unwindowed frames -> (B, num_mels, F) log-mel.  The
         one-shot call and the streaming paths (``streaming.py``) share it, so
         a frame's mel is the same arithmetic on both."""
-        frames = frames * self.window
-        re = torch.matmul(frames, self.cos_basis)
-        im = torch.matmul(frames, self.sin_basis)
-        mag = torch.sqrt(re * re + im * im + 1e-9).transpose(-1, -2)  # (B, bins, F)
-        return dynamic_range_compression(torch.matmul(self.mel_basis, mag))
+        return self._mel_and_magnitude(frames)[0]
+
+    def _mel_and_magnitude(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, F, n_fft) unwindowed frames -> (log-mel (B, num_mels, F),
+        STFT magnitude (B, bins, F))."""
+        mag = _framed_magnitude(frames, self.window, self.cos_basis, self.sin_basis)
+        return dynamic_range_compression(torch.matmul(self.mel_basis, mag)), mag
 
     def __call__(self, y: torch.Tensor) -> torch.Tensor:
         return self.log_mel(self.pad(y).unfold(-1, self.n_fft, self.hop_size))
+
+    def stft_and_mel(self, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, L) waveform -> (log-mel, STFT magnitude): the reference's
+        ``return_stft=True``."""
+        return self._mel_and_magnitude(self.pad(y).unfold(-1, self.n_fft, self.hop_size))
+
+
+def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: int, hop_size: int,
+                    win_size: int, fmin: float, fmax: float | None,
+                    padding_left: int) -> torch.Tensor:
+    """One-shot log-mel, the reference's ``meldataset.mel_spectrogram``
+    (reflect pad left ``padding_left``, or symmetric with -1), on ``y``'s
+    device: (B, L) -> (B, num_mels, F).  The window is ``n_fft`` long, as
+    the JAX package's frontend needs it; another ``win_size`` raises
+    ValueError."""
+    if win_size != n_fft:
+        raise ValueError(f"win_size {win_size} != n_fft {n_fft}: the frontend's Hann window "
+                         "spans the whole frame")
+    y = torch.as_tensor(y)
+    frontend = MelFrontend(sampling_rate=sampling_rate, n_fft=n_fft, num_mels=num_mels,
+                           hop_size=hop_size, fmin=fmin, fmax=fmax, padding_left=padding_left,
+                           device=y.device)
+    return frontend(y)

@@ -327,6 +327,24 @@ Phases, each printing one JSON line with its seconds:
     equal but within one ulp of 0.5; printed without a gate: the closed loop's code
     agreement beside the float32 golden's, and the decoded-mel gap.
 
+18. ``upstream_ckpt`` (after ``main_path``): the reference's PyTorch
+    checkpoints.  The trained pair written, in a temporary directory, as
+    the upstream files: the BVRNN as ``{'vrnn': state_dict}``
+    (``convert.bvrnn_params_to_torch_sd``), the vocoder as BigVGAN
+    ``{'generator': state_dict}`` ``g_`` files with (a) plain ``weight``
+    keys and (b) ``weight_g`` / ``weight_v`` from
+    ``unfold_generator_params``.  ``BVRNNCodecModel(bvrnn_chkpt_path=,
+    vocoder_chkpt_path=)`` at parity from (``.pt``, a) and (``.pt``, b) and
+    fast from (``.pt``, a), on the main path's batch at 3 kbps, the K1
+    counts set to 0 just before each call and read just after: 12 launches
+    of the mode's kernel (K1 at parity, K1-bf16 fast) and none of the
+    other; 0 codes flipped against the ``.npz`` codecs; the waveform
+    bitwise theirs from (a) and within 1e-4 from (b), whose weights' gap
+    is printed in float32 ulps.  ``cli.synthesize`` in this process on
+    file (a) and on the vocoder ``.npz``: bitwise equal waveforms, 12 K1
+    launches each.  ``cli.export_bvrnn_npz`` on the ``.pt``: its float16
+    arrays bitwise the shipped ``.npz``'s.
+
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: exit code non-zero
 and no ``ok`` line.
@@ -366,7 +384,8 @@ from bvsc_tpu_torch.cli import evaluate_codec as EVC
 from bvsc_tpu_torch.cli import select_vocoder_ckpt as SEL
 from bvsc_tpu_torch.cli import synthesize as SY
 from bvsc_tpu_torch.codec import DEFAULT_CONFIG, SCALING, _generator_impl
-from bvsc_tpu_torch.convert import flatten_tree, load_bvrnn_npz, to_torch
+from bvsc_tpu_torch.convert import (bvrnn_params_to_torch_sd, flatten_tree, load_bvrnn_npz,
+                                    load_vocoder_npz, to_torch, vocoder_params_to_torch_sd)
 from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
 from bvsc_tpu_torch.data.dataset import AudioSegmentDataset
 from bvsc_tpu_torch.device import set_parity_mode
@@ -682,12 +701,13 @@ def recorded_call(codec: BVRNNCodecModel, x: torch.Tensor):
         voc_mod.amp_stack = AR.amp_stack
 
 
-def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]:
+def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list, dict, tuple]:
     """One resynthesis call through the entry point, with the kernel's
     launch count read around it and each stage's kernel output held against
     the plain version; then a second, warm call for its time, and the
-    call's phases one at a time.  Returns the launches of the first call
-    and the (B, C, T) it gave each stage."""
+    call's phases one at a time.  Returns the launches of the first call,
+    the (B, C, T) it gave each stage, the call's times, and its (codes,
+    waveform)."""
     t0 = time.time()
     B, L = wav.shape
     x = torch.from_numpy(wav).to(DEV)
@@ -746,7 +766,147 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list]
          vocoder_kernel_vs_plain=voc_err, phases_vs_call=phases_err, code_values=values,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, shapes, {"call_ms": call_ms, "audio_s_per_s": audio_s / call_ms * 1e3,
-                              "scan_ms": scan_ms, "vocoder_ms": voc_ms}
+                              "scan_ms": scan_ms, "vocoder_ms": voc_ms}, (codes, y)
+
+
+UPSTREAM_WN_TOL = 1e-4  # the weight-normed files' waveform: K1's float32 gate
+
+
+def f32_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref| in float32 ulps of ``ref``."""
+    ref = ref.float().cpu().numpy()
+    gap = np.abs(got.float().cpu().numpy().astype(np.float64) - ref)
+    return float((gap / np.spacing(np.abs(ref))).max())
+
+
+def write_upstream(tmp: str, codec: BVRNNCodecModel) -> dict:
+    """The trained pair as the reference's PyTorch files: the BVRNN as
+    ``{'vrnn': state_dict}`` (``bvrnn.pt``), the vocoder as BigVGAN
+    ``{'generator': state_dict}`` ``g_`` files, (a) with plain ``weight``
+    keys (``plain/g_00000600``) and (b) weight-normed, ``weight_g`` /
+    ``weight_v`` from ``unfold_generator_params`` (``wn/g_00000600``)."""
+    def tensors(sd):
+        return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+    paths = {"bvrnn": os.path.join(tmp, "bvrnn.pt")}
+    torch.save({"vrnn": tensors(bvrnn_params_to_torch_sd(codec.bvrnn_params))}, paths["bvrnn"])
+    voc = load_vocoder_npz(VOC_NPZ)
+    for name, tree in (("plain", voc), ("wn", voc_mod.unfold_generator_params(voc))):
+        os.makedirs(os.path.join(tmp, name))
+        paths[name] = os.path.join(tmp, name, "g_00000600")
+        torch.save({"generator": tensors(vocoder_params_to_torch_sd(tree))}, paths[name])
+    return paths
+
+
+def upstream_synthesize(tmp: str, speech: np.ndarray, checkpoint: str, out: str) -> tuple:
+    """``synthesize.main`` in this process on one wav of ``speech`` with the
+    vocoder ``checkpoint``: (the float waveform it writes, K1 launches),
+    the counts set to 0 just before and read just after."""
+    src = os.path.join(tmp, "wavs")
+    if not os.path.isdir(src):
+        os.makedirs(src)
+        save_wav(speech, os.path.join(src, "demo.wav"), 22050)
+    written, write = [], SY._write
+
+    def keep(args, path, sfx, w, fs):
+        written.append(w)
+        return write(args, path, sfx, w, fs)
+
+    SY._write = keep
+    try:
+        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        SY.main(["--input_wavs_dir", src, "--output_dir", os.path.join(tmp, out),
+                 "--checkpoint_file", checkpoint, "--config", DEFAULT_CONFIG])
+        launched = k1_launches()
+    finally:
+        SY._write = write
+    return written[0], launched
+
+
+def upstream_ckpt_phase(codec: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray,
+                        parity_out: tuple, smi: str) -> None:
+    """The reference's PyTorch checkpoints on the card: the trained pair
+    written as upstream files (:func:`write_upstream`) into a temporary
+    directory, read back by ``BVRNNCodecModel(bvrnn_chkpt_path=,
+    vocoder_chkpt_path=)`` on the main path's batch at 3 kbps, against the
+    main path's (codes, waveform) ``parity_out`` and ``fast``'s.  Parity
+    codecs from (BVRNN ``.pt``, vocoder a) and (BVRNN ``.pt``, vocoder b)
+    and a fast one from a: 12 launches of the mode's kernel a call (the
+    counts set to 0 just before and read just after), codes bitwise the
+    ``.npz`` codecs' (0 flipped), the waveform bitwise theirs from (a) and
+    within 1e-4 from (b), whose weights' largest gap is printed in float32
+    ulps.  ``cli/synthesize`` on file (a) and on the vocoder ``.npz``:
+    bitwise equal waveforms, 12 K1 launches each.  ``cli/export_bvrnn_npz``
+    on the ``.pt``: float16 arrays bitwise the shipped ``.npz``'s."""
+    t0 = time.time()
+    x = torch.from_numpy(wav).to(DEV)
+    conf, gates, rows = codec.conf, [], {}
+    with torch.no_grad():
+        refs = {"highest": parity_out, "default": (fast.encode(x, BITRATE), fast(x, BITRATE))}
+    with tempfile.TemporaryDirectory(prefix="bvsc-upstream-") as tmp:
+        t1 = time.time()
+        paths = write_upstream(tmp, codec)
+        rows["write_s"] = time.time() - t1
+        plain_voc = None
+        for name, voc, precision in (("parity_plain", "plain", "highest"),
+                                     ("parity_weight_norm", "wn", "highest"),
+                                     ("fast_plain", "plain", "default")):
+            t1 = time.time()
+            c = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=paths["bvrnn"],
+                                vocoder_chkpt_path=paths[voc], precision=precision, device=DEV)
+            build_s = time.time() - t1
+            ref_codes, ref_wav = refs[precision]
+            with torch.no_grad():
+                AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+                y = c(x, BITRATE)
+                launched = k1_launches()
+                codes = c.encode(x, BITRATE)
+            kernel = "bf16" if precision == "default" else "f32"
+            want = {"f32": 0, "bf16": 0, kernel: 12}
+            flipped = int((codes != ref_codes).sum().item())
+            gap = max_err(y, ref_wav)
+            row = {"launches": launched, "flipped_codes": flipped, "max_abs_vs_npz": gap,
+                   "finite": bool(torch.isfinite(y).all()), "build_s": build_s}
+            tol = UPSTREAM_WN_TOL if voc == "wn" else 0.0
+            if voc == "wn":
+                row["weight_gap_f32_ulps"] = max(
+                    f32_ulps(a, b) for a, b in zip(flatten_tree(c.vocoder_params).values(),
+                                                   flatten_tree(plain_voc).values()))
+            elif precision == "highest":
+                plain_voc = c.vocoder_params
+            gates += [(f"{name}: launches {launched} == {want}", launched == want),
+                      (f"{name}: {flipped} codes flipped against the .npz codec", flipped == 0),
+                      (f"{name}: waveform vs the .npz codec {gap} <= {tol}", gap <= tol),
+                      (f"{name}: finite output of shape {tuple(y.shape)}",
+                       row["finite"] and y.shape == x.shape)]
+            rows[name] = row
+            del c
+        t1, synth = time.time(), {}
+        for name, path in (("upstream_g", paths["plain"]), ("npz", VOC_NPZ)):
+            synth[name] = upstream_synthesize(tmp, wav[0], path, f"synth_{name}")
+        same = np.array_equal(synth["upstream_g"][0], synth["npz"][0])
+        rows["synthesize"] = {"launches": {k: v[1] for k, v in synth.items()},
+                              "bitwise": same, "samples": int(synth["npz"][0].shape[0]),
+                              "seconds": time.time() - t1}
+        gates += [("synthesize: upstream g_ bitwise the .npz", same)]
+        gates += [(f"synthesize {k}: K1 launches {v[1]} == 12", v[1] == {"f32": 12, "bf16": 0})
+                  for k, v in synth.items()]
+        t1 = time.time()
+        flat = export_bvrnn_npz.export(paths["bvrnn"], os.path.join(tmp, "exported.npz"))
+        with np.load(NPZ) as shipped:
+            same_keys = sorted(flat) == sorted(shipped.files)
+            differ = [k for k in shipped.files if k in flat and not (
+                flat[k].dtype == shipped[k].dtype and np.array_equal(flat[k], shipped[k]))]
+        rows["export_bvrnn_npz"] = {"arrays": len(flat), "same_names": same_keys,
+                                    "differing": differ, "seconds": time.time() - t1}
+        gates += [("export_bvrnn_npz: the shipped .npz's names", same_keys),
+                  (f"export_bvrnn_npz: arrays bitwise the shipped ones (differing: {differ})",
+                   not differ)]
+    failed = [what for what, ok in gates if not ok]
+    emit("upstream_ckpt", t0, batch=int(x.shape[0]), samples=int(x.shape[1]), bitrate=BITRATE,
+         nvidia_smi=smi, **rows, gates=len(gates), failed=failed)
+    if failed:
+        raise AssertionError(f"upstream_ckpt: {len(failed)} gates failed: {failed}")
 
 
 def call_phases(codec: BVRNNCodecModel, x: torch.Tensor):
@@ -3999,7 +4159,8 @@ def main() -> None:
          vocoder_channels=codec.conf.vocoder_config.upsample_initial_channel,
          bvrnn=os.path.relpath(NPZ, REPO), vocoder=os.path.relpath(VOC_NPZ, REPO))
 
-    launches, shapes, parity_times = main_path_phase(codec, wav)
+    launches, shapes, parity_times, parity_out = main_path_phase(codec, wav)
+    upstream_ckpt_phase(codec, fast, wav, parity_out, smi)
     launches_bf16, shapes_bf16 = fast_path_phase(seeded, wav, parity_times, (codec, fast))
     totals = kernel_phase(codec, shapes)
     totals_bf16 = kernel_phase(codec, shapes_bf16, torch.bfloat16, snake)

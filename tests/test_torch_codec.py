@@ -133,11 +133,15 @@ def test_load_bvrnn_npz_matches_jax_loader():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"bvrnn_chkpt_path": "bvrnn.pt"},
-    {"vocoder_chkpt_path": "voc/", "precision": "default"}, {"vocoder_chkpt_path": "voc/"},
+    {"bvrnn_chkpt_path": "orbax"},
+    {"vocoder_chkpt_path": "orbax", "precision": "default"}, {"vocoder_chkpt_path": "orbax"},
 ])
-def test_unported_knobs_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_knobs_raise(kwargs, tmp_path):
+    """Orbax checkpoints (directories) are not ported: Orbax needs JAX.  The
+    codec raises ValueError naming the ROADMAP entry and the exporter."""
+    (tmp_path / "orbax").mkdir()
+    kwargs = {k: str(tmp_path / v) if k.endswith("_path") else v for k, v in kwargs.items()}
+    with pytest.raises(ValueError, match="ROADMAP.*export_"):
         BVRNNCodecModel(config=CodecConfig(**SMALL), device="cpu", **kwargs)
 
 

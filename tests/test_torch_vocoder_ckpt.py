@@ -5,8 +5,8 @@ through both packages.
   ``tools/export_vocoder_npz.py``) holds every leaf of the Orbax checkpoint
   ``chkpts/bvsc_vocoder_demo_cl_ft_g_step600`` as read by ``bvsc_tpu``
   (weight norm folded), rounded once to float16.
-* The port loads it with numpy alone (``vocoder_chkpt_path=``); other
-  checkpoint forms raise NotImplementedError naming the exporter.
+* The port loads it with numpy alone (``vocoder_chkpt_path=``); the Orbax
+  directory raises ValueError naming the exporter.
 * The trained pair (``augfull_step1800`` BVRNN and this vocoder, both
   packages loading the same files) on a crop of the demo utterance at
   3 kbps: codes bit-exact, decoded mel to 2e-5, waveform SNR > 40 dB.
@@ -115,10 +115,14 @@ def test_codec_loads_the_npz():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("path", [ORBAX, os.path.join(CHKPTS, "generator.pt")],
-                         ids=["orbax_dir", "torch_file"])
-def test_other_vocoder_checkpoints_raise(path):
-    with pytest.raises(NotImplementedError, match="tools/export_vocoder_npz.py"):
+@pytest.mark.parametrize("path, error, match", [
+    (ORBAX, ValueError, "tools/export_vocoder_npz.py"),
+    (os.path.join(CHKPTS, "generator.pt"), FileNotFoundError, "generator.pt"),
+], ids=["orbax_dir", "torch_file"])
+def test_other_vocoder_checkpoints_raise(path, error, match):
+    """The Orbax directory is refused naming the exporter; a torch file is
+    read (the reference's BigVGAN format), so a missing one is not found."""
+    with pytest.raises(error, match=match):
         BVRNNCodecModel(config=CodecConfig(h_dim=48, z_dim=12), vocoder_chkpt_path=path,
                         device="cpu")
 
