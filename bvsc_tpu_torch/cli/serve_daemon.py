@@ -16,11 +16,11 @@ It serves a live ``BVRNNCodecModel`` (fast serving, K1-bf16, by default;
 ``--device cpu``.  Once the engines are built and have run their first tick
 it prints ``BVSP/1 serving on host:port (...)``; SIGTERM closes the daemon,
 prints what it served since that line as ``BVSP/1 served {...}`` (one JSON
-object: the ticks of each engine that advanced a stream, the K1 kernels'
-launches, ``float32`` and ``bf16``, which stay 0 on the CPU and on the
-direct path, and the process's TF32 flags, ``matmul`` and ``cudnn``, which
-the codec's convolutions do not depend on: ``ops.conv`` pins cuDNN's TF32
-off for each float32 call) and exits 0.  Clients: ``bvsc_tpu_torch.serve.client.CodecClient``.
+object, from one ``utils.tracing.snapshot()``: the ticks of each engine that
+advanced a stream (or failed), its tick span's count, the K1 kernels' launches, ``float32`` and ``bf16``, which
+stay 0 on the CPU and on the direct path, and the process's TF32 flags,
+``matmul`` and ``cudnn``, which the codec's convolutions do not depend on:
+``ops.conv`` pins cuDNN's TF32 off for each float32 call) and exits 0.  Clients: ``bvsc_tpu_torch.serve.client.CodecClient``.
 """
 
 from __future__ import annotations
@@ -80,8 +80,8 @@ def main(argv=None) -> None:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
 
-    from bvsc_tpu_torch.ops.amp_resblock import amp_resblock
     from bvsc_tpu_torch.serve.daemon import CodecDaemon
+    from bvsc_tpu_torch.utils import tracing
 
     if args.bundle:
         from bvsc_tpu_torch.serve.export import ServingBundle
@@ -97,7 +97,7 @@ def main(argv=None) -> None:
                          send_queue_bytes=args.send_queue_bytes,
                          max_buffered_seconds=args.max_buffered_seconds, sndbuf=args.sndbuf)
     # count from here: the engines' first ticks ran in the constructor
-    amp_resblock.launches = amp_resblock.launches_bf16 = 0
+    tracing.reset()
     try:
         daemon.start()
         print(f"BVSP/1 serving on {args.host}:{daemon.port} ({daemon._eng.B} stream slots"
@@ -108,9 +108,13 @@ def main(argv=None) -> None:
         pass
     finally:
         daemon.close()
+    snap = tracing.snapshot()
+    spans, counters = snap["spans"], snap["counters"]
     print("BVSP/1 served " + json.dumps({
-        "ticks": daemon.ticks,
-        "k1_launches": {"float32": amp_resblock.launches, "bf16": amp_resblock.launches_bf16},
+        "ticks": {kind: spans.get(f"{kind}.tick", {"count": 0})["count"]
+                  for kind in ("serve", "decode")},
+        "k1_launches": {"float32": counters["amp_resblock.launches"],
+                        "bf16": counters["amp_resblock.launches_bf16"]},
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                  "cudnn": torch.backends.cudnn.allow_tf32}}), flush=True)
 

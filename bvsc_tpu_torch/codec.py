@@ -72,6 +72,7 @@ from bvsc_tpu_torch.ops.mel import MelFrontend
 from bvsc_tpu_torch.ops.precision import resolve as resolve_precision
 from bvsc_tpu_torch.train import checkpoint as ckpt
 from bvsc_tpu_torch.train.vocoder_train import generator_from_checkpoint
+from bvsc_tpu_torch.utils import tracing
 
 # -10 dB input scaling, undone after the vocoder
 SCALING = 10 ** (-10 / 20)
@@ -519,14 +520,20 @@ class BVRNNCodecModel:
         """(batch, length) or (length,) waveform -> codes (batch, frames,
         z_dim) in {0, 0.5, 1}, in the storage dtype.  ``bitrate`` in bits/s, a scalar or a
         per-frame schedule of shape (frames,) or (batch, frames)."""
-        x, squeeze = self._as_input(x, 2, "waveform")
+        with tracing.span("codec.encode", numbered=True):
+            x, squeeze = self._as_input(x, 2, "waveform")
+            tracing.count("codec.frames", x.shape[0] * self.frontend.num_frames(x.shape[1]))
+            codes = self._encode(x, bitrate)
+            return codes[0] if squeeze else codes
+
+    def _encode(self, x: torch.Tensor, bitrate) -> torch.Tensor:
+        """:meth:`encode` of a (batch, length) waveform on the device."""
         L = x.shape[1]
         Lp = self._pad_length(L)
         x = torch.nn.functional.pad(x, (0, Lp - L))
         n_frames = self.frontend.num_frames(L)
         bits = self._frame_bits(bitrate, x.shape[0], L, Lp, n_frames)
-        codes = _encode_impl(self.weights, x, bits)[:, :n_frames]
-        return codes[0] if squeeze else codes
+        return _encode_impl(self.weights, x, bits)[:, :n_frames]
 
     @torch.no_grad()
     def decode(self, codes, length: int, *, lost=None, conceal_bitrate=None,
@@ -542,32 +549,38 @@ class BVRNNCodecModel:
         frame like ``encode``'s, masks concealed frames to the stream's
         allocation; None uses all ``z_dim`` bits.  With ``lost=None`` the
         other two are ignored."""
-        codes, squeeze = self._as_input(codes, 3, "codes")
+        with tracing.span("codec.decode", numbered=True):
+            codes, squeeze = self._as_input(codes, 3, "codes")
+            tracing.count("codec.frames", codes.shape[0] * codes.shape[1])
+            y = self._decode(codes, length, lost, conceal_bitrate, conceal_mode)
+            return y[0] if squeeze else y
+
+    def _decode(self, codes: torch.Tensor, length: int, lost=None, conceal_bitrate=None,
+                conceal_mode: str = "expect") -> torch.Tensor:
+        """:meth:`decode` of (batch, frames, z_dim) codes on the device."""
         B, T = codes.shape[:2]
         hop = self.conf.hopsize
         padded_len = self._pad_length(max(T * hop, length))
         Tp = padded_len // hop
         codes = self._pad_codes(codes, Tp)
         if lost is None:
-            y = _decode_impl(self.weights, codes, padded_len)[:, :length]
-        else:
-            lost = _host_array(lost)
-            if lost.ndim == 1:
-                lost = lost[None, :]
-            if lost.shape != (B, T):
-                raise ValueError(f"lost mask shape {lost.shape} != ({B}, {T})")
-            lost = np.pad(lost, ((0, 0), (0, Tp - T)))  # padding frames: received
-            cbits = None
-            if conceal_bitrate is not None:
-                cb = np.broadcast_to(np.asarray(self.bits_per_frame(conceal_bitrate), np.float32),
-                                     (B, T))
-                cbits = torch.as_tensor(np.pad(cb, ((0, 0), (0, Tp - T))), device=self.device)
-            mel, _ = bvrnn_mod.decode_plc(
-                self.scan_params, self.bvrnn_cfg, codes, torch.as_tensor(lost, device=self.device),
-                self._h0(B), cbits, mode=conceal_mode,
-            )
-            y = self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
-        return y[0] if squeeze else y
+            return _decode_impl(self.weights, codes, padded_len)[:, :length]
+        lost = _host_array(lost)
+        if lost.ndim == 1:
+            lost = lost[None, :]
+        if lost.shape != (B, T):
+            raise ValueError(f"lost mask shape {lost.shape} != ({B}, {T})")
+        lost = np.pad(lost, ((0, 0), (0, Tp - T)))  # padding frames: received
+        cbits = None
+        if conceal_bitrate is not None:
+            cb = np.broadcast_to(np.asarray(self.bits_per_frame(conceal_bitrate), np.float32),
+                                 (B, T))
+            cbits = torch.as_tensor(np.pad(cb, ((0, 0), (0, Tp - T))), device=self.device)
+        mel, _ = bvrnn_mod.decode_plc(
+            self.scan_params, self.bvrnn_cfg, codes, torch.as_tensor(lost, device=self.device),
+            self._h0(B), cbits, mode=conceal_mode,
+        )
+        return self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
 
     @torch.no_grad()
     def decode_to_mel(self, codes) -> torch.Tensor:
@@ -588,16 +601,18 @@ class BVRNNCodecModel:
         """Resynthesis: encode and decode.  ``fused`` runs the one-scan path
         (the encoder's closed loop already yields the decoded mel); with
         ``fused=False`` it is ``decode(encode(x))``."""
-        x, squeeze = self._as_input(x, 2, "waveform")
-        length = x.shape[1]
-        if fused:
-            Lp = self._pad_length(length)
-            x = torch.nn.functional.pad(x, (0, Lp - length))
+        with tracing.span("codec.call", numbered=True):
+            x, squeeze = self._as_input(x, 2, "waveform")
+            length = x.shape[1]
             n_frames = self.frontend.num_frames(length)
-            bits = self._frame_bits(bitrate, x.shape[0], length, Lp, n_frames)
-            y = _forward_impl(self.weights, x, bits, n_frames, Lp)[:, :length]
-        else:
-            y = self.decode(self.encode(x, bitrate), length)
-        return y[0] if squeeze else y
+            tracing.count("codec.frames", x.shape[0] * n_frames)
+            if fused:
+                Lp = self._pad_length(length)
+                x = torch.nn.functional.pad(x, (0, Lp - length))
+                bits = self._frame_bits(bitrate, x.shape[0], length, Lp, n_frames)
+                y = _forward_impl(self.weights, x, bits, n_frames, Lp)[:, :length]
+            else:
+                y = self._decode(self._encode(x, bitrate), length)
+            return y[0] if squeeze else y
 
     forward = __call__

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from bvsc_tpu_torch.convert import tree_size
 from bvsc_tpu_torch.ops import precision as P
 from bvsc_tpu_torch.ops.quant import dequant_matmul, is_quantized as _is_quant_dict
+from bvsc_tpu_torch.utils import tracing
 
 Params = dict
 
@@ -421,22 +422,24 @@ def _frames(step, h, xs: list, traced: bool, statics=None):
     ``traced`` and more than one frame, ``torch._higher_order_ops.scan``,
     which runs the same step and keeps a traced program one step long.
     ``statics`` gives the loop's steps one keyword argument each (a host
-    value, so not under ``traced``)."""
-    T = xs[0].shape[1]
-    if traced and T > 1:
-        if statics is not None:
-            raise ValueError("a traced scan takes no per-step host values")
-        from torch._higher_order_ops.scan import scan
+    value, so not under ``traced``).  Every BVRNN scan runs here, timed as
+    the span ``bvrnn.scan``."""
+    with tracing.span("bvrnn.scan"):
+        T = xs[0].shape[1]
+        if traced and T > 1:
+            if statics is not None:
+                raise ValueError("a traced scan takes no per-step host values")
+            from torch._higher_order_ops.scan import scan
 
-        # frames first, in and out (torch versions differ in where scan
-        # leaves the frame axis of its outputs for dim != 0)
-        h, outs = scan(lambda c, x: step(c, *x), h, [x.movedim(1, 0) for x in xs])
-        return h, tuple(o.movedim(0, 1) for o in outs)
-    outs = []
-    for t in range(T):
-        h, o = step(h, *(x[:, t] for x in xs), **({} if statics is None else statics[t]))
-        outs.append(o)
-    return h, tuple(torch.stack(o, 1) for o in zip(*outs))
+            # frames first, in and out (torch versions differ in where scan
+            # leaves the frame axis of its outputs for dim != 0)
+            h, outs = scan(lambda c, x: step(c, *x), h, [x.movedim(1, 0) for x in xs])
+            return h, tuple(o.movedim(0, 1) for o in outs)
+        outs = []
+        for t in range(T):
+            h, o = step(h, *(x[:, t] for x in xs), **({} if statics is None else statics[t]))
+            outs.append(o)
+        return h, tuple(torch.stack(o, 1) for o in zip(*outs))
 
 
 def _code_mask(cfg, y, var_bitrate, frame_valid):
@@ -592,8 +595,10 @@ def decode_plc(params, cfg, z, lost, h, conceal_bits=None, mode="expect", every_
         cmask = bit_mask_from_bitrate(conceal_bits, cfg.z_dim, cfg.dtype)
     else:
         cmask = torch.ones(B, T, cfg.z_dim, device=z.device, dtype=cfg.dtype)
-    # the steps where some stream lost its frame, read on the host
-    statics = None if every_step else [{"prior": v} for v in lost.any(0).tolist()]
+    statics = None
+    if not every_step:  # the steps where some stream lost its frame, read on the host
+        with tracing.span("bvrnn.lost_read"):
+            statics = [{"prior": v} for v in lost.any(0).tolist()]
 
     def codes_at(h, z_t, lost_t, cmask_t, prior):
         if not prior:

@@ -58,6 +58,7 @@ from bvsc_tpu_torch.ops.conv import (conv1d, conv_transpose1d, conv_weight, init
 from bvsc_tpu_torch.ops.resample import Activation1d
 from bvsc_tpu_torch.ops.snake import (ACTIVATIONS, apply_activation, init_snake_params,
                                       leaky_relu, prepare_act)
+from bvsc_tpu_torch.utils import tracing
 
 Params = dict
 
@@ -252,21 +253,25 @@ def amp_block(x: torch.Tensor, block: dict, cfg: VocoderConfig, kernel_size: int
 
 
 def _apply(params, cfg, x, length, stage_fn, precision, approx=False):
-    x = pad1d(x, 3, 3) if cfg.pre_sym else pad1d(x, 6)
-    x = conv1d(x, params["conv_pre"], precision=precision)
-    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
-        if cfg.activation == "lrelu":
-            x = leaky_relu(x)
-        x = conv_transpose1d(x, params["ups"][i], stride=u, precision=precision)
-        # torch's ConvTranspose1d(padding=p): p trimmed from both ends
-        p = (k - u) // 2 if cfg.layers_sym[i] else 0
-        if p:
-            x = x[..., p:-p]
-        x = stage_fn(i, x)
-    x = activation(x, params["act_post"], cfg, approx, cfg.antialias_post)
-    x = pad1d(x, 3, 3) if cfg.post_sym else pad1d(x, 6)
-    x = torch.tanh(conv1d(x, params["conv_post"], precision=precision))
-    return x if length is None else x[..., :length]
+    """The generator around its stages (``stage_fn(i, x)``), on either path:
+    the spans ``vocoder`` and ``vocoder.stage``."""
+    with tracing.span("vocoder"):
+        x = pad1d(x, 3, 3) if cfg.pre_sym else pad1d(x, 6)
+        x = conv1d(x, params["conv_pre"], precision=precision)
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            if cfg.activation == "lrelu":
+                x = leaky_relu(x)
+            x = conv_transpose1d(x, params["ups"][i], stride=u, precision=precision)
+            # torch's ConvTranspose1d(padding=p): p trimmed from both ends
+            p = (k - u) // 2 if cfg.layers_sym[i] else 0
+            if p:
+                x = x[..., p:-p]
+            with tracing.span("vocoder.stage"):
+                x = stage_fn(i, x)
+        x = activation(x, params["act_post"], cfg, approx, cfg.antialias_post)
+        x = pad1d(x, 3, 3) if cfg.post_sym else pad1d(x, 6)
+        x = torch.tanh(conv1d(x, params["conv_post"], precision=precision))
+        return x if length is None else x[..., :length]
 
 
 def generator_apply(params: Params, cfg: VocoderConfig, x: torch.Tensor,

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from bvsc_tpu_torch.device import resolve_device
+from bvsc_tpu_torch.utils import tracing
 
 
 def _hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
@@ -174,8 +175,10 @@ class MelFrontend:
     def log_mel(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, F, n_fft) unwindowed frames -> (B, num_mels, F) log-mel.  The
         one-shot call and the streaming paths (``streaming.py``) share it, so
-        a frame's mel is the same arithmetic on both."""
-        return self._mel_and_magnitude(frames)[0]
+        a frame's mel is the same arithmetic on both (and the span ``mel``
+        times both)."""
+        with tracing.span("mel"):
+            return self._mel_and_magnitude(frames)[0]
 
     def _mel_and_magnitude(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, F, n_fft) unwindowed frames -> (log-mel (B, num_mels, F),

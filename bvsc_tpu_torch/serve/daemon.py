@@ -240,8 +240,6 @@ class CodecDaemon:
         self._listener: socket.socket | None = None
         self._threads: list[threading.Thread] = []
         self._shutdown = False
-        # ticks that advanced at least one stream, per engine (ticker thread)
-        self.ticks = {"serve": 0, "decode": 0}
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -506,8 +504,6 @@ class CodecDaemon:
                 log.exception("decode-engine device state lost")
                 self._fail_slots("d")
                 dec_out = {}
-            self.ticks["serve"] += bool(enc_out)
-            self.ticks["decode"] += bool(dec_out)
             for sid, (codes, wav) in enc_out.items():
                 conn = self._by_slot.get(("e", sid))
                 if conn is None or conn.dead:

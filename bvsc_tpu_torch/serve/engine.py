@@ -62,6 +62,7 @@ import torch
 from bvsc_tpu_torch import streaming as S
 from bvsc_tpu_torch.device import canonical
 from bvsc_tpu_torch.parallel.mesh import Mesh, row_blocks
+from bvsc_tpu_torch.utils import tracing
 
 
 class EngineStateLost(RuntimeError):
@@ -213,6 +214,14 @@ class _Sharded:
         return [tuple(torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev) for a in arrays)
                 for sl, dev in self._blocks]
 
+    def _copy_inputs(self, *arrays) -> list[tuple]:
+        """A tick's :meth:`_block_inputs`, counted as its host-to-device
+        copies (one an array and block) and their bytes."""
+        inputs = self._block_inputs(*arrays)
+        tracing.count(self._KIND + ".h2d_copies", len(arrays) * len(inputs))
+        tracing.count(self._KIND + ".h2d_bytes", sum(a.nbytes for a in arrays))
+        return inputs
+
 
 def _fused_tick(w, state: dict, chunk: torch.Tensor, bits: torch.Tensor,
                 active: torch.Tensor):
@@ -240,6 +249,8 @@ def _decode_tick(w, state: dict, codes: torch.Tensor, lost: torch.Tensor,
 class ServingEngine(_Sharded):
     """Batched full-duplex serving: samples in, codes and resynthesised
     samples out, one frame per stream per :meth:`tick`."""
+
+    _KIND = "serve"  # its spans' and counters' prefix (utils.tracing)
 
     def __init__(self, codec, max_streams: int = 128, mesh=None):
         """codec: a port ``BVRNNCodecModel``; the engine runs on its device,
@@ -360,17 +371,15 @@ class ServingEngine(_Sharded):
 
     # -- processing -----------------------------------------------------------
 
-    @torch.no_grad()
-    def tick(self) -> dict[int, tuple[np.ndarray, np.ndarray]]:
-        """Advance every stream with a full frame queued by one frame.
-
-        Returns {sid: (codes (z_dim,), wav (hop,))} for advanced streams,
-        numpy arrays."""
+    def _gather(self, open_ids: list[int]):
+        """The host slot loop of a tick over the open slots: (the slots
+        advanced, their input chunk (B, hop), the (slot, window) preloads of
+        the streams that start)."""
         advanced = []
         chunk = np.zeros((self.B, self.hop), np.float32)
         preload: list[tuple[int, np.ndarray]] = []
         need = self.win - self.pad_left  # lookahead + the first hop
-        for sid in np.flatnonzero(self._active).tolist():
+        for sid in open_ids:
             q = self._inq[sid]
             if not self._started[sid]:
                 if len(q) < need:
@@ -388,28 +397,51 @@ class ServingEngine(_Sharded):
             else:
                 continue
             advanced.append(sid)
-        if not advanced:
+        return advanced, chunk, preload
+
+    @torch.no_grad()
+    def tick(self) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+        """Advance every stream with a full frame queued by one frame.
+
+        Returns {sid: (codes (z_dim,), wav (hop,))} for advanced streams,
+        numpy arrays.  A tick that advances a stream records its spans and
+        counters (``utils.tracing``); one that advances none records none."""
+        open_ids = np.flatnonzero(self._active).tolist()
+        if not any(self.has_frame(sid) for sid in open_ids):
             return {}
-        for sid, window in preload:  # only on stream-start ticks
-            k, row = self._slot(sid)
-            self.states[k]["window"][row] = torch.from_numpy(window).to(self._blocks[k][1])
-        active = np.zeros(self.B, bool)
-        active[advanced] = True
-        try:
-            outs = []  # every block's step enqueued before any read-back
-            for k, args in enumerate(self._block_inputs(chunk, self.bits, active)):
-                self.states[k], codes, wav = self._tick_call(self.states[k], *args, k)
-                outs.append(torch.cat([codes.float(), wav.float()], 1))
-            out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
-        except Exception as e:
-            # the engine survives; every stream's state is gone
-            self._init_states()
-            self._started[:] = False
-            raise EngineStateLost(
-                "tick failed; device state rebuilt: close and reopen all active streams"
-            ) from e
-        z = self.z_dim
-        return {sid: (row[:z], row[z:]) for sid, row in zip(advanced, out)}
+        with tracing.span("serve.tick", numbered=True):
+            with tracing.span("serve.gather"):
+                advanced, chunk, preload = self._gather(open_ids)
+                active = np.zeros(self.B, bool)
+                active[advanced] = True
+            try:
+                with tracing.span("serve.copy"):
+                    for sid, window in preload:  # only on stream-start ticks
+                        k, row = self._slot(sid)
+                        self.states[k]["window"][row] = torch.from_numpy(window).to(
+                            self._blocks[k][1])
+                    tracing.count("serve.h2d_copies", len(preload))
+                    tracing.count("serve.h2d_bytes", sum(w.nbytes for _, w in preload))
+                    inputs = self._copy_inputs(chunk, self.bits, active)
+                with tracing.span("serve.issue"):
+                    outs = []  # every block's step enqueued before any read-back
+                    for k, args in enumerate(inputs):
+                        self.states[k], codes, wav = self._tick_call(self.states[k], *args, k)
+                        outs.append(torch.cat([codes.float(), wav.float()], 1))
+                with tracing.span("serve.wait"):
+                    out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
+            except Exception as e:
+                # the engine survives; every stream's state is gone
+                self._init_states()
+                self._started[:] = False
+                raise EngineStateLost(
+                    "tick failed; device state rebuilt: close and reopen all active streams"
+                ) from e
+            tracing.count("serve.frames", len(advanced))
+            tracing.count("serve.slots_open", len(open_ids))
+            tracing.count("serve.starts", len(preload))
+            z = self.z_dim
+            return {sid: (row[:z], row[z:]) for sid, row in zip(advanced, out)}
 
 
 class DecodeEngine(_Sharded):
@@ -423,6 +455,8 @@ class DecodeEngine(_Sharded):
     BVRNN's own prior with no output gap, per stream.  One slot is a
     ``StreamingDecoder`` fed frame by frame with ``lost=``.
     """
+
+    _KIND = "decode"
 
     def __init__(self, codec, max_streams: int = 128, mesh=None):
         """As :class:`ServingEngine`'s: the codec's device, or ``mesh``."""
@@ -512,27 +546,39 @@ class DecodeEngine(_Sharded):
 
     @torch.no_grad()
     def tick(self) -> dict[int, np.ndarray]:
-        """Advance every stream with a queued frame; {sid: wav (hop,)}."""
-        advanced = [sid for sid in np.flatnonzero(self._active).tolist() if self._inq[sid]]
-        if not advanced:
+        """Advance every stream with a queued frame; {sid: wav (hop,)}.  As
+        :meth:`ServingEngine.tick`, records its spans and counters when it
+        advances a stream."""
+        open_ids = np.flatnonzero(self._active).tolist()
+        if not any(self._inq[sid] for sid in open_ids):
             return {}
-        codes = np.full((self.B, self.z_dim), 0.5, np.float32)
-        lost = np.zeros(self.B, np.float32)
-        for sid in advanced:
-            frame, flag = self._inq[sid].popleft()
-            codes[sid] = frame
-            lost[sid] = float(flag)
-        active = np.zeros(self.B, bool)
-        active[advanced] = True
-        try:
-            outs = []  # every block's step enqueued before any read-back
-            for k, args in enumerate(self._block_inputs(codes, lost, self.cbits, active)):
-                self.states[k], wav = self._tick_call(self.states[k], *args, k)
-                outs.append(wav.float())
-            out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
-        except Exception as e:
-            self._init_states()
-            raise EngineStateLost(
-                "decode tick failed; device state rebuilt: close and reopen all active streams"
-            ) from e
-        return dict(zip(advanced, out))
+        with tracing.span("decode.tick", numbered=True):
+            with tracing.span("decode.gather"):
+                advanced = [sid for sid in open_ids if self._inq[sid]]
+                codes = np.full((self.B, self.z_dim), 0.5, np.float32)
+                lost = np.zeros(self.B, np.float32)
+                for sid in advanced:
+                    frame, flag = self._inq[sid].popleft()
+                    codes[sid] = frame
+                    lost[sid] = float(flag)
+                active = np.zeros(self.B, bool)
+                active[advanced] = True
+            try:
+                with tracing.span("decode.copy"):
+                    inputs = self._copy_inputs(codes, lost, self.cbits, active)
+                with tracing.span("decode.issue"):
+                    outs = []  # every block's step enqueued before any read-back
+                    for k, args in enumerate(inputs):
+                        self.states[k], wav = self._tick_call(self.states[k], *args, k)
+                        outs.append(wav.float())
+                with tracing.span("decode.wait"):
+                    out = np.concatenate([o.cpu().numpy() for o in outs])[advanced]
+            except Exception as e:
+                self._init_states()
+                raise EngineStateLost(
+                    "decode tick failed; device state rebuilt: close and reopen all active "
+                    "streams") from e
+            tracing.count("decode.frames", len(advanced))
+            tracing.count("decode.slots_open", len(open_ids))
+            tracing.count("decode.concealed", int(lost.sum()))
+            return dict(zip(advanced, out))

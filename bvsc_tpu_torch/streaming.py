@@ -72,6 +72,7 @@ from bvsc_tpu_torch.ops.amp_resblock import (ResblockParams, amp_stack, average,
                                              conv_precision, halo)
 from bvsc_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from bvsc_tpu_torch.ops.snake import leaky_relu
+from bvsc_tpu_torch.utils import tracing
 
 # ---------------------------------------------------------------------------
 # Streaming vocoder: state init + step
@@ -133,10 +134,12 @@ def _stream_conv_transpose(state: torch.Tensor, x: torch.Tensor, p: dict, stride
 def _stream_stage(state: dict, x: torch.Tensor, stack):
     """One stage's residual stack on new samples x (B, C, T) over its
     carried context (module docstring): ``stack(window, ctx, start)`` is the
-    stage's blocks, averaged, on (B, C, ctx + T) -> (B, C, T)."""
+    stage's blocks, averaged, on (B, C, ctx + T) -> (B, C, T), the span
+    ``vocoder.stage``."""
     ctx = state["ctx"].shape[-1]
     window = torch.cat([state["ctx"], x], -1)
-    y = stack(window, ctx, state["fed"])
+    with tracing.span("vocoder.stage"):
+        y = stack(window, ctx, state["fed"])
     fed = torch.clamp(state["fed"] + x.shape[-1], max=ctx)
     return {"ctx": window[..., -ctx:], "fed": fed}, y
 
@@ -179,36 +182,37 @@ def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]
     path, whose stages run ``params['resblocks']``
     (``models.vocoder.prepare_direct_params``) with ``approx_snake``, in the
     dtype of the params, ``mel`` and ``state``.  Returns (new state,
-    waveform)."""
-    num_k = len(cfg.resblock_kernel_sizes)
-    block_prec = conv_precision(compute_dtype)
+    waveform); the span ``vocoder``."""
+    with tracing.span("vocoder"):
+        num_k = len(cfg.resblock_kernel_sizes)
+        block_prec = conv_precision(compute_dtype)
 
-    def stack(i):
-        if kernel_blocks is not None:
-            return lambda w, ctx, start: amp_stack(w, kernel_blocks[i], compute_dtype, ctx=ctx,
-                                                   start=start)
-        return lambda w, ctx, start: average([
-            amp_block(w, params["resblocks"][i * num_k + j], cfg, ksz, dils,
-                      precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
-            for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
-                                                cfg.resblock_dilation_sizes))])
+        def stack(i):
+            if kernel_blocks is not None:
+                return lambda w, ctx, start: amp_stack(w, kernel_blocks[i], compute_dtype, ctx=ctx,
+                                                       start=start)
+            return lambda w, ctx, start: average([
+                amp_block(w, params["resblocks"][i * num_k + j], cfg, ksz, dils,
+                          precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
+                for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                                    cfg.resblock_dilation_sizes))])
 
-    # the new state's keys in generator_stream_init's order (a traced
-    # program's state input and output share one tree layout)
-    new: dict = {"conv_pre": None, "ups": [], "stages": [], "conv_post": None}
-    new["conv_pre"], x = _stream_conv(state["conv_pre"], mel, params["conv_pre"],
-                                      precision=precision)
-    for i, u in enumerate(cfg.upsample_rates):
-        if cfg.activation == "lrelu":
-            x = leaky_relu(x)
-        st, x = _stream_conv_transpose(state["ups"][i], x, params["ups"][i], u, precision)
-        new["ups"].append(st)
-        st, x = _stream_stage(state["stages"][i], x, stack(i))
-        new["stages"].append(st)
-    x = activation(x, params["act_post"], cfg, approx_snake)
-    new["conv_post"], x = _stream_conv(state["conv_post"], x, params["conv_post"],
-                                       precision=precision)
-    return new, torch.tanh(x)
+        # the new state's keys in generator_stream_init's order (a traced
+        # program's state input and output share one tree layout)
+        new: dict = {"conv_pre": None, "ups": [], "stages": [], "conv_post": None}
+        new["conv_pre"], x = _stream_conv(state["conv_pre"], mel, params["conv_pre"],
+                                          precision=precision)
+        for i, u in enumerate(cfg.upsample_rates):
+            if cfg.activation == "lrelu":
+                x = leaky_relu(x)
+            st, x = _stream_conv_transpose(state["ups"][i], x, params["ups"][i], u, precision)
+            new["ups"].append(st)
+            st, x = _stream_stage(state["stages"][i], x, stack(i))
+            new["stages"].append(st)
+        x = activation(x, params["act_post"], cfg, approx_snake)
+        new["conv_post"], x = _stream_conv(state["conv_post"], x, params["conv_post"],
+                                           precision=precision)
+        return new, torch.tanh(x)
 
 
 def _vocode_step(w: CodecWeights, state: dict, mel: torch.Tensor):
