@@ -519,7 +519,11 @@ class BVRNNCodecModel:
     def encode(self, x, bitrate) -> torch.Tensor:
         """(batch, length) or (length,) waveform -> codes (batch, frames,
         z_dim) in {0, 0.5, 1}, in the storage dtype.  ``bitrate`` in bits/s, a scalar or a
-        per-frame schedule of shape (frames,) or (batch, frames)."""
+        per-frame schedule of shape (frames,) or (batch, frames).  On the
+        card, each batch size a scan of this codec meets keeps a captured
+        graph of its chunks, and that graph's memory, until the codec is
+        dropped (``models.bvrnn._ChunkGraph``); so do :meth:`decode`,
+        :meth:`decode_to_mel` and ``__call__``."""
         with tracing.span("codec.encode", numbered=True):
             x, squeeze = self._as_input(x, 2, "waveform")
             tracing.count("codec.frames", x.shape[0] * self.frontend.num_frames(x.shape[1]))
@@ -600,7 +604,9 @@ class BVRNNCodecModel:
     def __call__(self, x, bitrate, *, fused: bool = True) -> torch.Tensor:
         """Resynthesis: encode and decode.  ``fused`` runs the one-scan path
         (the encoder's closed loop already yields the decoded mel); with
-        ``fused=False`` it is ``decode(encode(x))``."""
+        ``fused=False`` it is ``decode(encode(x))``.  Each batch size keeps
+        a captured graph and its memory on the card, as :meth:`encode`
+        says."""
         with tracing.span("codec.call", numbered=True):
             x, squeeze = self._as_input(x, 2, "waveform")
             length = x.shape[1]

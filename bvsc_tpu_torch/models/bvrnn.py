@@ -28,7 +28,12 @@ The frame recurrence is one step function per scan, run by :func:`_frames`:
 a Python loop, or, when the scan params are ``traced`` (a serving bundle's
 programs, ``serve.export``), ``torch._higher_order_ops.scan`` over the same
 step, so a program holds one step whatever its frame count.  Each step is a
-handful of products, as the JAX package leaves these GEMMs to XLA.
+handful of products, as the JAX package leaves these GEMMs to XLA.  On the
+card, a scan of prepared weights with no gradient runs its whole chunks of
+:data:`CHUNK` frames as replays of a CUDA graph of the loop, captured once a
+key and kept on the :class:`ScanParams` (:func:`_chunk_graph`): the same
+kernels at the same shapes, so the same bits, without the host issuing some
+fifty launches a frame.
 
 Closed-loop state sync: encode and decode advance the GRU only with
 *generated* features, so both sides' hidden states follow the codes alone.
@@ -55,6 +60,10 @@ Params = dict
 # 'auto' picks the fused cell below this batch (the reference's threshold,
 # where its scan step stops being op-count-bound)
 FUSED_AUTO_MAX_B = 32
+
+# frames of a scan's captured chunk (_frames): the codec's length bucket, so
+# that a bucketed scan is whole chunks
+CHUNK = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,6 +369,11 @@ class ScanParams:
     # run the frames under torch's scan operator (a traced program holds one
     # step, whatever its frame count) instead of a Python loop
     traced: bool = False
+    # the scans' chunk graphs by key (_chunk_graph), captured on first use:
+    # they read these tensors, so they live and die with them.  Their static
+    # buffers serve one scan at a time: scans on one stream queue in order,
+    # but two threads scanning at once need a ScanParams each
+    graphs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
 def _cast_weights(tree, precision: str):
@@ -416,14 +430,28 @@ def _advance(params, z_t, h, prec):
     return dec_t, h_next
 
 
-def _frames(step, h, xs: list, traced: bool, statics=None):
+def _loop(step, h, xs: list, statics=None):
+    """The frames (axis 1) of ``xs`` one ``step`` call each: (final h, each
+    of the step's outputs stacked on axis 1)."""
+    outs = []
+    for t in range(xs[0].shape[1]):
+        h, o = step(h, *(x[:, t] for x in xs), **({} if statics is None else statics[t]))
+        outs.append(o)
+    return h, tuple(torch.stack(o, 1) for o in zip(*outs))
+
+
+def _frames(step, h, xs: list, traced: bool, statics=None, cache=None, key=()):
     """``step(h, *x_t) -> (h, outs)`` over the frames (axis 1) of ``xs``:
     (final h, each of ``outs`` stacked on axis 1).  A Python loop, or, with
     ``traced`` and more than one frame, ``torch._higher_order_ops.scan``,
     which runs the same step and keeps a traced program one step long.
     ``statics`` gives the loop's steps one keyword argument each (a host
-    value, so not under ``traced``).  Every BVRNN scan runs here, timed as
-    the span ``bvrnn.scan``."""
+    value, so not under ``traced``).  ``cache``, a prepared ``ScanParams``'s
+    graphs, and ``key``, what the step computes, let a scan of at least
+    :data:`CHUNK` frames with neither, no gradient and no compiler tracing
+    it run its whole chunks through :func:`_chunk_graph` (the rest of its
+    frames run the loop).  Every BVRNN scan runs here, timed as the span
+    ``bvrnn.scan``."""
     with tracing.span("bvrnn.scan"):
         T = xs[0].shape[1]
         if traced and T > 1:
@@ -435,11 +463,75 @@ def _frames(step, h, xs: list, traced: bool, statics=None):
             # leaves the frame axis of its outputs for dim != 0)
             h, outs = scan(lambda c, x: step(c, *x), h, [x.movedim(1, 0) for x in xs])
             return h, tuple(o.movedim(0, 1) for o in outs)
-        outs = []
-        for t in range(T):
-            h, o = step(h, *(x[:, t] for x in xs), **({} if statics is None else statics[t]))
-            outs.append(o)
-        return h, tuple(torch.stack(o, 1) for o in zip(*outs))
+        run = None
+        if (cache is not None and T >= CHUNK and statics is None and not torch.is_grad_enabled()
+                and not tracing._tracing()):
+            run = _chunk_graph(cache, key, step, h, [x[:, :CHUNK] for x in xs])
+        if run is None:
+            return _loop(step, h, xs, statics)
+        B, whole = h.shape[0], T - T % CHUNK
+        outs = None
+        for t0 in range(0, whole, CHUNK):
+            h, o = run(h, [x[:, t0 : t0 + CHUNK] for x in xs])
+            if outs is None:
+                outs = [c.new_empty((B, T) + c.shape[2:]) for c in o]
+            for out, c in zip(outs, o):
+                out[:, t0 : t0 + CHUNK] = c
+            tracing.count("bvrnn.graph_frames", CHUNK * B)
+        if whole < T:
+            h, o = _loop(step, h, [x[:, whole:] for x in xs])
+            for out, c in zip(outs, o):
+                out[:, whole:] = c
+        # a runner may leave h in a buffer its next chunk overwrites
+        return h.clone(), tuple(outs)
+
+
+def _chunk_graph(cache: dict, key: tuple, step, h: torch.Tensor, xs: list):
+    """The runner of a scan's whole chunks, ``run(h, xs) -> (next h, the
+    chunk's outputs)`` over :data:`CHUNK` frames: on the card, the
+    :class:`_ChunkGraph` of ``key`` with the batch, type and device of ``h``
+    and the matmul flags a product reads when it is captured (a flag
+    flipped later gets a graph of its own), captured from ``step`` and the
+    first chunk ``xs`` on its first use and kept in ``cache``; None (the
+    loop) off the card or while the stream is being captured by someone
+    else."""
+    if h.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    key = key + (h.shape[0], CHUNK, h.dtype, h.device, torch.get_float32_matmul_precision(),
+                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    graph = cache.get(key)
+    if graph is None:
+        graph = cache[key] = _ChunkGraph(step, h, xs)
+    return graph
+
+
+class _ChunkGraph:
+    """A CUDA graph of :func:`_loop` over one chunk of frames, with its
+    static buffers: a call copies the state and the chunk's inputs into
+    them, replays, and returns the next state and the stacked outputs in
+    buffers that the next call overwrites.  It is captured and replayed on
+    the device of its tensors, whichever device is current."""
+
+    def __init__(self, step, h, xs):
+        with torch.cuda.device(h.device):
+            self.h = h.clone(memory_format=torch.contiguous_format)
+            self.xs = [x.clone(memory_format=torch.contiguous_format) for x in xs]
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                _loop(step, self.h, self.xs)  # cuBLAS's handle and workspace for this stream
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.h_next, self.outs = _loop(step, self.h, self.xs)
+        tracing.count("bvrnn.graph_captures")
+
+    def __call__(self, h, xs):
+        with torch.cuda.device(self.h.device):
+            self.h.copy_(h)
+            for buf, x in zip(self.xs, xs):
+                buf.copy_(x)
+            self.graph.replay()
+        return self.h_next, self.outs
 
 
 def _code_mask(cfg, y, var_bitrate, frame_valid):
@@ -463,7 +555,10 @@ def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False, want
     mask = _code_mask(cfg, y, var_bitrate, frame_valid)
     h = h.to(cfg.dtype)
     phi_x = phi_x_apply(sp.std, _normalize(sp.std, y.to(cfg.dtype)), prec)  # (B, T, h), hoisted
-    if _use_fused(cfg, y.shape[0]):
+    fused = _use_fused(cfg, y.shape[0])
+    cache = sp.graphs if params is sp else None  # a raw tree is prepared anew every call
+    key = ("scan", fused, want_mel, want_states, prec)
+    if fused:
         fp = _fused_params(sp)
 
         def step(h, encx_t, mask_t):
@@ -472,7 +567,8 @@ def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False, want
             h_next, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
             return h_next, (z_t, a3) + ((h,) if want_states else ())
 
-        h, outs = _frames(step, h, [_matmul(phi_x, fp["w_enc1_x"], prec), mask], sp.traced)
+        h, outs = _frames(step, h, [_matmul(phi_x, fp["w_enc1_x"], prec), mask], sp.traced,
+                          cache=cache, key=key)
         mel = _fused_dec_seq(fp, outs[1], prec) if want_mel else None
     else:
         p = sp.std
@@ -483,7 +579,7 @@ def _scan(params, cfg, y, var_bitrate, h, frame_valid=None, want_mel=False, want
             dec_t, h_next = _advance(p, z_t, h, prec)
             return h_next, (z_t, dec_t) + ((h,) if want_states else ())
 
-        h, outs = _frames(step, h, [phi_x, mask], sp.traced)
+        h, outs = _frames(step, h, [phi_x, mask], sp.traced, cache=cache, key=key)
         mel = outs[1] if want_mel else None
     return outs[0], mel, outs[2] if want_states else None, h
 
@@ -547,7 +643,10 @@ def decode(params, cfg, z, h):
     sp = prepare(params, cfg)
     prec = cfg.precision
     z, h = z.to(cfg.dtype), h.to(cfg.dtype)
-    if _use_fused(cfg, z.shape[0]):
+    fused = _use_fused(cfg, z.shape[0])
+    cache = sp.graphs if params is sp else None
+    key = ("decode", fused, prec)
+    if fused:
         fp = _fused_params(sp)
 
         def fused_step(h, z_t):
@@ -555,14 +654,14 @@ def decode(params, cfg, z, h):
             h_next, a3 = _fused_tail(fp, h, z_t, d1h, gh, prec)
             return h_next, (a3,)
 
-        h, (a3,) = _frames(fused_step, h, [z], sp.traced)
+        h, (a3,) = _frames(fused_step, h, [z], sp.traced, cache=cache, key=key)
         return _fused_dec_seq(fp, a3, prec), h
 
     def step(h, z_t):
         dec_t, h_next = _advance(sp.std, z_t, h, prec)
         return h_next, (dec_t,)
 
-    h, (mel,) = _frames(step, h, [z], sp.traced)
+    h, (mel,) = _frames(step, h, [z], sp.traced, cache=cache, key=key)
     return mel, h
 
 

@@ -37,7 +37,8 @@ Spans, each in the one function every path runs:
 * ``codec.call``, ``codec.encode``, ``codec.decode``: ``BVRNNCodecModel``'s
   ``__call__``, ``encode`` and ``decode``;
 * ``mel``: ``ops.mel.MelFrontend.log_mel``, one-shot and streaming;
-* ``bvrnn.scan``: ``models.bvrnn._frames``, one BVRNN scan (T frames);
+* ``bvrnn.scan``: ``models.bvrnn._frames``, one BVRNN scan (T frames; on
+  the card's chunk graphs, the host's time to enqueue their replays);
   ``bvrnn.lost_read``: ``decode_plc``'s host read of the loss flags;
 * ``vocoder``: the generator, one-shot (``models.vocoder._apply``) or
   streaming (``streaming.generator_stream_step``); ``vocoder.stage``: one
@@ -47,9 +48,11 @@ Counters: ``<engine>.frames`` (streams advanced), ``.slots_open`` (open
 slots, summed over ticks), ``.h2d_copies`` and ``.h2d_bytes`` (the tick's
 explicit host-to-device copies), ``serve.starts`` (streams started),
 ``decode.concealed`` (frames concealed); ``codec.frames`` (rows x real
-frames of each public codec call).  How many ticks or calls ran is their
-span's count.  Under a CUDA graph the counters count at capture, as K1's
-launch counters do.
+frames of each public codec call); ``bvrnn.graph_captures`` (chunk graphs
+captured, ``models.bvrnn._ChunkGraph``) and ``bvrnn.graph_frames`` (rows x
+frames of every chunk replayed, counted outside the graph).  How many
+ticks or calls ran is their span's count.  Under a CUDA graph the counters
+count at capture, as K1's launch counters do.
 
 Threads: there is no lock.  Under the GIL each dictionary and deque
 operation is atomic, so records are never corrupted and a snapshot taken

@@ -11,6 +11,7 @@ import torch
 from bvsc_tpu.models import bvrnn as jb
 from bvsc_tpu_torch.convert import bvrnn_params_from_jax
 from bvsc_tpu_torch.models import bvrnn as tb
+from bvsc_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -131,3 +132,121 @@ def test_init_shapes_match_jax(cfgs):
     jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
     tshapes = jax.tree.map(lambda a: tuple(a.shape), tp)
     assert tshapes == jshapes
+
+
+# ---------------------------------------------------------------------------
+# Chunked scans (models.bvrnn._frames): whole chunks of CHUNK frames through
+# the chunk runner, the rest through the loop.  The card's runner replays a
+# CUDA graph (tests/test_torch_bvrnn_graph.py); here an eager runner that,
+# like the graph, reads each chunk from buffers of its own.
+# ---------------------------------------------------------------------------
+
+
+def _eager_runner(cache, key, step, h, xs):
+    def run(h, xs):
+        return tb._loop(step, h.clone(), [x.clone(memory_format=torch.contiguous_format)
+                                          for x in xs])
+    return run
+
+
+def _graph_frames():
+    return tracing.snapshot()["counters"].get("bvrnn.graph_frames", 0)
+
+
+def _chunk_inputs(frames, seed=11):
+    rng = np.random.default_rng(seed)
+    y = _t(rng.standard_normal((B, frames, X_DIM)).astype(np.float32))
+    bits = _t(rng.integers(1, Z_DIM + 1, size=(B, frames)).astype(np.float32))
+    valid = np.ones((B, frames), np.float32)
+    valid[:, frames - 7 :] = 0.0  # a padded tail, forced to 0.5 codes
+    valid[1, frames - 70 :] = 0.0  # across a chunk's edge
+    z = rng.integers(0, 2, size=(B, frames, Z_DIM)).astype(np.float32)
+    z[:, :, Z_DIM // 2 :] = 0.5  # masked bits
+    h0 = _t(rng.standard_normal((B, H_DIM)).astype(np.float32) * 0.1)
+    return y, bits, _t(valid), _t(z), h0
+
+
+_CHUNK_CALLS = {
+    "encode_decode": lambda sp, cfg, y, bits, valid, z, h0: tb.encode_decode(
+        sp, cfg, y, bits, h0, frame_valid=valid),
+    "encode": lambda sp, cfg, y, bits, valid, z, h0: tb.encode(sp, cfg, y, bits, h0),
+    "decode": lambda sp, cfg, y, bits, valid, z, h0: tb.decode(sp, cfg, z, h0),
+}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["standard", "fused"])
+@pytest.mark.parametrize("frames", [64, 576, 577])
+@pytest.mark.parametrize("call", list(_CHUNK_CALLS))
+def test_chunked_scan_is_the_loop(params, monkeypatch, call, frames, fused):
+    """Every output of a chunked scan is bitwise the loop's, the remainder
+    of T modulo CHUNK included, and the chunks cover the whole chunks."""
+    cfg = tb.BVRNNConfig(x_dim=X_DIM, h_dim=H_DIM, z_dim=Z_DIM, var_bit=True, fused_cell=fused)
+    sp = tb.prepare(params[1], cfg)
+    args = _chunk_inputs(frames)
+    with torch.no_grad():
+        ref = _CHUNK_CALLS[call](sp, cfg, *args)
+        tracing.reset()
+        monkeypatch.setattr(tb, "_chunk_graph", _eager_runner)
+        got = _CHUNK_CALLS[call](sp, cfg, *args)
+    assert _graph_frames() == frames // tb.CHUNK * tb.CHUNK * B
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g, r)
+
+
+def _bypass_case(case, params):
+    """(a call that must run the loop alone, the weights it reads)."""
+    cfg = tb.BVRNNConfig(x_dim=X_DIM, h_dim=H_DIM, z_dim=Z_DIM, var_bit=True)
+    sp = tb.prepare(params[1], cfg)
+    y, bits, valid, z, h0 = _chunk_inputs(2 * tb.CHUNK)
+    if case == "one_frame":  # a stream engine's step
+        return lambda: tb.encode_decode(sp, cfg, y[:, :1], bits[:, :1], h0, valid[:, :1])
+    if case == "traced":  # a serving bundle's program
+        traced = tb.ScanParams(sp.std, sp.fused, traced=True)
+        return lambda: tb.encode_decode(traced, cfg, y, bits, h0, frame_valid=valid)
+    if case == "statics":  # a host value a step
+        def step(h, x_t, add):
+            return h + x_t if add else h, (h,)
+        statics = [{"add": t % 2 == 0} for t in range(z.shape[1])]
+        return lambda: tb._frames(step, h0[:, :Z_DIM], [z], False, statics,
+                                  cache=sp.graphs, key=("probe",))
+    if case == "grad":  # the trainers
+        def call():
+            with torch.enable_grad():
+                return tb.decode(sp, cfg, z, h0)
+        return call
+    if case in ("compiling", "exporting"):  # torch.compile / torch.export tracing the scan
+        return lambda: tb.encode_decode(sp, cfg, y, bits, h0, frame_valid=valid)
+    if case == "raw_tree":  # prepared anew each call
+        return lambda: tb.encode_decode(params[1], cfg, y, bits, h0, frame_valid=valid)
+    if case == "decode_plc":  # reads the loss flags on the host
+        lost = torch.zeros(B, z.shape[1])
+        lost[0, 5:9] = 1.0
+        return lambda: tb.decode_plc(sp, cfg, z, lost, h0)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["one_frame", "traced", "statics", "grad", "raw_tree",
+                                  "decode_plc", "compiling", "exporting"])
+def test_chunk_runner_bypassed(params, monkeypatch, case):
+    """A scan of one frame, a traced scan, one with a host value a step,
+    one with gradients on, one of a raw tree, the concealing decode and a
+    scan that torch.compile or torch.export traces never ask for a chunk
+    runner, and count no chunk frame."""
+    asked = []
+
+    def runner(cache, key, step, h, xs):
+        asked.append(key)
+        return _eager_runner(cache, key, step, h, xs)
+
+    call = _bypass_case(case, params)
+    tracing.reset()
+    monkeypatch.setattr(tb, "_chunk_graph", runner)
+    if case in ("compiling", "exporting"):
+        monkeypatch.setattr(torch.compiler, "is_" + case, lambda: True)
+    with torch.no_grad():
+        call()
+    counters = tracing.snapshot()["counters"]
+    assert asked == []
+    assert counters.get("bvrnn.graph_frames", 0) == 0
+    assert counters.get("bvrnn.graph_captures", 0) == 0
