@@ -273,7 +273,13 @@ def _generator_impl(w: CodecWeights, mel: torch.Tensor, length: int) -> torch.Te
     """Mel (B, M, T) -> the vocoder's float32 waveform (B, length),
     unscaled (the standalone vocoder's output): the residual stacks through
     the kernels, or on the direct path the whole generator in
-    ``w.voc_dtype``."""
+    ``w.voc_dtype``.  A generator that looks ahead (not
+    ``VocoderConfig.causal``) vocodes only the ceil(length / hop) frames
+    that cover ``length``, so that its last samples do not depend on the
+    length bucket's padding frames; a causal one vocodes all T (its first
+    ``length`` samples are the same either way)."""
+    if not w.vocoder_cfg.causal:
+        mel = mel[..., : -(-length // w.vocoder_cfg.total_upsample)]
     if w.direct:
         return voc_mod.generator_apply(
             w.vocoder, w.vocoder_cfg, mel.to(w.voc_dtype), length, precision=w.precision,
@@ -292,7 +298,8 @@ def _encode_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor) -> torch.
 
 
 def _decode_impl(w: CodecWeights, codes: torch.Tensor, length: int) -> torch.Tensor:
-    """0.5-padded codes (B, T, z) -> waveform (B, length)."""
+    """0.5-padded codes (B, T, z) -> waveform (B, length) (``length`` at
+    most T x hop)."""
     mel, _ = bvrnn_mod.decode(w.scan, w.bvrnn_cfg, codes, _h_init(w, codes.shape[0], codes.device))
     return _generator_impl(w, mel.transpose(1, 2), length) / SCALING
 
@@ -301,7 +308,9 @@ def _forward_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor, n_frames
                   length: int) -> torch.Tensor:
     """Resynthesis in one scan: padded waveform (B, Lp), bits (B, T) and the
     count of real frames (an int or a 0-d tensor; the codes of later frames
-    are 0.5, as ``decode`` pads them) -> waveform (B, length)."""
+    are 0.5, as ``decode`` pads them) -> waveform (B, length), ``length`` at
+    most Lp (the input's own length; a serving bundle's program, traced at
+    one bucket, passes Lp)."""
     mel = _mel_impl(w, x)
     B, T, _ = mel.shape
     valid = (torch.arange(T, device=x.device) < n_frames).to(w.bvrnn_cfg.dtype)
@@ -568,7 +577,7 @@ class BVRNNCodecModel:
         Tp = padded_len // hop
         codes = self._pad_codes(codes, Tp)
         if lost is None:
-            return _decode_impl(self.weights, codes, padded_len)[:, :length]
+            return _decode_impl(self.weights, codes, length)
         lost = _host_array(lost)
         if lost.ndim == 1:
             lost = lost[None, :]
@@ -584,7 +593,7 @@ class BVRNNCodecModel:
             self.scan_params, self.bvrnn_cfg, codes, torch.as_tensor(lost, device=self.device),
             self._h0(B), cbits, mode=conceal_mode,
         )
-        return self._vocode(mel.transpose(1, 2), padded_len)[:, :length]
+        return self._vocode(mel.transpose(1, 2), length)
 
     @torch.no_grad()
     def decode_to_mel(self, codes) -> torch.Tensor:
@@ -616,7 +625,7 @@ class BVRNNCodecModel:
                 Lp = self._pad_length(length)
                 x = torch.nn.functional.pad(x, (0, Lp - length))
                 bits = self._frame_bits(bitrate, x.shape[0], length, Lp, n_frames)
-                y = _forward_impl(self.weights, x, bits, n_frames, Lp)[:, :length]
+                y = _forward_impl(self.weights, x, bits, n_frames, length)
             else:
                 y = self._decode(self._encode(x, bitrate), length)
             return y[0] if squeeze else y

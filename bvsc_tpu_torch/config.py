@@ -15,7 +15,11 @@ from typing import Any, Sequence
 
 @dataclasses.dataclass(frozen=True)
 class VocoderConfig:
-    """Causal BigVGAN-tiny generator/discriminator config.
+    """BigVGAN generator/discriminator config.  The defaults are the
+    codec's causal BigVGAN-tiny (4 stages, 128 -> 8 channels); the same
+    fields describe the published non-causal BigVGAN
+    (``configs/varbitrate_bigvgan.toml``: 6 stages, 1536 -> 24 channels,
+    symmetric padding, anti-aliased activations).
 
     Field names match the keys of the reference's ``vocoder_config.*`` TOML
     table / BigVGAN ``AttrDict`` (reference ``third_party/BigVGAN/env.py:8-11``,
@@ -56,6 +60,13 @@ class VocoderConfig:
     # optional MRD-specific overrides (reference models.py:329-337)
     mrd_use_spectral_norm: bool | None = None
     mrd_channel_mult: float | None = None
+
+    @property
+    def causal(self) -> bool:
+        """Whether no output sample depends on a later frame: every padding
+        left-only and no anti-aliased activation."""
+        return not (self.pre_sym or self.post_sym or any(self.layers_sym)
+                    or any(self.layers_antialias) or self.antialias_post)
 
     @property
     def total_upsample(self) -> int:

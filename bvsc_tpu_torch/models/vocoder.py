@@ -3,13 +3,16 @@
 mel (B, 80, T) -> waveform (B, 1, T * 256): pad -> conv_pre k7 -> 4 x
 [ConvTranspose1d (strides 8, 8, 2, 2) -> 3 AMP resblocks (k = 3, 7, 11;
 dilations 1, 3, 5) averaged] -> activation -> pad -> conv_post k7 -> tanh
--> trim to ``length``.  Channels 128 -> 64 -> 32 -> 16 -> 8.  The shipped
-configs are causal (left padding only) with log-scale SnakeBeta; the
-config's other variants run on the direct path: symmetric padding
-(``pre_sym``, ``post_sym``, ``layers_sym``), anti-aliased activations
-(``layers_antialias``, ``antialias_post``: ``ops.resample.Activation1d``),
-``activation`` ``'snake'`` / ``'snakebeta'`` / ``'lrelu'`` (a leaky ReLU
-also before each upsampler) and linear-scale snake parameters.
+-> trim to ``length``.  Channels 128 -> 64 -> 32 -> 16 -> 8.  Two shipped
+configs are this causal generator (left padding only) with log-scale
+SnakeBeta; the third (``configs/varbitrate_bigvgan.toml``) is the published
+BigVGAN (six stages, 1536 -> 24 channels, every padding symmetric, every
+activation anti-aliased).  The config's variants run on the direct path:
+symmetric padding (``pre_sym``, ``post_sym``, ``layers_sym``), anti-aliased
+activations (``layers_antialias``, ``antialias_post``:
+``ops.resample.Activation1d``, through :func:`antialiased`), ``activation``
+``'snake'`` / ``'snakebeta'`` / ``'lrelu'`` (a leaky ReLU also before each
+upsampler) and linear-scale snake parameters.
 
 Parameters are a nested dict of tensors with the JAX package's keys and
 torch conv layouts: folded ``{w, b}`` convs for inference, weight-normed
@@ -212,14 +215,24 @@ def prepare_kernel_params(params: Params, cfg: VocoderConfig) -> list[list[Resbl
 def activation(x: torch.Tensor, p: dict, cfg: VocoderConfig, approx: bool = False,
                antialias: bool = False) -> torch.Tensor:
     """The config's activation on ``p`` (stored or prepared parameters);
-    snakes anti-aliased (``Activation1d``) when ``antialias``."""
-    def fn(v):
-        return apply_activation(v, p, kind=cfg.activation, logscale=cfg.snake_logscale,
-                                approx=approx)
-
+    snakes anti-aliased (:func:`antialiased`) when ``antialias``."""
     if antialias and cfg.activation != "lrelu":
-        return Activation1d(fn)(x)
-    return fn(x)
+        return antialiased(x, p, cfg, approx)
+    return apply_activation(x, p, kind=cfg.activation, logscale=cfg.snake_logscale,
+                            approx=approx)
+
+
+def antialiased(x: torch.Tensor, p: dict, cfg: VocoderConfig,
+                approx: bool = False) -> torch.Tensor:
+    """The config's snake anti-aliased (``ops.resample.Activation1d``: 2x
+    up, the snake, 2x down) on (B, C, T) ``x``: the span ``vocoder.aa``;
+    the counter ``vocoder.aa_elements`` adds the B x C x T elements
+    filtered.  :func:`activation` looks it up by name, so a caller can wrap
+    it."""
+    with tracing.span("vocoder.aa"):
+        tracing.count("vocoder.aa_elements", x.numel())
+        return Activation1d(lambda v: apply_activation(
+            v, p, kind=cfg.activation, logscale=cfg.snake_logscale, approx=approx))(x)
 
 
 def amp_block(x: torch.Tensor, block: dict, cfg: VocoderConfig, kernel_size: int, dilations, *,

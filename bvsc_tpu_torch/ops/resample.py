@@ -4,13 +4,18 @@ the reference's vendored alias-free-torch).
 
 The anti-aliased vocoder variants (``layers_antialias``, ``antialias_post``)
 wrap each snake in :class:`Activation1d`: up 2x -> activation -> down 2x.
-No shipped config turns them on, since the filters look ahead and break
-causality; they run on the direct vocoder path only.
+The filters look ahead, so the causal configs (``configs/varbitrate.toml``,
+``fixed64.toml``) leave them off; the full BigVGAN
+(``configs/varbitrate_bigvgan.toml``) turns every one on.  They run on the
+direct vocoder path only.
 
 Each filter is a depthwise ``conv1d`` / ``conv_transpose1d`` (groups = C)
 with replicate padding, in the input's dtype and on its device, with the
 JAX package's pads and trims.  The filter taps are numpy float32, as the
-JAX package computes them (:func:`kaiser_sinc_filter1d` is a copy).
+JAX package computes them (:func:`kaiser_sinc_filter1d` is a copy); their
+copy on each (device, dtype) a filter meets is made once and kept
+(:func:`_depthwise`), so a call makes no host-to-device copy and no stream
+synchronisation.
 """
 
 from __future__ import annotations
@@ -47,9 +52,21 @@ def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> 
     return filt.reshape(1, 1, kernel_size).astype(np.float32)
 
 
+# (taps' bytes, device, dtype) -> the (1, 1, K) taps there
+_device_taps: dict = {}
+
+
 def _depthwise(filt: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    """The (1, 1, K) taps as a (C, 1, K) depthwise weight for ``x``."""
-    w = torch.as_tensor(filt, device=x.device).to(x.dtype)
+    """The (1, 1, K) taps as a (C, 1, K) depthwise weight for ``x``: their
+    copy on ``x``'s device in its dtype, made on first use and kept (a
+    ``torch.compile`` or ``torch.export`` trace takes a fresh one, so no
+    traced tensor is kept)."""
+    key = (filt.tobytes(), x.device, x.dtype)
+    w = _device_taps.get(key)
+    if w is None:
+        w = torch.as_tensor(filt, device=x.device).to(x.dtype)
+        if not (torch.compiler.is_compiling() or torch.compiler.is_exporting()):
+            _device_taps[key] = w
     return w.expand(x.shape[1], 1, filt.shape[-1])
 
 

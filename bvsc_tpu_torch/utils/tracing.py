@@ -42,7 +42,8 @@ Spans, each in the one function every path runs:
   ``bvrnn.lost_read``: ``decode_plc``'s host read of the loss flags;
 * ``vocoder``: the generator, one-shot (``models.vocoder._apply``) or
   streaming (``streaming.generator_stream_step``); ``vocoder.stage``: one
-  stage's residual stack inside it.
+  stage's residual stack inside it; ``vocoder.aa``: one anti-aliased
+  activation (``models.vocoder.antialiased``, direct path).
 
 Counters: ``<engine>.frames`` (streams advanced), ``.slots_open`` (open
 slots, summed over ticks), ``.h2d_copies`` and ``.h2d_bytes`` (the tick's
@@ -50,9 +51,11 @@ explicit host-to-device copies), ``serve.starts`` (streams started),
 ``decode.concealed`` (frames concealed); ``codec.frames`` (rows x real
 frames of each public codec call); ``bvrnn.graph_captures`` (chunk graphs
 captured, ``models.bvrnn._ChunkGraph``) and ``bvrnn.graph_frames`` (rows x
-frames of every chunk replayed, counted outside the graph).  How many
-ticks or calls ran is their span's count.  Under a CUDA graph the counters
-count at capture, as K1's launch counters do.
+frames of every chunk replayed, counted outside the graph);
+``vocoder.aa_elements`` (rows x channels x samples each anti-aliased
+activation filtered).  How many ticks or calls ran is their span's count.
+Under a CUDA graph the counters count at capture, as K1's launch counters
+do.
 
 Threads: there is no lock.  Under the GIL each dictionary and deque
 operation is atomic, so records are never corrupted and a snapshot taken
