@@ -22,13 +22,15 @@ into the other).
 
 * :func:`generator_apply` is the direct path, the reference's
   ``generator_apply``: every conv through ``ops.conv`` (cuDNN on a card),
-  every activation elementwise torch, in the input's dtype (float32, or
-  bf16 on the codec's bf16 vocoder segment), with ``approx_snake`` the
-  polynomial sin^2.  A weight-normed tree takes its activations from the
-  stored parameters on the device, so gradients reach every leaf; a folded
-  tree's resblock snakes read host-prepared parameters
-  (:func:`prepare_direct_params`, ``ops.snake.prepare_act``), which makes
-  the causal float32 direct path bitwise the kernel path's plain version.
+  every activation elementwise torch (an anti-aliased one on a card in
+  one kernel launch, :func:`antialiased`), in the input's dtype
+  (float32, or bf16 on the codec's bf16 vocoder segment), with
+  ``approx_snake`` the polynomial sin^2.  A weight-normed tree takes its
+  activations from the stored parameters on the device, so gradients
+  reach every leaf; a folded tree's resblock snakes read host-prepared
+  parameters (:func:`prepare_direct_params`, ``ops.snake.prepare_act``),
+  which makes the causal float32 direct path bitwise the kernel path's
+  plain version.
 * :func:`generator_apply_kernel` runs the residual stacks through the CUDA
   kernels of ``ops.amp_resblock`` (its counterpart is
   ``generator_apply_pallas``): the causal log-scale SnakeBeta family with
@@ -58,9 +60,9 @@ from bvsc_tpu_torch.ops.amp_resblock import (
 )
 from bvsc_tpu_torch.ops.conv import (conv1d, conv_transpose1d, conv_weight, init_conv_params,
                                      pad1d)
-from bvsc_tpu_torch.ops.resample import Activation1d
+from bvsc_tpu_torch.ops.resample import activation1d
 from bvsc_tpu_torch.ops.snake import (ACTIVATIONS, apply_activation, init_snake_params,
-                                      leaky_relu, prepare_act)
+                                      leaky_relu, linear_params, prepare_act)
 from bvsc_tpu_torch.utils import tracing
 
 Params = dict
@@ -227,12 +229,15 @@ def antialiased(x: torch.Tensor, p: dict, cfg: VocoderConfig,
     """The config's snake anti-aliased (``ops.resample.Activation1d``: 2x
     up, the snake, 2x down) on (B, C, T) ``x``: the span ``vocoder.aa``;
     the counter ``vocoder.aa_elements`` adds the B x C x T elements
-    filtered.  :func:`activation` looks it up by name, so a caller can wrap
-    it."""
+    filtered.  It is ``ops.resample.activation1d`` on the linear
+    parameters (``ops.snake.linear_params``): on a card one launch of the
+    anti-aliased kernel (float32 or bf16), each counted in
+    ``vocoder.aa_kernel``; on the CPU the plain chain.  :func:`activation`
+    looks it up by name, so a caller can wrap it."""
     with tracing.span("vocoder.aa"):
         tracing.count("vocoder.aa_elements", x.numel())
-        return Activation1d(lambda v: apply_activation(
-            v, p, kind=cfg.activation, logscale=cfg.snake_logscale, approx=approx))(x)
+        alpha, inv_beta = linear_params(p, kind=cfg.activation, logscale=cfg.snake_logscale)
+        return activation1d(x, alpha, inv_beta, approx)
 
 
 def amp_block(x: torch.Tensor, block: dict, cfg: VocoderConfig, kernel_size: int, dilations, *,

@@ -48,29 +48,35 @@ def _sin_sq(u: torch.Tensor, approx: bool) -> torch.Tensor:
     return sin_sq_approx(u) if approx else torch.square(torch.sin(u))
 
 
-def snake(x: torch.Tensor, p: dict, *, logscale: bool, approx: bool = False) -> torch.Tensor:
-    """x: (B, C, T); p['alpha']: (C,)."""
-    alpha = p["alpha"][None, :, None]
-    if logscale:
-        alpha = torch.exp(alpha)
-    return x + (1.0 / (alpha + EPS)) * _sin_sq(x * alpha, approx)
-
-
-def snake_beta(x: torch.Tensor, p: dict, *, logscale: bool, approx: bool = False) -> torch.Tensor:
-    """x: (B, C, T); p['alpha'], p['beta']: (C,)."""
-    alpha = p["alpha"][None, :, None]
-    beta = p["beta"][None, :, None]
-    if logscale:
-        alpha = torch.exp(alpha)
-        beta = torch.exp(beta)
-    return x + (1.0 / (beta + EPS)) * _sin_sq(x * alpha, approx)
+def linear_params(p: dict, *, kind: str, logscale: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One snake's (C,) ``alpha`` and ``inv_beta`` as :func:`snake_linear`
+    reads them: prepared parameters as they are, stored ones computed on
+    their device, differentiably, in their dtype: ``exp`` in log scale,
+    then 1 / (beta + eps) (alpha for plain Snake)."""
+    if "inv_beta" in p:
+        return p["alpha"], p["inv_beta"]
+    alpha = torch.exp(p["alpha"]) if logscale else p["alpha"]
+    if kind == "snake":
+        return alpha, 1.0 / (alpha + EPS)
+    beta = torch.exp(p["beta"]) if logscale else p["beta"]
+    return alpha, 1.0 / (beta + EPS)
 
 
 def snake_linear(x: torch.Tensor, alpha: torch.Tensor, inv_beta: torch.Tensor,
                  approx: bool = False) -> torch.Tensor:
-    """Snake or SnakeBeta from prepared (C,) parameters (:func:`prepare_act`):
-    ``x + inv_beta * sin^2(alpha * x)``."""
+    """Snake or SnakeBeta from linear (C,) parameters (:func:`linear_params`,
+    :func:`prepare_act`): ``x + inv_beta * sin^2(alpha * x)``."""
     return x + inv_beta[None, :, None] * _sin_sq(x * alpha[None, :, None], approx)
+
+
+def snake(x: torch.Tensor, p: dict, *, logscale: bool, approx: bool = False) -> torch.Tensor:
+    """x: (B, C, T); p['alpha']: (C,)."""
+    return snake_linear(x, *linear_params(p, kind="snake", logscale=logscale), approx)
+
+
+def snake_beta(x: torch.Tensor, p: dict, *, logscale: bool, approx: bool = False) -> torch.Tensor:
+    """x: (B, C, T); p['alpha'], p['beta']: (C,)."""
+    return snake_linear(x, *linear_params(p, kind="snakebeta", logscale=logscale), approx)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
@@ -79,18 +85,14 @@ def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
 
 def apply_activation(x: torch.Tensor, p: dict, *, kind: str, logscale: bool,
                      approx: bool = False) -> torch.Tensor:
-    """The activation ``kind`` on its stored parameters, on the tensors'
-    device (differentiable in them); prepared parameters (holding
-    ``inv_beta``) take :func:`snake_linear`."""
+    """The activation ``kind`` on its stored or prepared parameters
+    (:func:`linear_params`, then :func:`snake_linear`), on the tensors'
+    device, differentiable in them."""
     if kind == "lrelu":
         return leaky_relu(x)
     if kind not in ACTIVATIONS:
         raise NotImplementedError(f"activation {kind!r}")
-    if "inv_beta" in p:
-        return snake_linear(x, p["alpha"], p["inv_beta"], approx)
-    if kind == "snake":
-        return snake(x, p, logscale=logscale, approx=approx)
-    return snake_beta(x, p, logscale=logscale, approx=approx)
+    return snake_linear(x, *linear_params(p, kind=kind, logscale=logscale), approx)
 
 
 def init_snake_params(channels: int, *, beta: bool, logscale: bool) -> dict:

@@ -6,7 +6,9 @@ Port of ``bvsc_tpu/serve/export.py``.  A serving host reloads the file with
 serve time, only the exported ATen graphs and the two residual-stack custom
 ops (``torch.ops.bvsc_torch.amp_resblock_f32`` / ``_bf16``, registered by
 ``bvsc_tpu_torch.ops.amp_resblock``), which launch K1 or K1-bf16 on a card
-as the live path does, and count their launches the same way.
+as the live path does, and count their launches the same way (the
+anti-aliased activation's op, ``bvsc_torch::antialias_act`` of
+``ops.resample``, is the same kind, but no exported codec calls it).
 
 Bundle contents (``meta.json`` is the manifest, format :data:`FORMAT`):
 
@@ -38,8 +40,10 @@ Bundle contents (``meta.json`` is the manifest, format :data:`FORMAT`):
   bf16-storage bundle holds bf16 weights and bf16 state, and its ``vocode``
   program casts its mel to the vocoder weights' type (the reference's
   ``vocode`` program raises a TypeError there: a float32 mel meets bf16
-  weights in its first conv).  An anti-aliased config's filters would be baked into a trace,
-  so its codec does not export.
+  weights in its first conv).  A codec whose vocoder looks ahead (not
+  ``VocoderConfig.causal``: symmetric or anti-aliased, the full BigVGAN)
+  does not export: the live codec vocodes only a clip's own frames
+  (``codec._generator_impl``), a program only its bucket's.
 
 The BVRNN's frame loops are traced as ``torch._higher_order_ops.scan`` over
 the live path's own step function (``models.bvrnn._frames``), so a program
@@ -207,7 +211,12 @@ def export_serving_bundle(codec, path: str, *, batch: int | None = 1,
     :data:`MAX_BATCH`); that needs a pinned ``fused_cell``, since ``'auto'``
     picks the cell by batch size.  The packet programs run at batch 1;
     ``engine_batch=N`` adds both engines' ticks for N slots, traced with a
-    symbolic slot count (:func:`_slot_range`)."""
+    symbolic slot count (:func:`_slot_range`).  A codec whose vocoder looks
+    ahead raises ValueError (module docstring)."""
+    if not codec.conf.vocoder_config.causal:
+        raise ValueError("the codec's vocoder looks ahead (symmetric or anti-aliased): its "
+                         "programs would vocode the length bucket's frames where the live "
+                         "codec vocodes a clip's own, so it does not export")
     if batch is None and codec.fused_cell == "auto":
         raise ValueError("batch=None (a symbolic batch) needs a pinned fused_cell: 'auto' picks "
                          "the cell by batch size; build the codec with fused_cell=True or False")

@@ -53,7 +53,8 @@ frames of each public codec call); ``bvrnn.graph_captures`` (chunk graphs
 captured, ``models.bvrnn._ChunkGraph``) and ``bvrnn.graph_frames`` (rows x
 frames of every chunk replayed, counted outside the graph);
 ``vocoder.aa_elements`` (rows x channels x samples each anti-aliased
-activation filtered).  How many ticks or calls ran is their span's count.
+activation filtered) and ``vocoder.aa_kernel`` (launches of
+``ops.resample``'s kernel, counted after each).  How many ticks or calls ran is their span's count.
 Under a CUDA graph the counters count at capture, as K1's launch counters
 do.
 

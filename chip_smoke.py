@@ -50,6 +50,25 @@ Phases, each printing one JSON line with its seconds:
    and the useful ``tflops``; bf16 lines add ``snake_floor_ms``, the
    stage's snakes at the count from ``build`` over 128 lanes of every SM at
    the SM clock's maximum.  A ``kernel_total`` line per mode sums them.
+   Then ``antialias``: the anti-aliased activation kernel
+   (``ops.resample.activation1d_kernel``) against the plain
+   ``Activation1d`` chain (TF32 off) at each stage shape of the
+   ``varbit-bigvgan-f32.offline-b32`` cell (B = 32, 517 frames, C 768 ->
+   24), seeded SnakeBeta parameters: max error over the output's peak in
+   both sin^2 modes (at most 2e-6), the kernel's and the chain's ms (CUDA
+   events; also on the stage input as the generator hands it, a view
+   trimmed at both ends, read in place and bitwise its contiguous copy's
+   result; and the bf16 build's ms, its output bitwise the float32
+   build's rounded) beside the bytes bound
+   (``portbench.aa_counts.aa_bound_s``), every launch counted in
+   ``vocoder.aa_kernel``; an ``antialias_total`` line sums a cell call's
+   109 activations (18 a stage, 3 of them on the trimmed input, one more at
+   the last).  First, one call of the BigVGAN codec
+   (``configs/varbitrate_bigvgan.toml``, the shipped BVRNN, a seeded
+   vocoder) on a second of the batch's first two rows makes 109
+   ``vocoder.aa`` spans and 109 ``vocoder.aa_kernel`` launches, in float32
+   and at ``precision='default'`` (the bf16 vocoder segment), and one of
+   the parity codec none of either (``antialias_codec``).
 6. ``probes``: the two benchmark probes (``bvsc_tpu_torch.benchmarks``)
    run through their ``run()`` entry points with the kernels' launch counts
    read around them; then the persistent GRU (bf16 and int8, H = 1024,
@@ -396,7 +415,9 @@ from bvsc_tpu_torch.ops import _build, _cc, bitpack, rans
 from bvsc_tpu_torch.ops import amp_resblock as AR
 from bvsc_tpu_torch.ops import dot_probe as DP
 from bvsc_tpu_torch.ops import persistent_gru as PG
+from bvsc_tpu_torch.ops import resample as RS
 from bvsc_tpu_torch.ops.mel import MelFrontend
+from bvsc_tpu_torch.ops.snake import linear_params, prepare_act, snake_linear
 from bvsc_tpu_torch.serve import protocol as P
 from bvsc_tpu_torch.serve.daemon import CodecDaemon
 from bvsc_tpu_torch.serve.engine import DecodeEngine, ServingEngine
@@ -404,6 +425,7 @@ from bvsc_tpu_torch.serve.entropy_wire import AdaptiveCodesCoder
 from bvsc_tpu_torch.train import bvrnn_train as BT
 from bvsc_tpu_torch.train import checkpoint as ckpt
 from bvsc_tpu_torch.train import vocoder_train as VT
+from bvsc_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "chkpts", "bvsc_bvrnn_demo_augfull_step1800_f16.npz")
@@ -673,6 +695,127 @@ def kernel_phase(codec: BVRNNCodecModel, stage_shapes,
         total["bound_ms"] += bound
         total["bound_by"].add(bound_by)
     return total
+
+
+AA_BATCH = 32  # the BigVGAN cell's clips a call
+AA_FRAMES = 517  # frames it vocodes a clip
+# (C, samples a frame, samples the upsampler's output is trimmed by at each end)
+AA_STAGES = ((768, 4, 2), (384, 16, 2), (192, 32, 1), (96, 64, 1), (48, 128, 1), (24, 256, 1))
+AA_PER_STAGE = 18  # anti-aliased activations a stage: 3 blocks x 3 dilations x 2
+AA_TRIMMED = 3  # of them on the trimmed upsampler output (each block's first), read in place
+AA_CODEC_SAMPLES = 22050  # one second through the BigVGAN codec, counting its launches
+AA_TOL = 2e-6  # of the output's peak: the kernel's float32 sums against cuDNN's order
+
+
+def aa_launches() -> int:
+    """The anti-aliased kernel's launches so far (``vocoder.aa_kernel``,
+    counted by ``ops.resample.activation1d_kernel`` after each launch)."""
+    return tracing.snapshot()["counters"].get("vocoder.aa_kernel", 0)
+
+
+def aa_counts(codec: BVRNNCodecModel, x: torch.Tensor) -> tuple[int, int]:
+    """(anti-aliased activations, kernel launches) of one call: the
+    ``vocoder.aa`` spans and the launches it added."""
+    def read():
+        return (tracing.snapshot()["spans"].get("vocoder.aa", {}).get("count", 0),
+                aa_launches())
+
+    before = read()
+    with torch.no_grad():
+        codec(x, BITRATE)
+    return tuple(b - a for a, b in zip(before, read()))
+
+
+def antialias_phase(smi: str, causal: BVRNNCodecModel, wav: np.ndarray) -> dict:
+    """The anti-aliased activation kernel against the plain chain at the
+    BigVGAN cell's stage shapes (module docstring, phase 5), and its launch
+    count in one call of the BigVGAN codec and of ``causal``; returns the
+    kernel's entry of the ``kernels`` line."""
+    from portbench.aa_counts import aa_bound_s
+
+    t0 = time.time()
+    conf = load_config(os.path.join(REPO, "configs", "varbitrate_bigvgan.toml"))
+    big = BVRNNCodecModel(config=conf, bvrnn_params=causal.bvrnn_params,
+                          vocoder_params=seeded_vocoder(conf.vocoder_config, SEED), device=DEV)
+    fast = BVRNNCodecModel(config=conf, bvrnn_params=causal.bvrnn_params,
+                           vocoder_params=big.vocoder_params, precision="default", device=DEV)
+    x = torch.from_numpy(wav[:2, :AA_CODEC_SAMPLES]).to(DEV)
+    per_call = len(AA_STAGES) * AA_PER_STAGE + 1
+    counts = {"bigvgan": aa_counts(big, x), "bigvgan_bf16": aa_counts(fast, x),
+              "causal": aa_counts(causal, x)}
+    emit("antialias_codec", t0, **counts, nvidia_smi=smi)
+    if counts != {"bigvgan": (per_call, per_call), "bigvgan_bf16": (per_call, per_call),
+                  "causal": (0, 0)}:
+        raise AssertionError(f"(activations, kernel launches) a call: {counts}, expected "
+                             f"({per_call}, {per_call}) for BigVGAN in float32 and in bf16, "
+                             "and (0, 0) causal")
+    del big, fast
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    launches = aa_launches()
+    calls = 0
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0, "max_abs_err": 0.0,
+             "max_err": 0.0}
+    for C, hop, trim in AA_STAGES:
+        T = AA_FRAMES * hop
+        wide = torch.randn(AA_BATCH, C, T + 2 * trim, generator=gen, device=DEV)
+        trimmed = wide[..., trim:-trim]
+        x = trimmed.contiguous()
+        stored = {k: 0.3 * torch.randn(C, generator=gen, device=DEV) for k in ("alpha", "beta")}
+        alpha, inv_beta = linear_params(prepare_act(stored, kind="snakebeta", logscale=True),
+                                        kind="snakebeta", logscale=True)
+        errs = {}  # sin^2 mode -> (max |error|, over the output's peak)
+        for approx in (False, True):
+            ref = RS.Activation1d(lambda v: snake_linear(v, alpha, inv_beta, approx))(x)
+            got = RS.activation1d_kernel(x, alpha, inv_beta, approx)
+            calls += 1
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            errs[approx] = (err, err / float(ref.abs().max()))
+            del ref, got
+        if not torch.equal(RS.activation1d_kernel(trimmed, alpha, inv_beta),
+                           RS.activation1d_kernel(x, alpha, inv_beta)):
+            raise AssertionError(f"antialias kernel at C={C}: a trimmed view read in place "
+                                 "differs from its contiguous copy")
+        xb = x.bfloat16()
+        if not torch.equal(RS.activation1d_kernel(xb, alpha, inv_beta),
+                           RS.activation1d_kernel(xb.float(), alpha, inv_beta).bfloat16()):
+            raise AssertionError(f"antialias kernel at C={C}: the bf16 build is not the "
+                                 "float32 one rounded")
+        calls += 4
+        warm = aa_launches()
+        ms = cuda_ms(lambda: RS.activation1d_kernel(x, alpha, inv_beta), reps=20, warmup=3)
+        trimmed_ms = cuda_ms(lambda: RS.activation1d_kernel(trimmed, alpha, inv_beta), reps=20,
+                             warmup=3)
+        bf16_ms = cuda_ms(lambda: RS.activation1d_kernel(xb, alpha, inv_beta), reps=20, warmup=3)
+        calls += aa_launches() - warm
+        plain_ms = cuda_ms(lambda: RS.Activation1d(lambda v: snake_linear(v, alpha, inv_beta))(x),
+                           reps=3, warmup=1)
+        bound_ms = aa_bound_s(x.numel())[0] * 1e3
+        n = AA_PER_STAGE + (C == AA_STAGES[-1][0])  # activation_post after the last stage
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("bf16_ms", bf16_ms)):
+            total[key] += n * v
+        total["ms"] += AA_TRIMMED * (trimmed_ms - ms)
+        total["max_abs_err"] = max(total["max_abs_err"], *(e[0] for e in errs.values()))
+        total["max_err"] = max(total["max_err"], *(e[1] for e in errs.values()))
+        emit("antialias", t0, C=C, T=T, B=AA_BATCH, elements=x.numel(), max_abs_err=errs[False][0],
+             max_err=errs[False][1], max_err_approx=errs[True][1], tol=AA_TOL, ms=ms,
+             trimmed_ms=trimmed_ms, bf16_ms=bf16_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             roofline_pct=100 * bound_ms / ms, per_call=n, nvidia_smi=smi)
+        if max(e[1] for e in errs.values()) > AA_TOL:
+            raise AssertionError(f"antialias kernel at C={C}, T={T}: error {errs} > {AA_TOL}")
+        del x, xb, trimmed, wide
+    if aa_launches() - launches != calls:
+        raise AssertionError(f"vocoder.aa_kernel counted {aa_launches() - launches} launches "
+                             f"of {calls}")
+    emit("antialias_total", t0, **total, roofline_pct=100 * total["bound_ms"] / total["ms"],
+         per_call=per_call, launches=calls, nvidia_smi=smi)
+    return {"name": "antialias_act", "route": "cuda",
+            "source": "bvsc_tpu_torch/csrc/antialias_act.cu", "replaces": None,
+            "launches": counts["bigvgan"][1], "max_abs_err": total["max_abs_err"],
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
 
 
 def timed(fn):
@@ -4167,6 +4310,7 @@ def main() -> None:
     for kernel, tot in (("amp_resblock", totals), ("amp_resblock_bf16", totals_bf16)):
         emit("kernel_total", time.time(), kernel=kernel,
              **{key: v for key, v in tot.items() if key != "bound_by"})
+    antialias = antialias_phase(smi, codec, wav)
     plc_phase(codec, fast, wav, smi)
     golden_phase(codec, wav[0], smi)
     bf16 = bf16_storage_phase(codec, wav, smi)
@@ -4209,7 +4353,7 @@ def main() -> None:
         k1_entry("amp_resblock_bf16_io_bf16", "bvsc_tpu_torch/csrc/amp_resblock_bf16.cu",
                  "bvsc_tpu/ops/pallas_voc.py:240 (compute_dtype=bfloat16, bf16 x, "
                  "out_dtype=x.dtype)", bf16["launches"]["default"], bf16["entries"]["default"]),
-        *probe_entries]}), flush=True)
+        antialias, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
