@@ -113,8 +113,8 @@ def main(argv=None) -> None:
     print("BVSP/1 served " + json.dumps({
         "ticks": {kind: spans.get(f"{kind}.tick", {"count": 0})["count"]
                   for kind in ("serve", "decode")},
-        "k1_launches": {"float32": counters["amp_resblock.launches"],
-                        "bf16": counters["amp_resblock.launches_bf16"]},
+        "k1_launches": {"float32": counters.get("amp_resblock.launches", 0),
+                        "bf16": counters.get("amp_resblock.launches_bf16", 0)},
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                  "cudnn": torch.backends.cudnn.allow_tf32}}), flush=True)
 

@@ -40,7 +40,6 @@ from bvsc_tpu_torch.data.audio import load_wav, peak_normalize, save_wav
 from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.eval.metrics import frontend_for
 from bvsc_tpu_torch.models import vocoder as voc_mod
-from bvsc_tpu_torch.ops.amp_resblock import supported
 from bvsc_tpu_torch.ops.mel import MelFrontend
 
 
@@ -135,20 +134,15 @@ def main(argv=None) -> list[str]:
         print(f"using config {config_path}")
     vcfg, fs, frontend = load_vocoder_config(config_path, device)
     params = to_torch(load_vocoder(args.checkpoint_file, vcfg), device)
-    # the kernels where they cover the config (the codec's default), else
-    # the direct path
-    if supported(vcfg):
-        blocks = voc_mod.prepare_kernel_params(params, vcfg)
-    else:
-        params, blocks = voc_mod.prepare_direct_params(params, vcfg), None
+    # the codec's default path: the kernels where they cover the config,
+    # else the direct path
+    use_pallas, approx, _ = voc_mod.resolve_vocoder_path(vcfg, False, None, None, None)
+    voc = voc_mod.prepare_vocoder(params, vcfg, use_pallas, approx_snake=approx)
     os.makedirs(args.output_dir, exist_ok=True)
 
     def vocode(mel: torch.Tensor, length: int | None) -> np.ndarray:
         with torch.no_grad():
-            if blocks is None:
-                y = voc_mod.generator_apply(params, vcfg, mel, length)
-            else:
-                y = voc_mod.generator_apply_kernel(params, blocks, vcfg, mel, length)
+            y = voc_mod._apply(voc, mel, length, "highest")
         return y[0, 0].cpu().numpy()
 
     written = []

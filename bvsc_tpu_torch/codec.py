@@ -67,7 +67,6 @@ from bvsc_tpu_torch.device import resolve_device, set_parity_mode
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
 from bvsc_tpu_torch.models import vocoder as voc_mod
 from bvsc_tpu_torch.ops import quant
-from bvsc_tpu_torch.ops.amp_resblock import supported
 from bvsc_tpu_torch.ops.mel import MelFrontend
 from bvsc_tpu_torch.ops.precision import resolve as resolve_precision
 from bvsc_tpu_torch.train import checkpoint as ckpt
@@ -207,23 +206,17 @@ VOCODER_KEYS = ("conv_pre", "ups", "act_post", "conv_post")
 @dataclasses.dataclass(frozen=True)
 class CodecWeights:
     """Every tensor the codec's programs read, prepared as they read it
-    (the mel frontend's constants, the scan's cast weights, the vocoder's
-    convs, and on the kernel path the residual stacks' packed kernel
-    weights), with the static numerics they were prepared for.
-
-    ``blocks`` is None on the direct path, whose ``vocoder`` is the whole
-    folded generator (``models.vocoder.prepare_direct_params``) in
-    ``voc_dtype``, run with ``approx_snake``."""
+    (the mel frontend's constants, the scan's cast weights, and the
+    vocoder, ``models.vocoder.Vocoder``: its convs and, on the kernel path,
+    the residual stacks' packed kernel weights), with the static numerics
+    they were prepared for.  The vocoder runs in ``voc_dtype``, the
+    vocoder segment's type."""
 
     frontend: MelFrontend
     scan: bvrnn_mod.ScanParams
-    vocoder: dict
-    blocks: list | None  # per vocoder stage, its ResblockParams; None on the direct path
+    vocoder: voc_mod.Vocoder
     bvrnn_cfg: bvrnn_mod.BVRNNConfig
-    vocoder_cfg: VocoderConfig
-    voc_compute_dtype: torch.dtype
-    approx_snake: bool = False
-    voc_dtype: torch.dtype = torch.float32  # the direct path's vocoder segment
+    voc_dtype: torch.dtype = torch.float32
 
     @property
     def precision(self) -> str:
@@ -231,7 +224,11 @@ class CodecWeights:
 
     @property
     def direct(self) -> bool:
-        return self.blocks is None
+        return self.vocoder.direct
+
+    @property
+    def vocoder_cfg(self) -> VocoderConfig:
+        return self.vocoder.cfg
 
     def tree(self) -> dict:
         """The tensors alone, as a tree of dicts and lists: what a serving
@@ -240,24 +237,25 @@ class CodecWeights:
         if self.scan.fused is not None:
             scan["fused"] = self.scan.fused
         tree = {"mel": self.frontend.tensors(), "scan": scan}
-        if self.direct:
-            return {**tree, "vocoder": self.vocoder}
-        return {**tree, "vocoder": {k: self.vocoder[k] for k in VOCODER_KEYS},
-                "blocks": [[rb.op_tensors(self.voc_compute_dtype) for rb in stage]
-                           for stage in self.blocks]}
+        voc = self.vocoder
+        if voc.direct:
+            return {**tree, "vocoder": voc.params}
+        return {**tree, "vocoder": {k: voc.params[k] for k in VOCODER_KEYS},
+                "blocks": [[rb.op_tensors(voc.compute_dtype) for rb in stage]
+                           for stage in voc.blocks]}
 
     def with_tree(self, tree: dict, traced: bool = False) -> "CodecWeights":
         """These weights with the tensors of ``tree`` (:meth:`tree`'s
         layout) in place of their own; ``traced`` runs the scans' frames
         under torch's scan operator (``models.bvrnn.ScanParams``)."""
-        mode = self.voc_compute_dtype
-        blocks = None if self.direct else [
-            [rb.for_mode(mode, t) for rb, t in zip(stage, ts)]
-            for stage, ts in zip(self.blocks, tree["blocks"])]
+        voc = self.vocoder
+        blocks = None if voc.direct else [
+            [rb.for_mode(voc.compute_dtype, t) for rb, t in zip(stage, ts)]
+            for stage, ts in zip(voc.blocks, tree["blocks"])]
         return dataclasses.replace(
             self, frontend=self.frontend.with_tensors(tree["mel"]),
             scan=bvrnn_mod.ScanParams(tree["scan"]["std"], tree["scan"].get("fused"), traced),
-            vocoder=tree["vocoder"], blocks=blocks)
+            vocoder=dataclasses.replace(voc, params=tree["vocoder"], blocks=blocks))
 
 
 def _h_init(w: CodecWeights, batch, device) -> torch.Tensor:
@@ -271,23 +269,16 @@ def _mel_impl(w: CodecWeights, x: torch.Tensor) -> torch.Tensor:
 
 def _generator_impl(w: CodecWeights, mel: torch.Tensor, length: int) -> torch.Tensor:
     """Mel (B, M, T) -> the vocoder's float32 waveform (B, length),
-    unscaled (the standalone vocoder's output): the residual stacks through
-    the kernels, or on the direct path the whole generator in
-    ``w.voc_dtype``.  A generator that looks ahead (not
+    unscaled (the standalone vocoder's output), in ``w.voc_dtype`` on the
+    path ``w.vocoder`` was prepared for.  A generator that looks ahead (not
     ``VocoderConfig.causal``) vocodes only the ceil(length / hop) frames
     that cover ``length``, so that its last samples do not depend on the
     length bucket's padding frames; a causal one vocodes all T (its first
     ``length`` samples are the same either way)."""
     if not w.vocoder_cfg.causal:
         mel = mel[..., : -(-length // w.vocoder_cfg.total_upsample)]
-    if w.direct:
-        return voc_mod.generator_apply(
-            w.vocoder, w.vocoder_cfg, mel.to(w.voc_dtype), length, precision=w.precision,
-            compute_dtype=w.voc_compute_dtype,
-            approx_snake=w.approx_snake)[:, 0, :].to(torch.float32)
-    return voc_mod.generator_apply_kernel(
-        w.vocoder, w.blocks, w.vocoder_cfg, mel.to(w.voc_dtype), length, precision=w.precision,
-        compute_dtype=w.voc_compute_dtype)[:, 0, :].to(torch.float32)
+    return voc_mod._apply(w.vocoder, mel.to(w.voc_dtype), length,
+                          w.precision)[:, 0, :].to(torch.float32)
 
 
 def _encode_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -317,29 +308,6 @@ def _forward_impl(w: CodecWeights, x: torch.Tensor, bits: torch.Tensor, n_frames
     _, dec_mel, _ = bvrnn_mod.encode_decode(w.scan, w.bvrnn_cfg, mel, bits,
                                             _h_init(w, B, x.device), frame_valid=valid.expand(B, T))
     return _generator_impl(w, dec_mel.transpose(1, 2), length) / SCALING
-
-
-def resolve_vocoder_path(vcfg: VocoderConfig, fast: bool, use_pallas, approx_snake,
-                         voc_dtype) -> tuple[bool, bool, str]:
-    """(use_pallas, approx_snake, voc_dtype) as they run, from the
-    constructor's arguments (``BVRNNCodecModel``); ``fast`` is
-    ``precision='default'``.  Raises the reference's ValueErrors."""
-    if voc_dtype not in (None, "f32", "bf16"):
-        raise ValueError(f"voc_dtype must be 'f32' or 'bf16', got {voc_dtype!r}")
-    if use_pallas is None:
-        use_pallas = supported(vcfg) and not approx_snake and voc_dtype is None
-    if not use_pallas:
-        return (False, fast if approx_snake is None else bool(approx_snake),
-                voc_dtype or ("bf16" if fast else "f32"))
-    if approx_snake:
-        raise ValueError("approx_snake=True is not supported with use_pallas (the kernels "
-                         "compute exact snake); drop one")
-    if voc_dtype is not None:
-        raise ValueError("voc_dtype is not supported with use_pallas (the kernel path's "
-                         "compute dtype follows `precision`); drop one")
-    if not supported(vcfg):
-        raise ValueError(voc_mod.KERNEL_CONFIGS)
-    return True, False, "f32"
 
 
 class BVRNNCodecModel:
@@ -422,7 +390,7 @@ class BVRNNCodecModel:
         self.device = resolve_device(device)
         self.conf = config if config is not None else load_config(config_path)
         conf = self.conf
-        self.use_pallas, self.approx_snake, self.voc_dtype = resolve_vocoder_path(
+        self.use_pallas, self.approx_snake, self.voc_dtype = voc_mod.resolve_vocoder_path(
             conf.vocoder_config, fast, use_pallas, approx_snake, voc_dtype)
         bf16 = self.dtype == torch.bfloat16
         if bf16 and not self.use_pallas:
@@ -467,16 +435,10 @@ class BVRNNCodecModel:
         self.vocoder_params = to_torch(vocoder_params, self.device, dtype=self.dtype)
         # the vocoder segment's type: bf16 under bf16 storage on either path
         seg = torch.bfloat16 if bf16 or self.voc_dtype == "bf16" else torch.float32
-        if self.use_pallas:
-            self.kernel_blocks = voc_mod.prepare_kernel_params(self.vocoder_params,
-                                                               conf.vocoder_config)
-            voc = self.vocoder_params
-        else:
-            self.kernel_blocks = None
-            voc = voc_mod.prepare_direct_params(self.vocoder_params, conf.vocoder_config, seg)
-        self.weights = CodecWeights(
-            self.frontend, self.scan_params, voc, self.kernel_blocks, self.bvrnn_cfg,
-            conf.vocoder_config, self.voc_compute_dtype, self.approx_snake, seg)
+        voc = voc_mod.prepare_vocoder(self.vocoder_params, conf.vocoder_config, self.use_pallas,
+                                      self.voc_compute_dtype, self.approx_snake, dtype=seg)
+        self.kernel_blocks = voc.blocks  # per vocoder stage, its ResblockParams; None direct
+        self.weights = CodecWeights(self.frontend, self.scan_params, voc, self.bvrnn_cfg, seg)
 
     # -- helpers ------------------------------------------------------------
 

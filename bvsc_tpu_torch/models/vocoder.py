@@ -20,7 +20,13 @@ torch conv layouts: folded ``{w, b}`` convs for inference, weight-normed
 :func:`fold_generator_params` / :func:`unfold_generator_params` turn one
 into the other).
 
-* :func:`generator_apply` is the direct path, the reference's
+Which path runs is decided once, by :func:`resolve_vocoder_path`, and a
+:class:`Vocoder` (:func:`prepare_vocoder`) holds the params prepared for it;
+its :meth:`Vocoder.stage` is the one function that runs a stage's residual
+stack, one-shot (:func:`_apply`), streaming (``streaming``) and sequence-
+or pipeline-parallel (``parallel.sp``, ``parallel.pp``):
+
+* the direct path, the reference's
   ``generator_apply``: every conv through ``ops.conv`` (cuDNN on a card),
   every activation elementwise torch (an anti-aliased one on a card in
   one kernel launch, :func:`antialiased`), in the input's dtype
@@ -30,11 +36,15 @@ into the other).
   reach every leaf; a folded tree's resblock snakes read host-prepared
   parameters (:func:`prepare_direct_params`, ``ops.snake.prepare_act``),
   which makes the causal float32 direct path bitwise the kernel path's
-  plain version.
-* :func:`generator_apply_kernel` runs the residual stacks through the CUDA
-  kernels of ``ops.amp_resblock`` (its counterpart is
-  ``generator_apply_pallas``): the causal log-scale SnakeBeta family with
-  three dilations a block (``ops.amp_resblock.supported``) only.
+  plain version;
+* the kernel path runs the residual stacks through the CUDA kernels of
+  ``ops.amp_resblock``: the causal log-scale SnakeBeta family with three
+  dilations a block, at the shapes the kernels were built for
+  (``ops.amp_resblock.supported``) only.
+
+:func:`generator_apply` (the direct path, the reference's name) and
+:func:`generator_apply_kernel` (the kernel path, the counterpart of
+``generator_apply_pallas``) build a :class:`Vocoder` and run it.
 
 ``precision`` sets conv_pre, the upsamplers and conv_post (``ops.conv``);
 ``compute_dtype`` sets the residual stacks' convs (float32, or bf16
@@ -42,6 +52,8 @@ operands with float32 sums).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -54,6 +66,7 @@ from bvsc_tpu_torch.ops.amp_resblock import (
     amp_stack,
     average,
     conv_precision,
+    missing_shapes,
     prepare_resblock,
     stream_times,
     supported,
@@ -69,6 +82,44 @@ Params = dict
 
 KERNEL_CONFIGS = ("the kernel path (use_pallas) requires a causal, non-antialiased "
                   "snakebeta(logscale) vocoder config with three dilations a resblock")
+
+
+def _require_kernels(cfg: VocoderConfig) -> None:
+    """ValueError unless the kernels cover ``cfg`` (``ops.amp_resblock.
+    supported``): :data:`KERNEL_CONFIGS`, naming the stages' (C, k, d) the
+    kernels were not built for."""
+    if supported(cfg):
+        return
+    missing = missing_shapes(cfg)
+    raise ValueError(KERNEL_CONFIGS + (f", at (C, k, d) in ops.amp_resblock.F32_SHAPES, which "
+                                       f"lacks this config's {missing}" if missing else ""))
+
+
+def resolve_vocoder_path(vcfg: VocoderConfig, fast: bool, use_pallas, approx_snake,
+                         voc_dtype) -> tuple[bool, bool, str]:
+    """(use_pallas, approx_snake, voc_dtype) as they run, from the codec's
+    constructor arguments (``BVRNNCodecModel``; ``parallel.sp`` and
+    ``parallel.pp`` pass theirs with ``fast=False`` and no ``voc_dtype``);
+    ``fast`` is ``precision='default'``.  ``use_pallas=None`` is the kernel
+    path where the kernels cover ``vcfg`` and neither ``approx_snake=True``
+    nor a ``voc_dtype`` was asked for.  Raises the reference's ValueErrors,
+    and :data:`KERNEL_CONFIGS` for ``use_pallas=True`` outside the kernels'
+    configs."""
+    if voc_dtype not in (None, "f32", "bf16"):
+        raise ValueError(f"voc_dtype must be 'f32' or 'bf16', got {voc_dtype!r}")
+    if use_pallas is None:
+        use_pallas = supported(vcfg) and not approx_snake and voc_dtype is None
+    if not use_pallas:
+        return (False, fast if approx_snake is None else bool(approx_snake),
+                voc_dtype or ("bf16" if fast else "f32"))
+    if approx_snake:
+        raise ValueError("approx_snake=True is not supported with use_pallas (the kernels "
+                         "compute exact snake); drop one")
+    if voc_dtype is not None:
+        raise ValueError("voc_dtype is not supported with use_pallas (the kernel path's "
+                         "compute dtype follows `precision`); drop one")
+    _require_kernels(vcfg)
+    return True, False, "f32"
 
 
 def _check_activation(cfg: VocoderConfig) -> None:
@@ -199,9 +250,8 @@ def prepare_direct_params(params: Params, cfg: VocoderConfig,
 def prepare_kernel_params(params: Params, cfg: VocoderConfig) -> list[list[ResblockParams]]:
     """Per stage, the packed params of its resblocks (stage-major, as
     ``params['resblocks']``) for the kernels; raises ValueError outside
-    the family they cover (:data:`KERNEL_CONFIGS`)."""
-    if not supported(cfg):
-        raise ValueError(KERNEL_CONFIGS)
+    the configs they cover (:data:`KERNEL_CONFIGS`)."""
+    _require_kernels(cfg)
     num_k = len(cfg.resblock_kernel_sizes)
     return [
         [
@@ -270,9 +320,81 @@ def amp_block(x: torch.Tensor, block: dict, cfg: VocoderConfig, kernel_size: int
     return x[..., ctx:]
 
 
-def _apply(params, cfg, x, length, stage_fn, precision, approx=False):
-    """The generator around its stages (``stage_fn(i, x)``), on either path:
-    the spans ``vocoder`` and ``vocoder.stage``."""
+@dataclasses.dataclass(frozen=True)
+class Vocoder:
+    """A generator's params prepared for one path (:func:`prepare_vocoder`)
+    and the one function that runs a stage's residual stack on it.
+
+    ``blocks``: each stage's packed ``ResblockParams`` on the kernel path
+    (``params`` then needs only conv_pre, the upsamplers, act_post and
+    conv_post), None on the direct path.  ``compute_dtype`` sets the
+    stacks' convs; ``approx`` (the polynomial sin^2) and ``remat`` (each
+    AMP block recomputed in the backward pass) are the direct path's."""
+
+    params: Params
+    cfg: VocoderConfig
+    blocks: list[list[ResblockParams]] | None = None
+    compute_dtype: torch.dtype = torch.float32
+    approx: bool = False
+    remat: bool = False
+
+    @property
+    def direct(self) -> bool:
+        return self.blocks is None
+
+    def stage(self, i: int, x: torch.Tensor, ctx: int = 0,
+              start: torch.Tensor | None = None) -> torch.Tensor:
+        """Stage ``i``'s residual stack, (B, C, ctx + T) -> (B, C, T): the
+        kernels' ``amp_stack``, or the average of the stage's
+        :func:`amp_block`s; ``ctx`` / ``start`` are a streaming stage's
+        context and per-row stream start (``ops.amp_resblock``).  Both
+        names are looked up in this module when called, so a caller (the
+        benchmark) can wrap them here."""
+        if not self.direct:
+            return amp_stack(x, self.blocks[i], self.compute_dtype, ctx=ctx, start=start)
+        cfg = self.cfg
+        num_k = len(cfg.resblock_kernel_sizes)
+        kw = dict(symmetric=cfg.layers_sym[i], antialias=cfg.layers_antialias[i],
+                  precision=conv_precision(self.compute_dtype), approx=self.approx, ctx=ctx,
+                  start=start)
+        outs = []
+        for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                            cfg.resblock_dilation_sizes)):
+            p = self.params["resblocks"][i * num_k + j]
+            if self.remat:
+                outs.append(checkpoint(amp_block, x, p, cfg, ksz, dils, use_reentrant=False,
+                                       **kw))
+            else:
+                outs.append(amp_block(x, p, cfg, ksz, dils, **kw))
+        return average(outs)
+
+
+def prepare_vocoder(params: Params, cfg: VocoderConfig, use_pallas: bool,
+                    compute_dtype: torch.dtype = torch.float32, approx_snake: bool = False, *,
+                    dtype: torch.dtype | None = None, remat: bool = False,
+                    blocks: list[list[ResblockParams]] | None = None) -> Vocoder:
+    """A :class:`Vocoder` of folded (or, on the direct path, the trainers'
+    weight-normed) ``params`` on the path ``use_pallas`` picks
+    (:func:`resolve_vocoder_path`): the kernel path packs the stacks
+    (:func:`prepare_kernel_params`, unless ``blocks`` holds them already);
+    the direct path prepares a folded tree (:func:`prepare_direct_params`,
+    in ``dtype``) and runs a weight-normed one as it is, in float32 only."""
+    _check_activation(cfg)
+    if use_pallas:
+        if blocks is None:
+            blocks = prepare_kernel_params(params, cfg)
+        return Vocoder(params, cfg, blocks, compute_dtype)
+    if not is_weight_normed(params):
+        params = prepare_direct_params(params, cfg, dtype)
+    elif compute_dtype != torch.float32:
+        raise ValueError("weight-normed (training) params run in float32 only")
+    return Vocoder(params, cfg, None, compute_dtype, approx_snake, remat)
+
+
+def _apply(voc: Vocoder, x: torch.Tensor, length: int | None, precision: str) -> torch.Tensor:
+    """The generator around its stages (:meth:`Vocoder.stage`), on either
+    path: the spans ``vocoder`` and ``vocoder.stage``."""
+    params, cfg = voc.params, voc.cfg
     with tracing.span("vocoder"):
         x = pad1d(x, 3, 3) if cfg.pre_sym else pad1d(x, 6)
         x = conv1d(x, params["conv_pre"], precision=precision)
@@ -285,8 +407,8 @@ def _apply(params, cfg, x, length, stage_fn, precision, approx=False):
             if p:
                 x = x[..., p:-p]
             with tracing.span("vocoder.stage"):
-                x = stage_fn(i, x)
-        x = activation(x, params["act_post"], cfg, approx, cfg.antialias_post)
+                x = voc.stage(i, x)
+        x = activation(x, params["act_post"], cfg, voc.approx, cfg.antialias_post)
         x = pad1d(x, 3, 3) if cfg.post_sym else pad1d(x, 6)
         x = torch.tanh(conv1d(x, params["conv_post"], precision=precision))
         return x if length is None else x[..., :length]
@@ -307,30 +429,8 @@ def generator_apply(params: Params, cfg: VocoderConfig, x: torch.Tensor,
     recomputes each AMP block in the backward pass
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``):
     the same values and gradients, less memory held between the passes."""
-    _check_activation(cfg)
-    num_k = len(cfg.resblock_kernel_sizes)
-    if is_weight_normed(params):
-        if compute_dtype != torch.float32:
-            raise ValueError("weight-normed (training) params run in float32 only")
-    else:
-        params = prepare_direct_params(params, cfg)
-    prec = conv_precision(compute_dtype)
-
-    def stage(i, x):
-        outs = []
-        for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
-                                            cfg.resblock_dilation_sizes)):
-            p = params["resblocks"][i * num_k + j]
-            kw = dict(symmetric=cfg.layers_sym[i], antialias=cfg.layers_antialias[i],
-                      precision=prec, approx=approx_snake)
-            if remat:
-                outs.append(checkpoint(amp_block, x, p, cfg, ksz, dils, use_reentrant=False,
-                                       **kw))
-            else:
-                outs.append(amp_block(x, p, cfg, ksz, dils, **kw))
-        return average(outs)
-
-    return _apply(params, cfg, x, length, stage, precision, approx_snake)
+    voc = prepare_vocoder(params, cfg, False, compute_dtype, approx_snake, remat=remat)
+    return _apply(voc, x, length, precision)
 
 
 def generator_apply_kernel(params: Params, kernel_blocks: list[list[ResblockParams]],
@@ -341,5 +441,4 @@ def generator_apply_kernel(params: Params, kernel_blocks: list[list[ResblockPara
     ``ops.amp_resblock.amp_stack`` (the CUDA kernel of ``compute_dtype``'s
     mode on a CUDA tensor); ``kernel_blocks`` from
     :func:`prepare_kernel_params`."""
-    return _apply(params, cfg, x, length,
-                  lambda i, x: amp_stack(x, kernel_blocks[i], compute_dtype), precision)
+    return _apply(Vocoder(params, cfg, kernel_blocks, compute_dtype), x, length, precision)

@@ -34,11 +34,11 @@ are float32 in every form (bf16 ones widen exactly).
   program calls the op, so both reach the same launch: for a CUDA tensor
   :func:`launch` (one launch per block, the stage average in torch), which
   launches the mode's kernel or raises; only a CPU tensor takes the plain
-  version, from the same packed weights.  ``amp_resblock.launches`` and
-  ``amp_resblock.launches_bf16`` count the launches of each mode with
-  float32 activations, ``amp_resblock.launches_io_bf16`` and
-  ``amp_resblock.launches_bf16_io_bf16`` those with bf16 activations
-  (:data:`COUNTERS`), in Python, on either route.
+  version, from the same packed weights.  The ``utils.tracing`` counters
+  ``amp_resblock.launches`` and ``amp_resblock.launches_bf16`` count the
+  launches of each mode with float32 activations,
+  ``amp_resblock.launches_io_bf16`` and ``amp_resblock.launches_bf16_io_bf16``
+  those with bf16 activations, in Python, on either route.
 * :func:`amp_block_plain` is the plain version, the reference
   ``_amp_block`` written with the port's ``conv1d`` and SnakeBeta from the
   parameters :func:`snake_params` prepares.
@@ -72,6 +72,7 @@ from bvsc_tpu_torch.ops import _build
 from bvsc_tpu_torch.ops.conv import conv1d, pad1d
 from bvsc_tpu_torch.ops.precision import round_bf16
 from bvsc_tpu_torch.ops.snake import EPS
+from bvsc_tpu_torch.utils import tracing
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 N_UNITS = 3
@@ -420,17 +421,17 @@ def amp_stack_tiled(x: torch.Tensor, stage: list[ResblockParams],
 # ---------------------------------------------------------------------------
 
 
-# The C entry point and the launch counter (an attribute of amp_resblock)
-# of each (mode, activation type).
-_ENTRIES = {(torch.float32, torch.float32): ("amp_resblock", "amp_resblock_f32", "launches"),
+# The C entry point and the launch counter (``utils.tracing``) of each
+# (mode, activation type).
+_ENTRIES = {(torch.float32, torch.float32): ("amp_resblock", "amp_resblock_f32",
+                                             "amp_resblock.launches"),
             (torch.bfloat16, torch.float32): ("amp_resblock_bf16", "amp_resblock_bf16",
-                                              "launches_bf16"),
-            (torch.float32, torch.bfloat16): ("amp_resblock_io_bf16",
-                                              "amp_resblock_f32_io_bf16", "launches_io_bf16"),
+                                              "amp_resblock.launches_bf16"),
+            (torch.float32, torch.bfloat16): ("amp_resblock_io_bf16", "amp_resblock_f32_io_bf16",
+                                              "amp_resblock.launches_io_bf16"),
             (torch.bfloat16, torch.bfloat16): ("amp_resblock_bf16_io_bf16",
                                                "amp_resblock_bf16_io_bf16",
-                                               "launches_bf16_io_bf16")}
-COUNTERS = tuple(entry[2] for entry in _ENTRIES.values())
+                                               "amp_resblock.launches_bf16_io_bf16")}
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -578,8 +579,7 @@ def launch(x: torch.Tensor, w1, b1, w2, b2, alpha, inv_beta, start, kernel_size:
     if err != 0:
         raise RuntimeError(f"amp_resblock ({compute_dtype}, {x.dtype} activations) kernel launch "
                            f"failed: CUDA error {err}")
-    counter = _ENTRIES[(compute_dtype, x.dtype)][2]
-    setattr(amp_resblock, counter, getattr(amp_resblock, counter) + 1)
+    tracing.count(_ENTRIES[(compute_dtype, x.dtype)][2])
     return y
 
 
@@ -648,23 +648,6 @@ def amp_resblock(x: torch.Tensor, rb: ResblockParams,
     return (launch if x.device.type == "cuda" else _plain_op)(*args, compute_dtype)
 
 
-amp_resblock.launches = 0  # float32 kernel, float32 activations
-amp_resblock.launches_bf16 = 0  # bf16 kernel, float32 activations
-amp_resblock.launches_io_bf16 = 0  # float32 kernel, bf16 activations
-amp_resblock.launches_bf16_io_bf16 = 0  # bf16 kernel, bf16 activations
-
-
-def reset_launches() -> None:
-    """Every launch counter of :data:`COUNTERS` to 0."""
-    for name in COUNTERS:
-        setattr(amp_resblock, name, 0)
-
-
-def read_launches() -> dict:
-    """The launch counters of :data:`COUNTERS`, by name."""
-    return {name: getattr(amp_resblock, name) for name in COUNTERS}
-
-
 def amp_stack(x: torch.Tensor, stage: list[ResblockParams],
               compute_dtype: torch.dtype = torch.float32, ctx: int = 0,
               start: torch.Tensor | None = None) -> torch.Tensor:
@@ -685,7 +668,19 @@ def causal_family(cfg) -> bool:
     )
 
 
+def missing_shapes(cfg) -> list[tuple[int, int, int]]:
+    """The (C, k, d) of the config's stages that the kernels were not built
+    for (:data:`F32_SHAPES`, which is :data:`BF16_SHAPES`), in stage order."""
+    shapes = [(cfg.upsample_initial_channel // 2 ** (i + 1), k, d)
+              for i in range(len(cfg.upsample_rates))
+              for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+              for d in dils]
+    return [s for s in dict.fromkeys(shapes) if s not in F32_SHAPES]
+
+
 def supported(cfg) -> bool:
     """The kernel covers the shipped config family with 3 dilations per
-    block (counterpart of ``pallas_stack_supported``)."""
-    return causal_family(cfg) and all(len(d) == N_UNITS for d in cfg.resblock_dilation_sizes)
+    block, at shapes it was built for (counterpart of
+    ``pallas_stack_supported``)."""
+    return (causal_family(cfg) and all(len(d) == N_UNITS for d in cfg.resblock_dilation_sizes)
+            and not missing_shapes(cfg))

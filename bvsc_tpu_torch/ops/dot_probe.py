@@ -11,8 +11,9 @@ Replace the Pallas TPU kernels of ``benchmarks/probe_roofline.py``:
 
 For CUDA tensors each wrapper launches ``csrc/dot_probe.cu`` (``wgmma`` for
 the chain, ``mma.sync`` for the gridded product, no library GEMM) or raises;
-only CPU tensors take the plain version.  Each wrapper's ``launches`` counts
-its launches.  The chain kernel gives each warpgroup a 64-row output tile
+only CPU tensors take the plain version.  The ``utils.tracing`` counters
+``dot_chain.launches`` and ``gridded_dot.launches`` count each wrapper's
+launches.  The chain kernel gives each warpgroup a 64-row output tile
 and keeps several of its products in flight; the gridded kernel is a
 persistent grid that streams x through a ring of shared-memory stages.  Each
 build reports its launch (:func:`dot_chain_plan`, :func:`gridded_plan`;
@@ -29,6 +30,7 @@ import functools
 import torch
 
 from bvsc_tpu_torch.ops import _build
+from bvsc_tpu_torch.utils import tracing
 
 K = 128  # contraction depth of both probes
 REPS = 64  # products in the probe's chain
@@ -250,7 +252,7 @@ def dot_chain(w: torch.Tensor, x: torch.Tensor, reps: int = REPS) -> torch.Tenso
     if reps < 1:
         raise ValueError(f"reps must be >= 1, got {reps}")
     out = launch(_lib().dot_chain_bf16, w, x, reps)
-    dot_chain.launches += 1
+    tracing.count("dot_chain.launches")
     return out
 
 
@@ -260,9 +262,5 @@ def gridded_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return gridded_dot_plain(w, x)
     _check(w, x)
     out = launch(_lib().gridded_dot_bf16, w, x)
-    gridded_dot.launches += 1
+    tracing.count("gridded_dot.launches")
     return out
-
-
-dot_chain.launches = 0
-gridded_dot.launches = 0

@@ -10,8 +10,8 @@ then the GRU update in float32 (gates packed [r | z | n]).
 
 * :func:`persistent_gru` is the kernel's wrapper.  For CUDA tensors it
   launches ``csrc/persistent_gru.cu`` (one cooperative launch) or raises;
-  only CPU tensors take the plain version.  ``persistent_gru.launches``
-  counts the launches.
+  only CPU tensors take the plain version.  The ``utils.tracing`` counter
+  ``persistent_gru.launches`` counts the launches.
 * :func:`persistent_gru_plain` is the TPU kernel's arithmetic step by step.
 * :func:`persistent_gru_tiled` walks the kernel's schedule (:func:`plan`):
   the units split over blocks, each block's row tiles ``[r | z]`` and
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from bvsc_tpu_torch.ops import _build
+from bvsc_tpu_torch.utils import tracing
 
 LANES = 8  # rows of h the kernel runs (the probe's LANES): the mma's N
 MAX_UNITS = 8  # hidden units per block: [r | z] is one m16 tile
@@ -306,8 +307,5 @@ def persistent_gru(wi, wh, bi, bh, xc, h0, steps: int, dequant: bool = False) ->
     check_shape(H, kp.units)
     scratch = torch.empty(kp.scratch, dtype=torch.uint8, device=h0.device)
     out = launch(_lib(), wi, wh, bi, bh, xc, h0, steps, dequant, scratch)
-    persistent_gru.launches += 1
+    tracing.count("persistent_gru.launches")
     return out
-
-
-persistent_gru.launches = 0

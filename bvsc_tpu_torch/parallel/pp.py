@@ -3,7 +3,8 @@ style (port of ``bvsc_tpu/parallel/pp.py``).
 
   stage 0  mel -> the BVRNN's ``encode_decode`` scan -> (codes, decoded mel)
   stage 1  decoded mel -> the causal generator (K1 / K1-bf16 on a card, or
-           the direct path with ``use_pallas=False`` or ``approx_snake``)
+           the direct path, as ``models.vocoder.resolve_vocoder_path``
+           picks)
 
 With microbatches flowing through, stage 0's scan of microbatch t runs
 beside stage 1's vocoder pass of microbatch t - 1.  The schedule is the
@@ -25,11 +26,9 @@ import torch
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.convert import to_torch
 from bvsc_tpu_torch.models import bvrnn as B
-from bvsc_tpu_torch.models.vocoder import (generator_apply, generator_apply_kernel,
-                                           prepare_direct_params, prepare_kernel_params)
+from bvsc_tpu_torch.models.vocoder import _apply, prepare_vocoder, resolve_vocoder_path
 from bvsc_tpu_torch.parallel.collectives import all_gather, broadcast
 from bvsc_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_2d_mesh, make_mesh, row_blocks
-from bvsc_tpu_torch.parallel.sp import direct_path
 
 PIPE_AXIS = "pipe"
 N_STAGES = 2
@@ -64,12 +63,14 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
     every rank: each microbatch's ``encode_decode`` from a zero state and
     ``generator_apply_kernel`` of its decoded mel.  Vocoder params are
     folded inference convs; ``precision`` / ``compute_dtype`` as there.
-    ``use_pallas=False`` or ``approx_snake`` run stage 1 on the direct path
+    ``use_pallas`` and ``approx_snake`` pick stage 1's path as the codec's
+    do (``models.vocoder.resolve_vocoder_path``): the direct path
     (``models.vocoder.generator_apply``, ``approx_snake`` the polynomial
-    sin^2; ``parallel.sp.direct_path``).  ``bcfg.dtype`` is the storage
+    sin^2) where the kernels do not run.  ``bcfg.dtype`` is the storage
     type of both models: under bf16 both run in bf16 (the codes come back
     bf16, the waveform float32)."""
-    direct = direct_path(use_pallas, approx_snake)
+    use_pallas, approx_snake, _ = resolve_vocoder_path(vcfg, False, use_pallas, approx_snake,
+                                                       None)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
     if ax.size != N_STAGES:
         raise ValueError(f"pipeline mesh axis '{axis_name}' must have size {N_STAGES}, "
@@ -92,11 +93,8 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
     if stage == 0:
         bparams = B.prepare(to_torch(bvrnn_params, dev), bcfg)
     else:
-        vparams = to_torch(voc_params, dev, dtype=bcfg.dtype)
-        if direct:
-            vparams = prepare_direct_params(vparams, vcfg)
-        else:
-            blocks = prepare_kernel_params(vparams, vcfg)
+        voc = prepare_vocoder(to_torch(voc_params, dev, dtype=bcfg.dtype), vcfg, use_pallas,
+                              compute_dtype, approx_snake)
     payload = torch.zeros(m_loc, frames, x_dim, device=dev, dtype=bcfg.dtype)
     codes = torch.zeros(n_micro, m_loc, frames, bcfg.z_dim, device=dev, dtype=bcfg.dtype)
     wav = torch.zeros(n_micro, m_loc, 1, frames * up, device=dev)
@@ -107,13 +105,6 @@ def pipeline_resynth(bvrnn_params, bcfg: B.BVRNNConfig, voc_params, vcfg: Vocode
                 bparams, bcfg, mel_mb[t], bits_mb[t] if bcfg.var_bit else None,
                 torch.zeros(m_loc, bcfg.h_dim, device=dev, dtype=bcfg.dtype))
         elif stage == 1 and t >= 1:
-            mel = recv.transpose(1, 2).contiguous()
-            if direct:
-                wav[t - 1] = generator_apply(vparams, vcfg, mel, frames * up, precision,
-                                             compute_dtype, approx_snake=approx_snake)
-            else:
-                wav[t - 1] = generator_apply_kernel(vparams, blocks, vcfg, mel, frames * up,
-                                                    precision=precision,
-                                                    compute_dtype=compute_dtype)
+            wav[t - 1] = _apply(voc, recv.transpose(1, 2).contiguous(), frames * up, precision)
     codes, wav = broadcast(codes, ax, 0), broadcast(wav, ax, 1)
     return all_gather(codes, dax, 1), all_gather(wav, dax, 1)

@@ -11,11 +11,11 @@ left instead of from the previous packet (``parallel.collectives``):
 * each transposed conv sends the ``k - stride`` samples it has not
   finished to the right neighbour, which adds them into its first samples;
   the bias goes in after that add (``streaming._stream_conv_transpose``);
-* each stage's residual stack runs through K1 (``ops.amp_resblock.amp_stack``,
-  or K1-bf16), or on the direct path (``use_pallas=False``, or
-  ``approx_snake=True``) through the plain blocks
-  (``models.vocoder.amp_block``), once, as a streaming stage does: the
-  stage input's last
+* each stage's residual stack runs once, through the vocoder's one stage
+  function (``models.vocoder.Vocoder.stage``: K1 or K1-bf16 on the kernel
+  path, the plain blocks on the direct path, as
+  ``models.vocoder.resolve_vocoder_path`` picks), as a streaming stage
+  does: the stage input's last
   ``streaming.stage_context(cfg)`` samples before this shard (120 at
   k = 11) come from the shards to the left, as ``ctx``, and ``start`` is
   this shard's true stream time.  Shard 0's start of 0 lets K1 zero the
@@ -39,9 +39,7 @@ import torch
 
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.convert import to_torch
-from bvsc_tpu_torch.models.vocoder import (activation, amp_block, prepare_direct_params,
-                                           prepare_kernel_params)
-from bvsc_tpu_torch.ops.amp_resblock import amp_stack, average, conv_precision
+from bvsc_tpu_torch.models.vocoder import activation, prepare_vocoder, resolve_vocoder_path
 from bvsc_tpu_torch.ops.conv import conv1d, conv_transpose1d, conv_weight
 from bvsc_tpu_torch.ops.snake import leaky_relu
 from bvsc_tpu_torch.parallel.collectives import all_gather, from_left, left_context
@@ -101,16 +99,6 @@ def _sp_conv_transpose(x, p, stride, ax, precision):
     return out + p["b"][None, :, None]
 
 
-def direct_path(use_pallas: bool | None, approx_snake: bool) -> bool:
-    """Whether a parallel vocoder runs the direct path: ``use_pallas=False``,
-    or None with ``approx_snake`` (the kernels compute exact snake, so
-    ``use_pallas=True`` with it raises, as the codec does)."""
-    if use_pallas and approx_snake:
-        raise ValueError("approx_snake=True is not supported with use_pallas (the kernels "
-                         "compute exact snake); drop one")
-    return bool(approx_snake) if use_pallas is None else not use_pallas
-
-
 @torch.no_grad()
 def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
                        axis_name: str = SEQ_AXIS, precision: str = "highest",
@@ -124,9 +112,10 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
     inference convs (numpy or tensors); ``precision`` sets conv_pre, the
     upsamplers and conv_post, ``compute_dtype`` the residual stacks' convs,
     as in ``models.vocoder.generator_apply_kernel``; ``kernel_blocks`` from
-    ``prepare_kernel_params`` (prepared here when None).  The residual
-    stacks run K1 unless ``use_pallas=False`` or ``approx_snake``
-    (:func:`direct_path`), which run the direct path's blocks,
+    ``prepare_kernel_params`` (prepared here when None).  ``use_pallas`` and
+    ``approx_snake`` pick the path as the codec's do
+    (``models.vocoder.resolve_vocoder_path``): K1 where it covers ``cfg``
+    and ``approx_snake`` is off, else the direct path's blocks,
     ``approx_snake`` the polynomial sin^2.  ``dtype`` is the storage type:
     under bf16 the params and the mel are cast to bf16 and the whole
     generator runs in bf16 (the kernels with bf16 activations), as one
@@ -135,7 +124,7 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
         raise ValueError("sequence parallelism requires a fully causal config")
     if any(cfg.layers_antialias) or cfg.antialias_post:
         raise ValueError("sequence parallelism is incompatible with anti-aliased activations")
-    direct = direct_path(use_pallas, approx_snake)
+    use_pallas, approx_snake, _ = resolve_vocoder_path(cfg, False, use_pallas, approx_snake, None)
     ax, dax = mesh.axis(axis_name), mesh.axis(DATA_AXIS)
     mel = torch.as_tensor(mel).to(mesh.device, torch.float32).to(dtype)
     T = mel.shape[-1]
@@ -143,25 +132,9 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
         raise ValueError(f"frames {T} not divisible by seq shards {ax.size}")
     Tl = T // ax.size
     _check_halos(cfg, Tl)
-    params = to_torch(params, mesh.device, dtype=dtype)
-    num_k = len(cfg.resblock_kernel_sizes)
-    if direct:
-        params = prepare_direct_params(params, cfg)
-        block_prec = conv_precision(compute_dtype)
-
-        def stack(i, window, ctx, start):
-            return average([
-                amp_block(window, params["resblocks"][i * num_k + j], cfg, ksz, dils,
-                          precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
-                for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
-                                                    cfg.resblock_dilation_sizes))])
-    else:
-        blocks = kernel_blocks if kernel_blocks is not None else prepare_kernel_params(params,
-                                                                                         cfg)
-
-        def stack(i, window, ctx, start):
-            return amp_stack(window, blocks[i], compute_dtype, ctx=ctx, start=start)
-
+    voc = prepare_vocoder(to_torch(params, mesh.device, dtype=dtype), cfg, use_pallas,
+                          compute_dtype, approx_snake, blocks=kernel_blocks)
+    params = voc.params
     x = mel[row_blocks(mel.shape[0], dax.size)[dax.index], :, ax.index * Tl:(ax.index + 1) * Tl]
     x = _sp_conv(x.contiguous(), params["conv_pre"], ax, precision)
     ctx = stage_context(cfg)
@@ -172,7 +145,7 @@ def generator_apply_sp(params: dict, cfg: VocoderConfig, mel, mesh: Mesh, *,
         start = torch.full((x.shape[0],), ax.index * x.shape[-1], dtype=torch.int32,
                            device=x.device)
         window = torch.cat([left_context(x, ctx, ax), x], -1)
-        x = stack(i, window, ctx, start)
+        x = voc.stage(i, window, ctx=ctx, start=start)
     x = activation(x, params["act_post"], cfg, approx_snake)
     wav = torch.tanh(_sp_conv(x, params["conv_post"], ax, precision))
     return all_gather(all_gather(wav, ax, -1), dax, 0)

@@ -13,12 +13,11 @@ hop = 34.8 ms at 22.05 kHz), so it streams with explicit carried state:
 * streaming vocoder: conv_pre and conv_post carry their left context and
   the four transposed convs their overlap-add tail, as the reference does
   (the bias is added after the overlap, to emitted samples only); each
-  stage's residual stack runs the offline path's blocks over a carried
-  stage context: on the kernel path the kernel
-  (``ops.amp_resblock.amp_stack``: K1, or K1-bf16 in fast mode), on the
-  direct path the plain blocks (``models.vocoder.amp_block``, with
-  ``approx_snake`` and in the codec's ``voc_dtype``), which never reach a
-  kernel.
+  stage's residual stack runs the offline path's one stage function
+  (``models.vocoder.Vocoder.stage``) over a carried stage context: on the
+  kernel path the kernel (K1, or K1-bf16 in fast mode), on the direct path
+  the plain blocks (with ``approx_snake`` and in the codec's
+  ``voc_dtype``), which never reach a kernel.
 
 **The stage context.**  The reference streams its residual stacks as XLA
 convs, one left-context buffer per conv (18 a stage).  K1 takes a stage's
@@ -67,12 +66,16 @@ from bvsc_tpu_torch.codec import SCALING, CodecWeights, _host_array
 from bvsc_tpu_torch.config import VocoderConfig
 from bvsc_tpu_torch.device import resolve_device
 from bvsc_tpu_torch.models import bvrnn as bvrnn_mod
-from bvsc_tpu_torch.models.vocoder import activation, amp_block
-from bvsc_tpu_torch.ops.amp_resblock import (ResblockParams, amp_stack, average,
-                                             conv_precision, halo)
+from bvsc_tpu_torch.models.vocoder import Vocoder, activation
+from bvsc_tpu_torch.ops.amp_resblock import halo
 from bvsc_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from bvsc_tpu_torch.ops.snake import leaky_relu
 from bvsc_tpu_torch.utils import tracing
+
+# Not called here: every stage runs models.vocoder.Vocoder.stage.  The
+# benchmark (portbench/lib/program.py:stage_ranges) wraps these two names on
+# this module as well as on models.vocoder, and raises where one is missing.
+from bvsc_tpu_torch.models.vocoder import amp_block, amp_stack  # noqa: E402,F401
 
 # ---------------------------------------------------------------------------
 # Streaming vocoder: state init + step
@@ -131,15 +134,14 @@ def _stream_conv_transpose(state: torch.Tensor, x: torch.Tensor, p: dict, stride
     return y[..., emit_len: emit_len + overlap], emit
 
 
-def _stream_stage(state: dict, x: torch.Tensor, stack):
-    """One stage's residual stack on new samples x (B, C, T) over its
-    carried context (module docstring): ``stack(window, ctx, start)`` is the
-    stage's blocks, averaged, on (B, C, ctx + T) -> (B, C, T), the span
-    ``vocoder.stage``."""
+def _stream_stage(state: dict, x: torch.Tensor, voc: Vocoder, i: int):
+    """Stage ``i``'s residual stack on new samples x (B, C, T) over its
+    carried context (module docstring): ``voc.stage`` on (B, C, ctx + T)
+    -> (B, C, T), the span ``vocoder.stage``."""
     ctx = state["ctx"].shape[-1]
     window = torch.cat([state["ctx"], x], -1)
     with tracing.span("vocoder.stage"):
-        y = stack(window, ctx, state["fed"])
+        y = voc.stage(i, window, ctx=ctx, start=state["fed"])
     fed = torch.clamp(state["fed"] + x.shape[-1], max=ctx)
     return {"ctx": window[..., -ctx:], "fed": fed}, y
 
@@ -169,34 +171,17 @@ def generator_stream_init(cfg: VocoderConfig, batch: int, device=None,
     return state
 
 
-def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]] | None,
-                          cfg: VocoderConfig, state: dict, mel: torch.Tensor, *,
-                          precision: str = "highest",
-                          compute_dtype: torch.dtype = torch.float32,
-                          approx_snake: bool = False):
+def generator_stream_step(voc: Vocoder, state: dict, mel: torch.Tensor, *,
+                          precision: str = "highest"):
     """Consume (B, num_mels, T) mel frames, emit (B, 1, T * prod(upsample))
-    finalized samples (the one-shot output's next ones).  ``precision``
-    sets conv_pre, the upsamplers and conv_post, ``compute_dtype`` the
-    residual stacks' convs, as in ``models.vocoder.generator_apply_kernel``;
-    ``kernel_blocks`` from ``prepare_kernel_params``, or None for the direct
-    path, whose stages run ``params['resblocks']``
-    (``models.vocoder.prepare_direct_params``) with ``approx_snake``, in the
-    dtype of the params, ``mel`` and ``state``.  Returns (new state,
+    finalized samples (the one-shot output's next ones), on the prepared
+    generator ``voc`` (``models.vocoder.prepare_vocoder``: its path, stack
+    mode and ``approx_snake``), in the dtype of its params, ``mel`` and
+    ``state``.  ``precision`` sets conv_pre, the upsamplers and conv_post,
+    as in ``models.vocoder.generator_apply``.  Returns (new state,
     waveform); the span ``vocoder``."""
+    params, cfg = voc.params, voc.cfg
     with tracing.span("vocoder"):
-        num_k = len(cfg.resblock_kernel_sizes)
-        block_prec = conv_precision(compute_dtype)
-
-        def stack(i):
-            if kernel_blocks is not None:
-                return lambda w, ctx, start: amp_stack(w, kernel_blocks[i], compute_dtype, ctx=ctx,
-                                                       start=start)
-            return lambda w, ctx, start: average([
-                amp_block(w, params["resblocks"][i * num_k + j], cfg, ksz, dils,
-                          precision=block_prec, approx=approx_snake, ctx=ctx, start=start)
-                for j, (ksz, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
-                                                    cfg.resblock_dilation_sizes))])
-
         # the new state's keys in generator_stream_init's order (a traced
         # program's state input and output share one tree layout)
         new: dict = {"conv_pre": None, "ups": [], "stages": [], "conv_post": None}
@@ -207,9 +192,9 @@ def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]
                 x = leaky_relu(x)
             st, x = _stream_conv_transpose(state["ups"][i], x, params["ups"][i], u, precision)
             new["ups"].append(st)
-            st, x = _stream_stage(state["stages"][i], x, stack(i))
+            st, x = _stream_stage(state["stages"][i], x, voc, i)
             new["stages"].append(st)
-        x = activation(x, params["act_post"], cfg, approx_snake)
+        x = activation(x, params["act_post"], cfg, voc.approx)
         new["conv_post"], x = _stream_conv(state["conv_post"], x, params["conv_post"],
                                            precision=precision)
         return new, torch.tanh(x)
@@ -218,10 +203,9 @@ def generator_stream_step(params: dict, kernel_blocks: list[list[ResblockParams]
 def _vocode_step(w: CodecWeights, state: dict, mel: torch.Tensor):
     """Decoded mel (B, T, M) -> (new vocoder state, float32 waveform (B, T *
     hop)), on the codec's weights ``w`` (``codec.CodecWeights``) and path."""
-    state, wav = generator_stream_step(
-        w.vocoder, w.blocks, w.vocoder_cfg, state,
-        mel.transpose(1, 2).contiguous().to(w.voc_dtype), precision=w.precision,
-        compute_dtype=w.voc_compute_dtype, approx_snake=w.approx_snake)
+    state, wav = generator_stream_step(w.vocoder, state,
+                                       mel.transpose(1, 2).contiguous().to(w.voc_dtype),
+                                       precision=w.precision)
     return state, wav[:, 0, :].to(torch.float32) / SCALING
 
 

@@ -17,11 +17,9 @@
   the ranges too, though it records none of them.
 * :func:`count` adds to a monotonic integer counter.
 * :func:`snapshot` is everything at once, for an operator: each span's
-  count and total, and each counter, with the K1 launch counters
-  (``ops.amp_resblock.read_launches``, whose storage stays theirs) as
-  ``amp_resblock.<counter>``.  :func:`reset` zeroes everything, those
-  included; :func:`durations` is one span's ring, for a reader that wants
-  its quantiles.
+  count and total, and each counter.  :func:`reset` zeroes everything;
+  :func:`durations` is one span's ring, for a reader that wants its
+  quantiles.
 
 Recording is always on.  Under ``torch.compile`` or ``torch.export``
 (``torch.compiler.is_compiling()`` / ``is_exporting()``) spans and counters
@@ -53,10 +51,16 @@ frames of each public codec call); ``bvrnn.graph_captures`` (chunk graphs
 captured, ``models.bvrnn._ChunkGraph``) and ``bvrnn.graph_frames`` (rows x
 frames of every chunk replayed, counted outside the graph);
 ``vocoder.aa_elements`` (rows x channels x samples each anti-aliased
-activation filtered) and ``vocoder.aa_kernel`` (launches of
-``ops.resample``'s kernel, counted after each).  How many ticks or calls ran is their span's count.
-Under a CUDA graph the counters count at capture, as K1's launch counters
-do.
+activation filtered).  Every hand-written kernel counts its launches, after
+each, in its wrapper: ``amp_resblock.launches``, ``.launches_bf16``,
+``.launches_io_bf16`` and ``.launches_bf16_io_bf16`` (K1 and K1-bf16 with
+float32 and bf16 activations, ``ops.amp_resblock.launch``),
+``persistent_gru.launches`` (K2), ``dot_chain.launches`` and
+``gridded_dot.launches`` (K3, K4, ``ops.dot_probe``) and
+``vocoder.aa_kernel`` (``ops.resample``'s anti-aliased activation).  A
+counter never counted is absent from :func:`snapshot`.  How many ticks or
+calls ran is their span's count.  Under a CUDA graph the counters count at
+capture.
 
 Threads: there is no lock.  Under the GIL each dictionary and deque
 operation is atomic, so records are never corrupted and a snapshot taken
@@ -154,21 +158,13 @@ def durations(name: str) -> list[float]:
 
 
 def snapshot() -> dict:
-    """{'spans': {name: {count, total_s}}, 'counters': {name: value}}, the
-    K1 launch counters among the counters."""
-    from bvsc_tpu_torch.ops.amp_resblock import read_launches
-
+    """{'spans': {name: {count, total_s}}, 'counters': {name: value}}."""
     spans = {name: {"count": rec.count, "total_s": rec.total_ns / 1e9}
              for name, rec in list(_spans.items())}
-    counters = dict(_counters)
-    counters.update({f"amp_resblock.{k}": v for k, v in read_launches().items()})
-    return {"spans": spans, "counters": counters}
+    return {"spans": spans, "counters": dict(_counters)}
 
 
 def reset() -> None:
-    """Every span and counter to nothing, K1's launch counters to 0."""
-    from bvsc_tpu_torch.ops.amp_resblock import reset_launches
-
+    """Every span and counter to nothing."""
     _spans.clear()
     _counters.clear()
-    reset_launches()

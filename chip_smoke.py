@@ -707,10 +707,24 @@ AA_CODEC_SAMPLES = 22050  # one second through the BigVGAN codec, counting its l
 AA_TOL = 2e-6  # of the output's peak: the kernel's float32 sums against cuDNN's order
 
 
-def aa_launches() -> int:
-    """The anti-aliased kernel's launches so far (``vocoder.aa_kernel``,
-    counted by ``ops.resample.activation1d_kernel`` after each launch)."""
-    return tracing.snapshot()["counters"].get("vocoder.aa_kernel", 0)
+# Each kind of kernel launch by its ``utils.tracing`` counter, which the
+# kernel's wrapper adds to as it launches
+LAUNCH_COUNTERS = {"f32": "amp_resblock.launches", "bf16": "amp_resblock.launches_bf16",
+                   "f32_io_bf16": "amp_resblock.launches_io_bf16",
+                   "bf16_io_bf16": "amp_resblock.launches_bf16_io_bf16",
+                   "persistent_gru": "persistent_gru.launches",
+                   "dot_chain": "dot_chain.launches", "gridded_dot": "gridded_dot.launches",
+                   "aa": "vocoder.aa_kernel"}
+K1_KINDS = ("f32", "bf16", "f32_io_bf16", "bf16_io_bf16")
+
+
+def kernel_launches(*kinds: str) -> dict:
+    """The launches of each kind (:data:`LAUNCH_COUNTERS`; by default K1's
+    two modes with float32 activations) since the last ``tracing.reset()``,
+    counted on the host as each launch is issued, so nothing needs
+    synchronising."""
+    counters = tracing.snapshot()["counters"]
+    return {k: counters.get(LAUNCH_COUNTERS[k], 0) for k in kinds or ("f32", "bf16")}
 
 
 def aa_counts(codec: BVRNNCodecModel, x: torch.Tensor) -> tuple[int, int]:
@@ -718,7 +732,7 @@ def aa_counts(codec: BVRNNCodecModel, x: torch.Tensor) -> tuple[int, int]:
     ``vocoder.aa`` spans and the launches it added."""
     def read():
         return (tracing.snapshot()["spans"].get("vocoder.aa", {}).get("count", 0),
-                aa_launches())
+                kernel_launches("aa")["aa"])
 
     before = read()
     with torch.no_grad():
@@ -751,7 +765,7 @@ def antialias_phase(smi: str, causal: BVRNNCodecModel, wav: np.ndarray) -> dict:
                              "and (0, 0) causal")
     del big, fast
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    launches = aa_launches()
+    launches = kernel_launches("aa")["aa"]
     calls = 0
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0, "max_abs_err": 0.0,
              "max_err": 0.0}
@@ -782,12 +796,12 @@ def antialias_phase(smi: str, causal: BVRNNCodecModel, wav: np.ndarray) -> dict:
             raise AssertionError(f"antialias kernel at C={C}: the bf16 build is not the "
                                  "float32 one rounded")
         calls += 4
-        warm = aa_launches()
+        warm = kernel_launches("aa")["aa"]
         ms = cuda_ms(lambda: RS.activation1d_kernel(x, alpha, inv_beta), reps=20, warmup=3)
         trimmed_ms = cuda_ms(lambda: RS.activation1d_kernel(trimmed, alpha, inv_beta), reps=20,
                              warmup=3)
         bf16_ms = cuda_ms(lambda: RS.activation1d_kernel(xb, alpha, inv_beta), reps=20, warmup=3)
-        calls += aa_launches() - warm
+        calls += kernel_launches("aa")["aa"] - warm
         plain_ms = cuda_ms(lambda: RS.Activation1d(lambda v: snake_linear(v, alpha, inv_beta))(x),
                            reps=3, warmup=1)
         bound_ms = aa_bound_s(x.numel())[0] * 1e3
@@ -805,9 +819,9 @@ def antialias_phase(smi: str, causal: BVRNNCodecModel, wav: np.ndarray) -> dict:
         if max(e[1] for e in errs.values()) > AA_TOL:
             raise AssertionError(f"antialias kernel at C={C}, T={T}: error {errs} > {AA_TOL}")
         del x, xb, trimmed, wide
-    if aa_launches() - launches != calls:
-        raise AssertionError(f"vocoder.aa_kernel counted {aa_launches() - launches} launches "
-                             f"of {calls}")
+    counted = kernel_launches("aa")["aa"] - launches
+    if counted != calls:
+        raise AssertionError(f"vocoder.aa_kernel counted {counted} launches of {calls}")
     emit("antialias_total", t0, **total, roofline_pct=100 * total["bound_ms"] / total["ms"],
          per_call=per_call, launches=calls, nvidia_smi=smi)
     return {"name": "antialias_act", "route": "cuda",
@@ -832,8 +846,8 @@ def recorded_call(codec: BVRNNCodecModel, x: torch.Tensor):
     keep each stage's input and kernel output, in stage order."""
     stages = []
 
-    def stage(xs, blocks, compute_dtype=torch.float32):
-        ys = AR.amp_stack(xs, blocks, compute_dtype)
+    def stage(xs, blocks, compute_dtype=torch.float32, **kw):
+        ys = AR.amp_stack(xs, blocks, compute_dtype, **kw)
         stages.append((xs, ys))
         return ys
 
@@ -854,14 +868,14 @@ def main_path_phase(codec: BVRNNCodecModel, wav: np.ndarray) -> tuple[int, list,
     t0 = time.time()
     B, L = wav.shape
     x = torch.from_numpy(wav).to(DEV)
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     (y, stages), first_ms = timed(lambda: recorded_call(codec, x))
-    launches = AR.amp_resblock.launches
+    k1 = kernel_launches()
+    launches = k1["f32"]
     n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
-    if launches < n_blocks or AR.amp_resblock.launches_bf16:
-        raise AssertionError(f"amp_resblock launched {launches} times (bf16: "
-                             f"{AR.amp_resblock.launches_bf16}) in the main path, "
-                             f"expected at least {n_blocks} (bf16: 0)")
+    if launches < n_blocks or k1["bf16"]:
+        raise AssertionError(f"amp_resblock launched {launches} times (bf16: {k1['bf16']}) in "
+                             f"the main path, expected at least {n_blocks} (bf16: 0)")
     if tuple(y.shape) != (B, L) or not torch.isfinite(y).all():
         raise AssertionError(f"output shape {tuple(y.shape)}, finite {torch.isfinite(y).all()}")
     if len(stages) != len(codec.kernel_blocks):
@@ -957,10 +971,10 @@ def upstream_synthesize(tmp: str, speech: np.ndarray, checkpoint: str, out: str)
 
     SY._write = keep
     try:
-        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        tracing.reset()
         SY.main(["--input_wavs_dir", src, "--output_dir", os.path.join(tmp, out),
                  "--checkpoint_file", checkpoint, "--config", DEFAULT_CONFIG])
-        launched = k1_launches()
+        launched = kernel_launches()
     finally:
         SY._write = write
     return written[0], launched
@@ -1000,9 +1014,9 @@ def upstream_ckpt_phase(codec: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.n
             build_s = time.time() - t1
             ref_codes, ref_wav = refs[precision]
             with torch.no_grad():
-                AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+                tracing.reset()
                 y = c(x, BITRATE)
-                launched = k1_launches()
+                launched = kernel_launches()
                 codes = c.encode(x, BITRATE)
             kernel = "bf16" if precision == "default" else "f32"
             want = {"f32": 0, "bf16": 0, kernel: 12}
@@ -1116,9 +1130,9 @@ def fast_path_phase(parity: BVRNNCodecModel, wav: np.ndarray, parity_times: dict
     if not bvrnn_mod._use_fused(auto.bvrnn_cfg, B):
         raise AssertionError(f"fused_cell='auto' did not pick the fused cell at B={B}")
 
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     (y, stages), first_ms = timed(lambda: recorded_call(auto, x))
-    launches = {"bf16": AR.amp_resblock.launches_bf16, "f32": AR.amp_resblock.launches}
+    launches = kernel_launches()
     n_blocks = sum(len(blocks) for blocks in auto.kernel_blocks)
     if launches != {"bf16": n_blocks, "f32": 0}:
         raise AssertionError(f"fast call launches {launches}, expected bf16 {n_blocks}, f32 0")
@@ -1272,10 +1286,10 @@ def plc_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.ndarray, s
         if not torch.equal(zero, clean):
             raise AssertionError(f"{name}: decode with no loss differs from decode by "
                                  f"{max_err(zero, clean)}")
-        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        tracing.reset()
         y = codec.decode(codes, L, lost=lost, conceal_bitrate=cbps)
         torch.cuda.synchronize()
-        launches = {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+        launches = kernel_launches()
         want = {"f32": 0, "bf16": 0, kernel: n_blocks}
         if launches != want:
             raise AssertionError(f"{name}: decode(lost=) launched {launches}, expected {want}")
@@ -1387,14 +1401,14 @@ def bf16_storage_phase(parity: BVRNNCodecModel, wav: np.ndarray, smi: str) -> di
     codecs = {prec: BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ, vocoder_chkpt_path=VOC_NPZ,
                                     dtype="bfloat16", precision=prec, device=DEV)
               for prec in ("highest", "default")}
-    counter = {"highest": "launches_io_bf16", "default": "launches_bf16_io_bf16"}
+    counter = {"highest": "f32_io_bf16", "default": "bf16_io_bf16"}
     n_blocks = sum(len(blocks) for blocks in parity.kernel_blocks)
     entries, launches, calls = {}, {}, {}
     for prec, codec in codecs.items():
         compute = codec.voc_compute_dtype
-        AR.reset_launches()
+        tracing.reset()
         (y, stages), ms = timed(lambda: recorded_call(codec, x))
-        counts = AR.read_launches()
+        counts = kernel_launches(*K1_KINDS)
         if counts[counter[prec]] != n_blocks or sum(counts.values()) != n_blocks:
             raise AssertionError(f"bf16 storage at {prec!r}: launches {counts}, expected "
                                  f"{n_blocks} {counter[prec]} and no other")
@@ -1430,38 +1444,38 @@ def bf16_storage_phase(parity: BVRNNCodecModel, wav: np.ndarray, smi: str) -> di
 
     # the other entry points of the parity-mode codec, and the direct path
     codec = codecs["highest"]
-    AR.reset_launches()
+    tracing.reset()
     codes = codec.encode(x, BITRATE)
-    if sum(AR.read_launches().values()) or codes.dtype != torch.bfloat16:
-        raise AssertionError(f"encode: {codes.dtype}, launches {AR.read_launches()}")
+    if sum(kernel_launches(*K1_KINDS).values()) or codes.dtype != torch.bfloat16:
+        raise AssertionError(f"encode: {codes.dtype}, launches {kernel_launches(*K1_KINDS)}")
     if not set(torch.unique(codes.float()).tolist()) <= {0.0, 0.5, 1.0}:
         raise AssertionError("bf16 codes outside {0, 0.5, 1}")
     counts = {}
     fpc = S.FusedPacketCodec(codec, 1, BITRATE)
     for name, fn in (("decode", lambda: codec.decode(codes, L)),
                      ("packet_step", lambda: fpc.process(wav[:1, :768]))):  # its first step
-        AR.reset_launches()
+        tracing.reset()
         out = fn()
         torch.cuda.synchronize()
-        counts[name] = AR.read_launches()["launches_io_bf16"]
+        counts[name] = kernel_launches("f32_io_bf16")["f32_io_bf16"]
         if not torch.isfinite(out).all() or counts[name] != n_blocks:
             raise AssertionError(f"{name}: {counts[name]} launches, finite "
                                  f"{torch.isfinite(out).all().item()}")
     eng = ServingEngine(codec, max_streams=BF16_SLOTS)
     for i in range(2):
         eng.push(eng.open_stream(BITRATE), wav[i, : 768 + 256])
-    AR.reset_launches()
+    tracing.reset()
     out = eng.tick()
     torch.cuda.synchronize()
-    counts["engine_tick"] = AR.read_launches()["launches_io_bf16"]
+    counts["engine_tick"] = kernel_launches("f32_io_bf16")["f32_io_bf16"]
     if len(out) != 2 or counts["engine_tick"] != n_blocks:
         raise AssertionError(f"engine tick: {len(out)} streams, {counts['engine_tick']} launches")
     direct = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=NPZ, vocoder_chkpt_path=VOC_NPZ,
                              dtype="bfloat16", use_pallas=False, device=DEV)
-    AR.reset_launches()
+    tracing.reset()
     y_direct = direct(x, BITRATE)
     torch.cuda.synchronize()
-    counts["direct_call"] = sum(AR.read_launches().values())
+    counts["direct_call"] = sum(kernel_launches(*K1_KINDS).values())
     if counts["direct_call"] or not torch.isfinite(y_direct).all():
         raise AssertionError(f"direct path: {counts['direct_call']} launches")
 
@@ -1602,9 +1616,9 @@ def entropy_phase(codec: BVRNNCodecModel, speech: np.ndarray, smi: str) -> None:
                     t = time.perf_counter()
                     got, got_bits, _ = codec_cli.read_bvsc(path, lambda: coder)
                     t_read = time.perf_counter() - t
-                    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+                    tracing.reset()
                     y_read = codec.decode(torch.from_numpy(got)[None].to(DEV), L)
-                    launches = k1_launches()
+                    launches = kernel_launches()
                     files[(name, version)] = open(path, "rb").read()
                     r[version] = {"bytes": os.path.getsize(path),
                                   "codes_bitwise": bool(np.array_equal(got, codes_np)),
@@ -1687,13 +1701,13 @@ def packet_run(codec: BVRNNCodecModel, x: np.ndarray):
         return out
 
     fc._step = recording
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     outs = [fc.process(x[:, i: i + hop]) for i in range(0, L - hop + 1, hop)]
     if L % hop:
         outs.append(fc.process(x[:, L - L % hop:]))
     outs.append(fc.flush())
     torch.cuda.synchronize()
-    launches = {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
+    launches = kernel_launches()
     wav = torch.cat(outs, 1)
     return wav, torch.stack(codes, 1)[:, : wav.shape[1] // hop], len(codes), launches
 
@@ -1742,16 +1756,15 @@ def vocoder_step_ms(codec: BVRNNCodecModel, B: int, plain: bool) -> dict:
     mel = 2 * torch.randn(B, vcfg.num_mels, 1, device=DEV, generator=gen) - 4
     state = S.generator_stream_init(vcfg, B, DEV)
     times = []
-    S.amp_stack = AR.amp_stack_plain if plain else AR.amp_stack
+    voc_mod.amp_stack = AR.amp_stack_plain if plain else AR.amp_stack
     try:
         with torch.no_grad():
             for _ in range(STREAM_WARMUP + STREAM_STEPS):
                 (state, _), t = timed(lambda: S.generator_stream_step(
-                    codec.vocoder_params, codec.kernel_blocks, vcfg, state, mel,
-                    precision=codec.precision, compute_dtype=codec.voc_compute_dtype))
+                    codec.weights.vocoder, state, mel, precision=codec.precision))
                 times.append(t)
     finally:
-        S.amp_stack = AR.amp_stack
+        voc_mod.amp_stack = AR.amp_stack
     return percentiles(times[STREAM_WARMUP:])
 
 
@@ -1762,6 +1775,7 @@ def stage_stream_vs_oneshot(codec: BVRNNCodecModel, compute_dtype: torch.dtype) 
     vcfg = codec.conf.vocoder_config
     ctx = S.stage_context(vcfg)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    voc = voc_mod.Vocoder(codec.vocoder_params, vcfg, codec.kernel_blocks, compute_dtype)
     out, n = [], 1
     for stage, (u, blocks) in enumerate(zip(vcfg.upsample_rates, codec.kernel_blocks)):
         n *= u
@@ -1772,9 +1786,7 @@ def stage_stream_vs_oneshot(codec: BVRNNCodecModel, compute_dtype: torch.dtype) 
                  "fed": torch.zeros(BATCH, dtype=torch.int32, device=DEV)}
         parts = []
         for i in range(STREAM_STAGE_STEPS):
-            state, y = S._stream_stage(
-                state, x[..., i * n: (i + 1) * n].contiguous(),
-                lambda w, c, st: AR.amp_stack(w, blocks, compute_dtype, ctx=c, start=st))
+            state, y = S._stream_stage(state, x[..., i * n: (i + 1) * n].contiguous(), voc, stage)
             parts.append(y)
         got = torch.cat(parts, -1)
         out.append({"stage": stage, "new_per_step": n, "bit_equal": torch.equal(got, one),
@@ -1794,13 +1806,13 @@ def recorded_windows(codec: BVRNNCodecModel, x: np.ndarray, steps: int) -> list:
         calls.append((window, blocks, ctx, start.clone()))
         return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
 
-    S.amp_stack = stage
+    voc_mod.amp_stack = stage
     try:
         fc.process(x[:, :need])  # the first step
         first = list(calls)
         fc.process(x[:, need: need + steps * hop])
     finally:
-        S.amp_stack = AR.amp_stack
+        voc_mod.amp_stack = AR.amp_stack
     return first + calls[-len(first):]
 
 
@@ -1967,11 +1979,6 @@ def count_calls(eng) -> list:
     return times
 
 
-def k1_launches() -> dict:
-    torch.cuda.synchronize()
-    return {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
-
-
 def serve_inputs(speech: np.ndarray) -> list[np.ndarray]:
     """The schedule's streams: seeded noisy copies of the demo, cropped to
     lengths that differ from stream to stream (20 000 + 1 511 i samples)."""
@@ -1995,7 +2002,7 @@ def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray], eng=None) -
     hop = codec.conf.hopsize
     eng = ServingEngine(codec, max_streams=SERVE_SLOTS) if eng is None else eng
     steps = count_calls(eng)
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     live, out, slots, switched, t = {}, {}, {}, False, 0
     while t < SERVE_STAGGER * SERVE_STREAMS or live:
         if t % SERVE_STAGGER == 0 and t // SERVE_STAGGER < SERVE_STREAMS:
@@ -2029,7 +2036,7 @@ def serve_schedule(codec: BVRNNCodecModel, inputs: list[np.ndarray], eng=None) -
                 live["reopen"] = {"sid": slots["reopen"], "x": inputs[SERVE_REOPEN], "pos": 0,
                                   "codes": [], "wav": []}
         t += 1
-    launches = k1_launches()
+    launches = kernel_launches()
     if slots["reopen"] != slots[SERVE_REOPEN] or not switched:
         raise AssertionError(f"the schedule did not run as planned: slots {slots}, "
                              f"switched {switched}")
@@ -2091,13 +2098,13 @@ def decode_engine_run(codec: BVRNNCodecModel, codes: np.ndarray, lost, eng=None)
     launches)."""
     eng = DecodeEngine(codec, max_streams=SERVE_SLOTS) if eng is None else eng
     steps = count_calls(eng)
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     sids = [eng.open_stream(conceal_bitrate=PLC_CONCEAL_BITRATE if b == 0 else None)
             for b in range(codes.shape[0])]
     for b, sid in enumerate(sids):
         eng.push(sid, codes[b], lost=None if lost is None else lost[b])
     res = [eng.tick() for _ in range(codes.shape[1])]
-    launches = k1_launches()
+    launches = kernel_launches()
     if eng.tick():
         raise AssertionError("the decode engine ticked past its streams' frames")
     return np.stack([np.concatenate([r[sid] for r in res]) for sid in sids]), len(steps), launches
@@ -2316,11 +2323,11 @@ def tick_ms(codec: BVRNNCodecModel, kind: str, active: int, profiled: bool) -> t
             windows.append((window, blocks, compute_dtype, ctx, start.clone()))
             return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
 
-        S.amp_stack = stage
+        voc_mod.amp_stack = stage
         try:
             eng.tick()
         finally:
-            S.amp_stack = AR.amp_stack
+            voc_mod.amp_stack = AR.amp_stack
     return row, windows
 
 
@@ -2498,10 +2505,9 @@ def direct_path_phase(parity: BVRNNCodecModel, fast: BVRNNCodecModel, wav: np.nd
 
     def launches_of(fn):
         """(fn's result, the K1 launches of both modes during it)."""
-        k1_launches()
-        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        tracing.reset()
         out = fn()
-        return out, k1_launches()
+        return out, kernel_launches()
 
     zero = {"f32": 0, "bf16": 0}
     runs = {}
@@ -2667,9 +2673,9 @@ def member_bytes(path: str) -> dict:
 def launched(fn, mode: str) -> tuple:
     """``fn()`` with the K1 launch counts set to 0 before and read after:
     (result, launches of ``mode``'s kernel, launches of the other)."""
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     out = fn()
-    n = k1_launches()
+    n = kernel_launches()
     other = "f32" if mode == "bf16" else "bf16"
     return out, n[mode], n[other]
 
@@ -2858,11 +2864,11 @@ def tick_windows(codec: BVRNNCodecModel) -> list:
         windows.append((window, blocks, compute_dtype, ctx, start.clone()))
         return AR.amp_stack(window, blocks, compute_dtype, ctx=ctx, start=start)
 
-    S.amp_stack = stage
+    voc_mod.amp_stack = stage
     try:
         eng.tick()
     finally:
-        S.amp_stack = AR.amp_stack
+        voc_mod.amp_stack = AR.amp_stack
     return windows
 
 
@@ -3136,9 +3142,9 @@ def train_serve_check(conf, trainer, tmp: str, speech: np.ndarray, gates: list):
     codec = BVRNNCodecModel(config=conf, bvrnn_chkpt_path=dst, vocoder_chkpt_path=VOC_NPZ,
                             device=DEV)
     n_blocks = sum(len(blocks) for blocks in codec.kernel_blocks)
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     y = codec(torch.from_numpy(speech[None]).to(DEV), BITRATE)
-    launches = k1_launches()
+    launches = kernel_launches()
     rep = {"npz_bytes": os.path.getsize(dst), "launches": launches,
            "finite": bool(torch.isfinite(y).all()), "samples": y.shape[-1]}
     gates += [(f"trained BVRNN resynthesis launches {launches}",
@@ -3303,12 +3309,6 @@ DP_TOL = 1e-5  # a data-parallel step against one rank's: metrics relative, para
 ILL_CONDITIONED_G = 1e-7  # an Adam step of a weight whose gradient is this near 0 is noise
 
 
-def par_k1() -> dict:
-    """K1 launch counts since the last reset (no synchronisation: counted
-    in Python at launch)."""
-    return {"f32": AR.amp_resblock.launches, "bf16": AR.amp_resblock.launches_bf16}
-
-
 def dp_gaps(dp, one, dp_m: dict, one_m: dict, params, opt) -> dict:
     """A data-parallel trainer against one rank's after the same steps: the
     largest relative metric gap, the largest parameter gap outside the
@@ -3369,22 +3369,22 @@ def parallel_ranks(n: int, inp: dict) -> dict:
     blocks = voc_mod.prepare_kernel_params(voc, vcfg)
     smesh = SPL.make_sp_mesh(devices=devices)
     mel = torch.from_numpy(inp["mel"]).to(dev)
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     wav_sp = SPL.generator_apply_sp(voc, vcfg, mel, smesh, kernel_blocks=blocks)
-    launches = par_k1()
+    launches = kernel_launches()
     _, sp_ms = timed(lambda: SPL.generator_apply_sp(voc, vcfg, mel, smesh, kernel_blocks=blocks))
     out["sp"] = {"wav": wav_sp.cpu().numpy(), "launches": launches, "ms": sp_ms}
 
     # the two-stage pipeline
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     (codes_pp, wav_pp), pp_ms = timed(lambda: PPL.pipeline_resynth(
         bvrnn, cfg, voc, vcfg, inp["mel_mb"], inp["bits_mb"], PPL.make_pp_mesh(devices)))
     out["pp"] = {"codes": codes_pp.cpu().numpy(), "wav": wav_pp.cpu().numpy(),
-                 "launches": par_k1(), "ms": pp_ms}
+                 "launches": kernel_launches(), "ms": pp_ms}
 
     # the direct path (no kernel): SP exact and fast, the pipeline with
     # approx_snake
-    AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+    tracing.reset()
     sp_d = {"parity": SPL.generator_apply_sp(voc, vcfg, mel, smesh, use_pallas=False),
             "fast": SPL.generator_apply_sp(voc, vcfg, mel, smesh, precision="default",
                                            compute_dtype=torch.bfloat16, approx_snake=True)}
@@ -3392,7 +3392,7 @@ def parallel_ranks(n: int, inp: dict) -> dict:
                                           PPL.make_pp_mesh(devices), approx_snake=True)
     out["direct"] = {"sp": {k: v.cpu().numpy() for k, v in sp_d.items()},
                      "pp_codes": codes_d.cpu().numpy(), "pp_wav": wav_d.cpu().numpy(),
-                     "launches": par_k1()}
+                     "launches": kernel_launches()}
 
     # a data-parallel step of each trainer, at full width
     B = PAR_TRAIN_BATCH // n
@@ -3504,7 +3504,7 @@ def parallel_engines(codec: BVRNNCodecModel, wav: np.ndarray, codes: np.ndarray,
     inputs = [x[:PAR_STREAM_SAMPLES] for x in serve_inputs(wav[0])[:PAR_STREAMS]]
 
     def serve(eng):
-        AR.amp_resblock.launches = AR.amp_resblock.launches_bf16 = 0
+        tracing.reset()
         sids = []
         for i, x in enumerate(inputs):
             sids.append(eng.open_stream(SERVE_BITRATES[i % 3]))
@@ -3517,7 +3517,7 @@ def parallel_engines(codec: BVRNNCodecModel, wav: np.ndarray, codes: np.ndarray,
                 out[sid][0].append(c)
                 out[sid][1].append(w)
         return ([(np.stack(out[s][0]), np.concatenate(out[s][1])) for s in sids],
-                par_k1(), ticks)
+                kernel_launches(), ticks)
 
     n = PAR_DECODE_FRAMES  # the batch's codes twice
     dcodes = np.concatenate([codes, codes])[:, :n]
@@ -3587,7 +3587,7 @@ def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str):
         vlen = voc_in.shape[-1] * conf.hopsize
 
         def vocode():
-            return voc_mod.generator_apply_kernel(codec.weights.vocoder, codec.weights.blocks,
+            return voc_mod.generator_apply_kernel(codec.vocoder_params, codec.kernel_blocks,
                                                   conf.vocoder_config, voc_in, vlen)
 
         wav_ref = vocode()
@@ -3603,7 +3603,7 @@ def parallel_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str):
                                               codec._h0(x.shape[0]))
             pp_codes.append(z)
             pp_wav.append(voc_mod.generator_apply_kernel(
-                codec.weights.vocoder, codec.weights.blocks, conf.vocoder_config,
+                codec.vocoder_params, codec.kernel_blocks, conf.vocoder_config,
                 m.transpose(1, 2).contiguous(), PAR_MICRO_FRAMES * conf.hopsize))
             pp_direct.append(voc_mod.generator_apply(
                 codec.vocoder_params, conf.vocoder_config, m.transpose(1, 2).contiguous(),
@@ -3899,11 +3899,11 @@ def eval_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
             daemon_t0 = time.time()
 
             # dump_finetune_mels: bitwise the in-process decode of the encode
-            before = k1_launches()
+            before = kernel_launches()
             dump_finetune_mels.main(["--bvrnn_checkpoint", NPZ, "--input_wavs_dir", lay["stim"],
                                      "--input_training_file", lay["filelist"], "--output_dir",
                                      os.path.join(tmp, "mels"), "--bitrate", str(BITRATE)])
-            report["dump_launches"] = {k: v - before[k] for k, v in k1_launches().items()}
+            report["dump_launches"] = {k: v - before[k] for k, v in kernel_launches().items()}
             mel = np.load(os.path.join(tmp, "mels", "ref.npy"))
             x_raw = load_wav(WAV, conf.fs)[0]
             want = codec.decode_to_mel(codec.encode(x_raw, BITRATE)).cpu().numpy()
@@ -3928,7 +3928,7 @@ def eval_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
 
             EVC.score = keep
             try:
-                before = k1_launches()
+                before = kernel_launches()
                 t = time.time()
                 ev = EVC.main(["--stimuli_dir", lay["stimuli"], "--bvrnn_checkpoint", NPZ,
                                "--vocoder_checkpoint", VOC_NPZ, "--bitrates", *EVAL_BITRATES,
@@ -3937,7 +3937,7 @@ def eval_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
                 report["evaluate_seconds"] = time.time() - t
             finally:
                 EVC.score = score
-            launched = {k: v - before[k] for k, v in k1_launches().items()}
+            launched = {k: v - before[k] for k, v in kernel_launches().items()}
             vocodings = 2 * len(ev["rows"])  # a resynthesis and a concealed decode a row
             report["evaluate"] = {"summary": ev["summary"], "launches": launched,
                                   "vocoding_calls": vocodings}
@@ -3952,10 +3952,10 @@ def eval_phase(codec: BVRNNCodecModel, wav: np.ndarray, smi: str) -> None:
             report["synthesize"] = synthesize_checks(codec, lay, tmp, gates)
 
             # select_vocoder_ckpt: the trained vocoder before a seeded one
-            before = k1_launches()
+            before = kernel_launches()
             ranked = SEL.main(["--bvrnn_checkpoint", NPZ, "--candidates", lay["seeded"], VOC_NPZ,
                                "--stimuli", lay["ref"]])
-            launched = {k: v - before[k] for k, v in k1_launches().items()}
+            launched = {k: v - before[k] for k, v in kernel_launches().items()}
             report["select"] = {"ranked": [(l1, os.path.basename(p)) for l1, p in ranked],
                                 "launches": launched}
             gates += [("select_vocoder_ckpt ranks the trained vocoder first",
@@ -3995,11 +3995,11 @@ def synthesize_checks(codec: BVRNNCodecModel, lay: dict, tmp: str, gates: list) 
 
         SY._write = keep
         try:
-            before = k1_launches()
+            before = kernel_launches()
             paths = SY.main([f"--input_{mode}_dir", src, "--output_dir",
                              os.path.join(tmp, f"synth_{mode}"), "--checkpoint_file", VOC_NPZ,
                              "--config", DEFAULT_CONFIG])
-            launched = {k: v - before[k] for k, v in k1_launches().items()}
+            launched = {k: v - before[k] for k, v in kernel_launches().items()}
         finally:
             SY._write = write
         with torch.no_grad():
@@ -4131,13 +4131,10 @@ def probes_phase() -> list[dict]:
     version on the probes' inputs, timed beside its bound.  Returns the
     kernels' entries of the kernels line."""
     t0 = time.time()
-    counted = {"persistent_gru": PG.persistent_gru, "dot_chain": DP.dot_chain,
-               "gridded_dot": DP.gridded_dot}
-    for fn in counted.values():
-        fn.launches = 0
+    tracing.reset()
     gru_ms = probe_gru.run()
     roof = probe_roof.run()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = kernel_launches("persistent_gru", "dot_chain", "gridded_dot")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the probes did not launch: {launches}")
     emit("probes", t0, launches=launches, persistent_gru_ms=gru_ms, roofline=roof)

@@ -21,6 +21,7 @@ from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
 from bvsc_tpu_torch.device import set_parity_mode
 from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
 from bvsc_tpu_torch.ops import amp_resblock as AR
+from bvsc_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -121,11 +122,16 @@ def test_start_mask_bias_only(vcfg, params, stage):
     np.testing.assert_allclose(AR.amp_stack_tiled(xt, stage_blocks).numpy(), ref, atol=TOL)
 
 
+def _launches(name: str = "amp_resblock.launches") -> int:
+    """A kernel's launches so far (its ``utils.tracing`` counter)."""
+    return tracing.snapshot()["counters"].get(name, 0)
+
+
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing(params, refs):
     x, _, direct = refs[3]
-    before = AR.amp_resblock.launches
+    before = _launches()
     got = AR.amp_stack(torch.from_numpy(x), params[1][3]).numpy()
-    assert AR.amp_resblock.launches == before
+    assert _launches() == before
     np.testing.assert_allclose(got, direct, atol=TOL)
 
 
@@ -219,10 +225,10 @@ def test_kernel_matches_plain_on_card(params, stage):
     C = stage_blocks[0].channels
     x = torch.randn(2, C, 3 * AR.tile_for(C) + 17, generator=torch.Generator().manual_seed(0))
     x = (0.3 * x).cuda()
-    before = AR.amp_resblock.launches
+    before = _launches()
     got = AR.amp_stack(x, stage_blocks)
     torch.cuda.synchronize()
-    assert AR.amp_resblock.launches == before + len(stage_blocks)
+    assert _launches() == before + len(stage_blocks)
     ref = AR.amp_stack_plain(x, stage_blocks)
     assert (got - ref).abs().max().item() <= 1e-4
 

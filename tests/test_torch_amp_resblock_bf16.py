@@ -19,6 +19,7 @@ from bvsc_tpu_torch.config import CodecConfig
 from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
 from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
 from bvsc_tpu_torch.ops import amp_resblock as AR
+from bvsc_tpu_torch.utils import tracing
 from test_torch_amp_resblock import perturbed_generator_params
 from test_torch_amp_resblock_f32 import random_block
 
@@ -130,9 +131,10 @@ def test_wrapper_dispatch_on_cpu(params, refs):
     x, _, _ = refs[3]
     xt = torch.from_numpy(x)
     stage = params[1][3]
-    before = (AR.amp_resblock.launches, AR.amp_resblock.launches_bf16)
+    before = tracing.snapshot()["counters"]
     got = AR.amp_stack(xt, stage, BF16)
-    assert (AR.amp_resblock.launches, AR.amp_resblock.launches_bf16) == before
+    assert all(tracing.snapshot()["counters"].get(name, 0) == before.get(name, 0)
+               for name in ("amp_resblock.launches", "amp_resblock.launches_bf16"))
     assert torch.equal(got, AR.amp_stack_plain(xt, stage, BF16))
     assert not torch.equal(got, AR.amp_stack(xt, stage))
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -29,6 +29,7 @@ from bvsc_tpu_torch.config import CodecConfig
 from bvsc_tpu_torch.convert import to_torch, vocoder_params_from_jax
 from bvsc_tpu_torch.models.vocoder import prepare_kernel_params
 from bvsc_tpu_torch.ops import amp_resblock as AR
+from bvsc_tpu_torch.utils import tracing
 from test_torch_amp_resblock import perturbed_generator_params
 
 torch.set_num_threads(1)
@@ -149,10 +150,11 @@ def test_bf16io_op_and_checks(params):
         AR._check(x, rb, compute)
         with pytest.raises(ValueError, match="float32 or bf16"):
             AR._check(x.half(), rb, compute)
-    assert AR.COUNTERS == ("launches", "launches_bf16", "launches_io_bf16",
-                           "launches_bf16_io_bf16")
-    AR.reset_launches()
-    assert set(AR.read_launches().values()) == {0}
+    names = [entry[2] for entry in AR._ENTRIES.values()]
+    assert names == ["amp_resblock.launches", "amp_resblock.launches_bf16",
+                     "amp_resblock.launches_io_bf16", "amp_resblock.launches_bf16_io_bf16"]
+    tracing.reset()
+    assert [tracing.snapshot()["counters"].get(name, 0) for name in names] == [0] * 4
 
 
 @pytest.mark.gpu
@@ -171,11 +173,11 @@ def test_bf16io_kernel_matches_plain_on_card(params, stage, mode):
     C = blocks[0].channels
     x = torch.randn(2, C, 3 * AR.tile_for(C, compute) + 17,
                     generator=torch.Generator().manual_seed(0)).to(BF16).cuda()
-    AR.reset_launches()
+    tracing.reset()
     got = AR.amp_stack(x, blocks, compute)
     torch.cuda.synchronize()
     counter = "launches_io_bf16" if mode == "f32" else "launches_bf16_io_bf16"
-    assert AR.read_launches()[counter] == len(blocks)
+    assert tracing.snapshot()["counters"].get(f"amp_resblock.{counter}", 0) == len(blocks)
     ref = AR.amp_stack_plain(x, blocks, compute)
     assert got.dtype == BF16
     scale = ulp(np.array([ref.float().abs().max().item()]))[0]

@@ -159,6 +159,29 @@ def test_use_pallas_false_builds_the_direct_path(kwargs, approx, voc_dtype):
     assert "resblocks" in c.weights.tree()["vocoder"] and "blocks" not in c.weights.tree()
 
 
+@pytest.mark.parametrize("channels,use_pallas,want", [
+    (None, None, True), (256, None, False), (256, True, ValueError),
+], ids=["shipped", "c128-default", "c128-kernels"])
+def test_kernel_shapes_pick_the_path(channels, use_pallas, want):
+    """The kernels are built for the shipped stages' (C, k, d) only
+    (``ops.amp_resblock.F32_SHAPES``): the shipped config resolves to them;
+    with stage 0 at C = 128 the default takes the direct path and
+    ``use_pallas=True`` raises at construction, naming the shapes."""
+    import dataclasses
+
+    conf = CodecConfig(**SMALL)
+    if channels is not None:
+        conf = dataclasses.replace(conf, vocoder_config=dataclasses.replace(
+            conf.vocoder_config, upsample_initial_channel=channels))
+    if want is ValueError:
+        with pytest.raises(ValueError, match=r"use_pallas.*F32_SHAPES.*\(128, 3, 1\)"):
+            BVRNNCodecModel(config=conf, device="cpu", use_pallas=use_pallas)
+        return
+    c = BVRNNCodecModel(config=conf, device="cpu", use_pallas=use_pallas)
+    assert c.use_pallas is want and c.weights.direct is not want
+    assert (c.kernel_blocks is None) is not want
+
+
 def test_default_device_is_cuda():
     """No silent CPU fallback: without a card the default device raises."""
     if torch.cuda.is_available():

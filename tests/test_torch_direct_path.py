@@ -147,7 +147,7 @@ def test_direct_parity_is_the_kernel_paths_plain(trees, direct, x):  # noqa: F81
 
 def test_direct_fast_within_contract(trees, direct, direct_fast, jax_parity, x):  # noqa: F811
     assert (direct_fast.approx_snake, direct_fast.voc_dtype) == (True, "bf16")
-    assert direct_fast.weights.vocoder["conv_pre"]["w"].dtype == torch.bfloat16
+    assert direct_fast.weights.vocoder.params["conv_pre"]["w"].dtype == torch.bfloat16
     codes = direct_fast.encode(x, 3000).numpy()
     assert set(np.unique(codes)) <= {0.0, 0.5, 1.0}
     assert (codes == jax_parity["codes"]).mean() > AGREE_MIN

@@ -19,6 +19,7 @@ from jax.experimental import pallas as pl
 
 from bvsc_tpu_torch.benchmarks import probe_roofline as PR
 from bvsc_tpu_torch.ops import dot_probe as DP
+from bvsc_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -202,10 +203,14 @@ def test_gridded_tiled_matches_pallas(probe, tile_n):
 def test_wrappers_on_cpu_take_plain_and_count_nothing():
     rng = np.random.default_rng(3)
     (w, _), (x, _) = _bf16(rng, (32, DP.K)), _bf16(rng, (DP.K, 64))
-    before = DP.dot_chain.launches, DP.gridded_dot.launches
+    def launches():
+        counters = tracing.snapshot()["counters"]
+        return [counters.get(f"{name}.launches", 0) for name in ("dot_chain", "gridded_dot")]
+
+    before = launches()
     assert torch.equal(DP.dot_chain(w, x), DP.dot_chain_plain(w, x))
     assert torch.equal(DP.gridded_dot(w, x), DP.gridded_dot_plain(w, x))
-    assert (DP.dot_chain.launches, DP.gridded_dot.launches) == before
+    assert launches() == before
 
 
 def test_wrappers_have_no_fallback_for_other_devices():

@@ -4,8 +4,9 @@ CPU against the JAX scripts' ``main`` (``scripts/``) on the same BVRNN
 
 The TOML is read from that file's source, as ``tests/test_torch_train_cli.py``
 reads it, with one change: three dilations a resblock (``[1, 3, 5]``, the
-shipped configs' count) in place of its two, since the port's codec runs the
-residual stacks through the K1 path, which covers three-dilation blocks.
+shipped configs' count) in place of its two.  Its stages (8 channels down to 1)
+are narrower than any the kernels were built for, so the port's codec takes
+the direct path (``models.vocoder.resolve_vocoder_path``).
 JAX reads the vocoder from an Orbax ``g_`` directory
 (``bvsc_tpu.train.checkpoint.save_pytree``), the port the same weights as a
 ``.npz`` or its own ``g_`` file.  The JAX scripts run on the tests' JAX

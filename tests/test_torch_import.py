@@ -80,3 +80,18 @@ def test_training_modules_are_checked(module):
     """The training path's modules are among those the two tests above
     import and read."""
     assert module in _port_modules()
+
+
+def test_tracing_imports_nothing_from_the_ops():
+    """``utils.tracing`` is the bottom layer: the kernels' wrappers count
+    their launches through it, and it imports nothing of theirs."""
+    path = os.path.join(PKG, "utils", "tracing.py")
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        assert not any(n == "bvsc_tpu_torch.ops" or n.startswith("bvsc_tpu_torch.ops.")
+                       for n in names), (node.lineno, names)

@@ -18,6 +18,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from bvsc_tpu_torch.ops import persistent_gru as PG
+from bvsc_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -228,11 +229,16 @@ def test_tiled_refuses_what_the_kernel_refuses(inputs):
                                 *(t[..., :48] for t in _rest(inputs)[2:]), 1, 8)
 
 
+def _launches() -> int:
+    """K2's launches so far (its ``utils.tracing`` counter)."""
+    return tracing.snapshot()["counters"].get("persistent_gru.launches", 0)
+
+
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing(inputs, pallas_out):
     _, (wi, wh) = _weights(inputs, False)
-    before = PG.persistent_gru.launches
+    before = _launches()
     got = PG.persistent_gru(wi, wh, *_rest(inputs), 1).numpy()
-    assert PG.persistent_gru.launches == before
+    assert _launches() == before
     np.testing.assert_allclose(got, pallas_out[False, 1], rtol=0, atol=TOL)
 
 
@@ -258,10 +264,10 @@ def test_kernel_matches_plain_on_card(inputs, dequant):
     torch.backends.cuda.matmul.allow_tf32 = False
     _, (wi, wh) = _weights(inputs, dequant)
     args = [t.cuda() for t in (wi, wh, *_rest(inputs))]
-    before = PG.persistent_gru.launches
+    before = _launches()
     for steps in STEPS:
         got = PG.persistent_gru(*args, steps, dequant=dequant)
         torch.cuda.synchronize()
         ref = PG.persistent_gru_plain(*args, steps, dequant=dequant)
         assert (got - ref).abs().max().item() <= tol(steps)
-    assert PG.persistent_gru.launches == before + len(STEPS)
+    assert _launches() == before + len(STEPS)

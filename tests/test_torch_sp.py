@@ -8,9 +8,11 @@ in another order; ``tests/test_sp.py``'s bound), within 1e-4 of the JAX
 package's (the cross-package vocoder bound).  The cases are
 ``tests/test_sp.py``'s (shards, frames) that fit 4 ranks, a 2 x 2 data x
 seq mesh, and the default full-width vocoder at 8 frames a shard, whose
-stage-0 context (120 samples) spans two ranks to the left.  The residual
-stacks run through ``ops.amp_resblock.amp_stack`` with ``ctx`` / ``start``
-(the kernels' plain versions here).
+stage-0 context (120 samples) spans two ranks to the left.  Each stage's
+residual stack runs through ``models.vocoder.Vocoder.stage`` with ``ctx`` /
+``start``: the kernels' plain versions here at full width, and the direct
+path's blocks at the small config, whose shapes the kernels were not built
+for; the one-shot reference runs the same path.
 """
 
 import jax
@@ -24,7 +26,9 @@ from bvsc_tpu.models import vocoder as JV
 from bvsc_tpu.parallel import sp as JS
 from bvsc_tpu_torch.config import CodecConfig, VocoderConfig
 from bvsc_tpu_torch.convert import vocoder_params_from_jax
-from bvsc_tpu_torch.models.vocoder import generator_apply_kernel, prepare_kernel_params
+from bvsc_tpu_torch.models.vocoder import (generator_apply, generator_apply_kernel,
+                                           prepare_kernel_params)
+from bvsc_tpu_torch.ops.amp_resblock import supported
 from test_codec import small_conf
 from test_torch_amp_resblock import perturbed_generator_params
 from torch_parallel_ranks import spawn
@@ -62,10 +66,15 @@ def wide():
 
 
 def _one_shot(params, cfg, mel):
+    """The one-shot generator on the path sequence parallelism resolves to
+    by default: the kernels where they cover ``cfg``, else the direct one."""
     with torch.no_grad():
         m = torch.from_numpy(mel)
-        return generator_apply_kernel(params, prepare_kernel_params(params, cfg), cfg, m,
-                                      m.shape[-1] * cfg.total_upsample).numpy()
+        length = m.shape[-1] * cfg.total_upsample
+        if supported(cfg):
+            return generator_apply_kernel(params, prepare_kernel_params(params, cfg), cfg, m,
+                                          length).numpy()
+        return generator_apply(params, cfg, m, length).numpy()
 
 
 def _jax_sp(jcfg, tree, mel, n, kind):

@@ -143,8 +143,7 @@ def test_stream_vocoder_equals_oneshot(codec, chunks):
                                          24 * HOP)
     state, outs, t = S.generator_stream_init(cfg, 2, "cpu"), [], 0
     for n in chunks:
-        state, y = S.generator_stream_step(codec.vocoder_params, codec.kernel_blocks, cfg, state,
-                                           mel[..., t: t + n])
+        state, y = S.generator_stream_step(codec.weights.vocoder, state, mel[..., t: t + n])
         outs.append(y)
         t += n
     got = torch.cat(outs, -1)
@@ -163,8 +162,7 @@ def test_stage_state_after_a_step(codec):
     mel = torch.zeros(1, 80, 1)
     fed = []
     for _ in range(3):
-        state, _ = S.generator_stream_step(codec.vocoder_params, codec.kernel_blocks, cfg, state,
-                                           mel)
+        state, _ = S.generator_stream_step(codec.weights.vocoder, state, mel)
         fed.append([int(st["fed"]) for st in state["stages"]])
         assert [st["ctx"].shape[-1] for st in state["stages"]] == [ctx] * 4
     assert fed == [[8, 64, 120, 120], [16, 120, 120, 120], [24, 120, 120, 120]]

@@ -50,6 +50,46 @@ def test_kernel_path_on_cpu_equals_plain(setup):
     )
 
 
+@pytest.mark.parametrize("path", ["kernel", "direct"])
+def test_every_stage_runs_through_the_one_stage_function(setup, path, monkeypatch):
+    """On either path, one-shot and streaming over the same mel each make 4
+    stage calls a call, all through ``Vocoder.stage``, which finds the
+    stacks' function (``amp_stack``, or ``amp_block`` once a block) in
+    ``models.vocoder`` when it is called.  One-shot stays bitwise the direct
+    path (the kernels' plain version on the CPU), streaming within 1e-5 of
+    one-shot (the overlap adds' sums)."""
+    from bvsc_tpu_torch import streaming as S
+
+    _, port, tcfg, mel, _ = setup
+    m = torch.from_numpy(mel)
+    kernel = path == "kernel"
+    name = "amp_stack" if kernel else "amp_block"
+    calls = {"stage": 0, name: 0}
+
+    def counting(key, fn):
+        def inner(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return inner
+
+    monkeypatch.setattr(TV.Vocoder, "stage", counting("stage", TV.Vocoder.stage))
+    monkeypatch.setattr(TV, name, counting(name, getattr(TV, name)))
+    per_stage = 1 if kernel else len(tcfg.resblock_kernel_sizes)
+    with torch.no_grad():
+        if kernel:
+            y = TV.generator_apply_kernel(port, TV.prepare_kernel_params(port, tcfg), tcfg, m,
+                                          FRAMES * 256)
+        else:
+            y = TV.generator_apply(port, tcfg, m, FRAMES * 256)
+        assert calls == {"stage": 4, name: 4 * per_stage}
+        _, streamed = S.generator_stream_step(TV.prepare_vocoder(port, tcfg, kernel),
+                                              S.generator_stream_init(tcfg, 2, "cpu"), m)
+        assert calls == {"stage": 8, name: 8 * per_stage}
+        monkeypatch.undo()
+        assert torch.equal(y, TV.generator_apply(port, tcfg, m, FRAMES * 256))
+    assert (streamed - y).abs().max().item() <= 1e-5
+
+
 def test_weight_norm_params_fold_like_jax():
     """Trainer-style (g, v) params fold to the same inference weights."""
     jcfg = JCodecConfig().vocoder_config

@@ -282,9 +282,7 @@ def test_sp_direct_path(wide, kw, tmp_path):
     """Two seq ranks on the direct path (exact snake, and approx_snake,
     which picks it), full width, 16 frames a shard: within 1e-5 of the
     one-shot direct generator, and the kernel path with approx_snake
-    refused."""
-    from bvsc_tpu_torch.parallel import sp as SP
-
+    refused by the one resolver."""
     cfg, params, mel = wide
     approx = kw.get("approx_snake", False)
     with torch.no_grad():
@@ -295,7 +293,7 @@ def test_sp_direct_path(wide, kw, tmp_path):
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= 1e-5
     with pytest.raises(ValueError, match="approx_snake"):
-        SP.direct_path(True, True)
+        TV.resolve_vocoder_path(cfg, False, True, True, None)
 
 
 def test_pp_direct_path(wide, tmp_path):
